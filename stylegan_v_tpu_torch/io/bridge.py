@@ -1,0 +1,74 @@
+"""Weight bridge: the JAX package's flax variable trees -> the port's state_dicts.
+
+The inverse of stylegan_v_tpu/io/legacy.py:convert_generator_state and
+convert_discriminator_state. Input is the flax variable tree as nested dicts
+of numpy arrays; output is a state_dict of float32 CPU tensors with the
+original StyleGAN-V names, for `load_state_dict`.
+
+Layout conversions (flax -> port):
+    linear    [in, out]        -> [out, in]
+    conv2d    [kh, kw, I, O]   -> [O, I, kh, kw]
+    conv1d    [k, I, O]        -> [O, I, k]       (motion_encoder.convN -> conv.N)
+    const     [4, 4, C]        -> [C, 4, 4]
+    embedding                  -> weight
+    noise_const [H, W, 1]      -> [H, W]
+    moving/mapping/w_avg       -> the mapping.w_avg buffer
+    D epilogue fc: input rows from the flax HWC flatten to the port's CHW flatten
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+
+def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
+            ) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _leaves(val, prefix + (key,))
+        else:
+            yield prefix + (key,), np.asarray(val, dtype=np.float32)
+
+
+def _convert_param(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    if "rnn" in path:
+        raise NotImplementedError("the autoregressive (LSTM) motion encoder is not ported yet")
+    leaf = path[-1]
+    if leaf == "weight" and arr.ndim == 2:
+        arr = arr.T
+    elif leaf == "weight" and arr.ndim == 3:
+        arr = arr.transpose(2, 1, 0)
+    elif leaf == "weight" and arr.ndim == 4:
+        arr = arr.transpose(3, 2, 0, 1)
+    elif leaf == "const":
+        arr = arr.transpose(2, 0, 1)
+    elif leaf == "embedding":
+        path = path[:-1] + ("weight",)
+    if path[-3:-2] == ("motion_encoder",) and path[-2] in ("conv0", "conv1"):
+        path = path[:-2] + ("conv", path[-2][-1], leaf)            # an nn.Sequential
+    return ".".join(path), arr
+
+
+def _state_dict(named: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    return {k: torch.tensor(v, dtype=torch.float32) for k, v in named.items()}
+
+
+def jax_to_torch_generator(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax Generator variables {'params', 'moving'?, 'buffers'?} -> Generator state_dict."""
+    out = dict(_convert_param(p, a) for p, a in _leaves(variables["params"]))
+    for path, arr in _leaves(variables.get("moving", {})):
+        out[".".join(path)] = arr                                 # mapping.w_avg
+    for path, arr in _leaves(variables.get("buffers", {})):
+        out[".".join(path)] = arr[:, :, 0]                        # noise_const
+    return _state_dict(out)
+
+
+def jax_to_torch_discriminator(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax Discriminator variables {'params'} -> Discriminator state_dict."""
+    out = dict(_convert_param(p, a) for p, a in _leaves(variables["params"]))
+    w = out["b4.fc.weight"]                       # [out, 4*4*C], HWC order
+    n_out = w.shape[0]
+    out["b4.fc.weight"] = w.reshape(n_out, 4, 4, -1).transpose(0, 3, 1, 2).reshape(n_out, -1)
+    return _state_dict(out)

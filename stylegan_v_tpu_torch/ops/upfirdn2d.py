@@ -1,0 +1,158 @@
+"""upfirdn2d — pad, upsample, FIR-filter, downsample a batch of NCHW images.
+
+PyTorch counterpart of stylegan_v_tpu/ops/upfirdn2d.py. Each filter pass is
+one zero-insert upsample, one pad (negative crops) and one depthwise
+`F.conv2d` whose stride does the decimation.
+
+Semantics (reference upfirdn2d.py:120-158):
+  1. Upsample by inserting up-1 zeros after each pixel.
+  2. Pad with zeros (negative padding crops) — relative to the upsampled image.
+  3. Convolve with the FIR filter f (flip_filter=False means true convolution).
+  4. Downsample by keeping every down-th pixel (starting at 0).
+
+On a CUDA tensor, exactly one case goes to a hand-written kernel: up=1,
+down=2, a 4x4 filter and padding [1,1,1,1], with even H and W
+(`fir_kernels.downfirdn2d_x2`). Every other case is plain PyTorch.
+
+Filters are host constants: `setup_filter` returns a float32 CPU tensor, and
+each call copies it to the device without a stream sync.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..utils.misc import parse_padding, parse_scaling
+from .fir_kernels import downfirdn2d_x2
+
+Filter = Union[torch.Tensor, np.ndarray, Sequence[float], None]
+
+
+def setup_filter(f: Filter, normalize: bool = True, flip_filter: bool = False,
+                 gain: float = 1.0, separable: Optional[bool] = None) -> torch.Tensor:
+    """Prepare a FIR filter: a float32 CPU tensor [fh, fw], or [taps] if separable."""
+    if f is None:
+        f = 1
+    f = torch.as_tensor(np.asarray(f, dtype=np.float32))
+    assert f.ndim in (0, 1, 2)
+    assert f.numel() > 0
+    if f.ndim == 0:
+        f = f[None]
+
+    if separable is None:
+        separable = (f.ndim == 1 and f.numel() >= 8)
+    if f.ndim == 1 and not separable:
+        f = torch.outer(f, f)
+    assert f.ndim == (1 if separable else 2)
+
+    if normalize:
+        f = f / f.sum()
+    if flip_filter:
+        f = f.flip(list(range(f.ndim)))
+    f = f * (gain ** (f.ndim / 2))
+    return f.contiguous()
+
+
+def _filter_size(f: Filter):
+    """Return (fw, fh)."""
+    if f is None:
+        return 1, 1
+    fa = torch.as_tensor(f)
+    assert fa.ndim in (1, 2)
+    return int(fa.shape[-1]), int(fa.shape[0])
+
+
+def _depthwise_pass(x: torch.Tensor, k: torch.Tensor, up: Sequence[int],
+                    down: Sequence[int], pad: Sequence[int]) -> torch.Tensor:
+    """One (zero-insert, pad, filter, decimate) pass; k is already flipped and gained.
+
+    The reshape-style upsample yields n*up samples, i.e. the trailing up-1
+    zeros that the JAX version folds into its high padding.
+    """
+    upx, upy = up
+    downx, downy = down
+    px0, px1, py0, py1 = pad
+    N, C, H, W = x.shape
+    if upx > 1 or upy > 1:
+        x = x.reshape(N, C, H, 1, W, 1)
+        x = F.pad(x, [0, upx - 1, 0, 0, 0, upy - 1])
+        x = x.reshape(N, C, H * upy, W * upx)
+    x = F.pad(x, [px0, px1, py0, py1])
+    kernel = k.to(x.device, x.dtype, non_blocking=True)[None, None].expand(C, 1, *k.shape)
+    return F.conv2d(x, kernel, stride=(downy, downx), groups=C)
+
+
+def _is_k1_case(x: torch.Tensor, f: torch.Tensor, up, down, padding) -> bool:
+    return (x.is_cuda and f.shape == (4, 4) and up == [1, 1] and down == [2, 2]
+            and padding == [1, 1, 1, 1] and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0)
+
+
+def upfirdn2d(x: torch.Tensor, f: Filter, up=1, down=1, padding=0,
+              flip_filter: bool = False, gain: float = 1.0) -> torch.Tensor:
+    """Pad, upsample, filter, downsample (see module docstring).
+
+    Args:
+        x:       [N, C, H, W] float tensor.
+        f:       FIR filter [fh, fw] (non-separable), [taps] (separable) or None.
+        up:      int or (ux, uy) upsampling factor.
+        down:    int or (dx, dy) downsampling factor.
+        padding: int, (px, py) or (px0, px1, py0, py1), w.r.t. the upsampled image.
+        flip_filter: False = convolution, True = correlation.
+        gain:    overall magnitude scaling.
+    """
+    assert x.ndim == 4, f"expected NCHW, got shape {tuple(x.shape)}"
+    up = parse_scaling(up)
+    down = parse_scaling(down)
+    padding = parse_padding(padding)
+    f = torch.ones(1, 1) if f is None else torch.as_tensor(f, dtype=torch.float32)
+    assert f.ndim in (1, 2)
+
+    if _is_k1_case(x, f, up, down, padding):
+        # The kernel flips its filter (true convolution); pre-flip to correlate.
+        fk = f.flip([0, 1]) if flip_filter else f
+        return downfirdn2d_x2(x, fk * gain)
+
+    if not flip_filter:
+        f = f.flip(list(range(f.ndim)))
+    if f.ndim == 2:
+        return _depthwise_pass(x, f * gain, up, down, padding)
+
+    # Separable: horizontal pass then vertical pass, sqrt(gain) each.
+    px0, px1, py0, py1 = padding
+    g = float(np.sqrt(gain))
+    x = _depthwise_pass(x, (f * g)[None, :], (up[0], 1), (down[0], 1), (px0, px1, 0, 0))
+    return _depthwise_pass(x, (f * g)[:, None], (1, up[1]), (1, down[1]), (0, 0, py0, py1))
+
+
+def filter2d(x: torch.Tensor, f: Filter, padding=0, flip_filter: bool = False,
+             gain: float = 1.0) -> torch.Tensor:
+    """Filter with shape-preserving default padding (reference upfirdn2d.py:272-304)."""
+    px0, px1, py0, py1 = parse_padding(padding)
+    fw, fh = _filter_size(f)
+    p = [px0 + fw // 2, px1 + (fw - 1) // 2, py0 + fh // 2, py1 + (fh - 1) // 2]
+    return upfirdn2d(x, f, padding=p, flip_filter=flip_filter, gain=gain)
+
+
+def upsample2d(x: torch.Tensor, f: Filter, up=2, padding=0, flip_filter: bool = False,
+               gain: float = 1.0) -> torch.Tensor:
+    """Upsample with a FIR filter (reference upfirdn2d.py:308-343)."""
+    upx, upy = parse_scaling(up)
+    px0, px1, py0, py1 = parse_padding(padding)
+    fw, fh = _filter_size(f)
+    p = [px0 + (fw + upx - 1) // 2, px1 + (fw - upx) // 2,
+         py0 + (fh + upy - 1) // 2, py1 + (fh - upy) // 2]
+    return upfirdn2d(x, f, up=up, padding=p, flip_filter=flip_filter, gain=gain * upx * upy)
+
+
+def downsample2d(x: torch.Tensor, f: Filter, down=2, padding=0, flip_filter: bool = False,
+                 gain: float = 1.0) -> torch.Tensor:
+    """Downsample with a FIR filter (reference upfirdn2d.py:347-382)."""
+    downx, downy = parse_scaling(down)
+    px0, px1, py0, py1 = parse_padding(padding)
+    fw, fh = _filter_size(f)
+    p = [px0 + (fw - downx + 1) // 2, px1 + (fw - downx) // 2,
+         py0 + (fh - downy + 1) // 2, py1 + (fh - downy) // 2]
+    return upfirdn2d(x, f, down=down, padding=p, flip_filter=flip_filter, gain=gain)

@@ -1,0 +1,111 @@
+"""The downfirdn2d_x2 kernel of the PyTorch port (K1).
+
+On CPU: its plain version against the JAX package's Pallas kernel in
+interpret mode (the same shapes as tests/test_pallas_kernels.py plus an
+asymmetric filter), and the wrapper's input checks. float32 holds to 1e-5;
+bf16 to 1e-2, since both sides round once from a float32 sum.
+
+Tests marked `cuda` need an NVIDIA GPU and nvcc; they skip elsewhere. On
+such a machine, which need not have jax:
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
+"""
+import numpy as np
+import pytest
+import torch
+
+from stylegan_v_tpu_torch.ops import (downfirdn2d_x2, downfirdn2d_x2_plain, downsample2d,
+                                      setup_filter, upfirdn2d)
+
+SYM = np.outer([1, 3, 3, 1], [1, 3, 3, 1]).astype(np.float32) / 64
+ASYM = (np.arange(16, dtype=np.float32).reshape(4, 4) - 5.0) / 40
+TOLS = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def assert_close(got: torch.Tensor, want: torch.Tensor, dtype):
+    assert got.shape == want.shape and got.dtype == want.dtype == dtype
+    tol = TOLS[dtype]
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 16, 8), (1, 32, 64, 16), (3, 8, 8, 4)])
+@pytest.mark.parametrize("filt", ["sym", "asym"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_matches_pallas_interpret(shape, filt, dtype):
+    import jax.numpy as jnp   # here, not at the top: the `cuda` tests run without jax
+    from stylegan_v_tpu.ops.pallas_kernels import downfirdn2d_x2 as pallas_downfirdn2d_x2
+
+    f = SYM if filt == "sym" else ASYM
+    x = torch.from_numpy(np.random.RandomState(0).randn(*shape).astype(np.float32)).to(dtype)
+    jx = jnp.asarray(x.float().numpy()).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                                                else jnp.float32)
+    want = pallas_downfirdn2d_x2(jx, f, interpret=True)
+    want = torch.tensor(np.asarray(want.astype(jnp.float32))).to(dtype)
+    got = downfirdn2d_x2_plain(x.permute(0, 3, 1, 2).contiguous(), f)
+    assert_close(got.permute(0, 2, 3, 1), want, dtype)
+
+
+def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
+    x = torch.randn(2, 3, 8, 6, generator=torch.Generator().manual_seed(1))
+    before = downfirdn2d_x2.launches
+    got = downfirdn2d_x2(x, SYM)
+    assert downfirdn2d_x2.launches == before
+    torch.testing.assert_close(got, downfirdn2d_x2_plain(x, SYM), rtol=0, atol=0)
+    torch.testing.assert_close(got, downsample2d(x, setup_filter([1, 3, 3, 1])),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,f,match", [
+    ((2, 3, 7, 8), SYM, "even"),
+    ((2, 3, 8), SYM, "NCHW"),
+    ((2, 3, 8, 8), np.ones((3, 3), np.float32), "4x4"),
+])
+def test_wrapper_rejects_what_the_kernel_does_not_take(shape, f, match):
+    with pytest.raises(ValueError, match=match):
+        downfirdn2d_x2(torch.zeros(shape), f)
+
+
+# ------------------------------------------------------------ on the card
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("filt", ["sym", "asym"])
+def test_kernel_matches_plain_on_card(cuda, dtype, filt):
+    f = SYM if filt == "sym" else ASYM
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(3, 5, 18, 34, generator=g, device=cuda).to(dtype)
+    before = downfirdn2d_x2.launches
+    got = downfirdn2d_x2(x, f)
+    torch.cuda.synchronize()
+    assert downfirdn2d_x2.launches == before + 1
+    assert_close(got, downfirdn2d_x2_plain(x, f), dtype)
+
+
+@pytest.mark.cuda
+def test_upfirdn2d_sends_only_the_k1_case_to_the_kernel(cuda):
+    f = setup_filter([1, 3, 3, 1])
+    x = torch.randn(2, 4, 16, 16, device=cuda)
+    before = downfirdn2d_x2.launches
+    got = upfirdn2d(x, f, down=2, padding=1)
+    assert downfirdn2d_x2.launches == before + 1
+    torch.testing.assert_close(got, downfirdn2d_x2_plain(x, f), rtol=1e-5, atol=1e-5)
+    upfirdn2d(x, f, down=2, padding=2)
+    upfirdn2d(x, f, up=2, padding=1)
+    upfirdn2d(x[:, :, :15, :15], f, down=2, padding=1)
+    assert downfirdn2d_x2.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_kernel_raises_on_cuda_input_it_does_not_take(cuda):
+    x = torch.randn(2, 4, 16, 16, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        downfirdn2d_x2(x.transpose(2, 3), SYM)
+    with pytest.raises(ValueError, match="bfloat16"):
+        downfirdn2d_x2(x.half(), SYM)
