@@ -1,1 +1,5 @@
-from .bridge import jax_to_torch_discriminator, jax_to_torch_generator  # noqa: F401
+from .bridge import (  # noqa: F401
+    jax_to_torch_discriminator,
+    jax_to_torch_generator,
+    jax_to_torch_train_state,
+)

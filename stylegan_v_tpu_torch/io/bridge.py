@@ -1,4 +1,5 @@
-"""Weight bridge: the JAX package's flax variable trees -> the port's state_dicts.
+"""Weight bridge: the JAX package's flax variable trees -> the port's state_dicts,
+and its training state -> the port's (`jax_to_torch_train_state`).
 
 The inverse of stylegan_v_tpu/io/legacy.py:convert_generator_state and
 convert_discriminator_state. Input is the flax variable tree as nested dicts
@@ -72,3 +73,28 @@ def jax_to_torch_discriminator(variables: Mapping[str, Any]) -> Dict[str, torch.
     n_out = w.shape[0]
     out["b4.fc.weight"] = w.reshape(n_out, 4, 4, -1).transpose(0, 3, 1, 2).reshape(n_out, -1)
     return _state_dict(out)
+
+
+def jax_to_torch_train_state(state) -> Dict[str, Any]:
+    """The JAX package's TrainState -> the pieces of the port's TrainState.
+
+    params_G and params_Gema are Generator state_dicts (their w_avg buffer
+    taken from extra_G and extra_Gema), params_D a Discriminator state_dict;
+    w_avg is G's buffer on its own; pl_mean, augment_p and ada_sign_acc are
+    floats, step and cur_nimg ints. Adam's moments are not carried: they
+    start at zero on both sides.
+    """
+    params_G = jax_to_torch_generator({"params": state.params_G, **state.extra_G})
+    return {
+        "params_G": params_G,
+        "params_D": jax_to_torch_discriminator({"params": state.params_D}),
+        "params_Gema": jax_to_torch_generator({"params": state.params_Gema,
+                                               **state.extra_Gema}),
+        "w_avg": params_G["mapping.w_avg"],
+        "pl_mean": float(np.asarray(state.pl_mean)),
+        "augment_p": float(np.asarray(state.augment_p)),
+        "ada_sign_acc": float(np.asarray(state.ada_sign_acc)),
+        "step": int(np.asarray(state.step)),
+        "cur_nimg": int(np.asarray(state.cur_nimg)),
+    }
+

@@ -9,7 +9,8 @@ src/training/networks.py:406-673), NCHW: a StyleGAN2 discriminator with
      ([B*F,C,H,W] -> [B,F*C,H,W], channel index f*C + c).
 
 The resnet skip of every block is a 1x1 down=2 conv, whose FIR downsample
-runs the downfirdn2d_x2 kernel on CUDA tensors.
+runs the downfirdn2d_x2 kernel (K1) on CUDA tensors, and its adjoint kernel
+(K1-bwd) in every backward through it.
 """
 from __future__ import annotations
 
@@ -28,13 +29,16 @@ from .layers import Conv2dLayer, FullyConnectedLayer, MappingNetwork, TemporalDi
 class DiscriminatorBlock(nn.Module):
     """Two convs + resnet skip, downsampling by 2 (reference networks.py:406-488).
 
-    Freeze-D (`freeze_layers`) only masks gradients and is not ported yet.
+    Freeze-D: the block's layers are numbered from `first_layer_idx` in the
+    order fromrgb?, conv0, conv1, skip? (stylegan_v_tpu/models/discriminator.py:50-56);
+    a layer whose number is below `freeze_layers` is built with trainable=False.
     """
 
     def __init__(self, in_channels: int, tmp_channels: int, out_channels: int,
-                 resolution: int, img_channels: int, architecture: str = "resnet",
-                 activation: str = "lrelu", resample_filter=(1, 3, 3, 1),
-                 conv_clamp: Optional[float] = None, use_bf16: bool = False,
+                 resolution: int, img_channels: int, first_layer_idx: int = 0,
+                 architecture: str = "resnet", activation: str = "lrelu",
+                 resample_filter=(1, 3, 3, 1), conv_clamp: Optional[float] = None,
+                 use_bf16: bool = False, freeze_layers: int = 0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.in_channels = in_channels
@@ -44,17 +48,23 @@ class DiscriminatorBlock(nn.Module):
         self.use_bf16 = use_bf16
         self.resample_filter = setup_filter(resample_filter)
         self.has_fromrgb = in_channels == 0 or architecture == "skip"
-        conv_kwargs = dict(activation=activation, conv_clamp=conv_clamp, generator=generator)
+        self.num_layers = int(self.has_fromrgb) + 2 + int(architecture == "resnet")
+        idx = iter(range(first_layer_idx, first_layer_idx + self.num_layers))
 
+        def conv(*args, **kwargs):
+            return Conv2dLayer(*args, trainable=next(idx) >= freeze_layers,
+                               generator=generator, **kwargs)
+
+        conv_kwargs = dict(activation=activation, conv_clamp=conv_clamp)
         if self.has_fromrgb:
-            self.fromrgb = Conv2dLayer(img_channels, tmp_channels, kernel_size=1, **conv_kwargs)
+            self.fromrgb = conv(img_channels, tmp_channels, kernel_size=1, **conv_kwargs)
         conv0_in = in_channels if in_channels > 0 else tmp_channels
-        self.conv0 = Conv2dLayer(conv0_in, tmp_channels, kernel_size=3, **conv_kwargs)
-        self.conv1 = Conv2dLayer(tmp_channels, out_channels, kernel_size=3, down=2,
-                                 resample_filter=resample_filter, **conv_kwargs)
+        self.conv0 = conv(conv0_in, tmp_channels, kernel_size=3, **conv_kwargs)
+        self.conv1 = conv(tmp_channels, out_channels, kernel_size=3, down=2,
+                          resample_filter=resample_filter, **conv_kwargs)
         if architecture == "resnet":
-            self.skip = Conv2dLayer(conv0_in, out_channels, kernel_size=1, bias=False, down=2,
-                                    resample_filter=resample_filter, generator=generator)
+            self.skip = conv(conv0_in, out_channels, kernel_size=1, bias=False, down=2,
+                             resample_filter=resample_filter)
 
     def forward(self, x: Optional[torch.Tensor], img: Optional[torch.Tensor],
                 force_fp32: bool = False):
@@ -178,6 +188,7 @@ class Discriminator(nn.Module):
             total_c_dim += self.time_encoder.get_dim()
 
         bf16_resolution = max(2 ** (log2res + 1 - cfg.num_bf16_res), 8)
+        cur_layer_idx = 0
         for res in self.block_resolutions:
             in_ch = chans[res] if res < cfg.img_resolution else 0
             out_ch = chans[res // 2]
@@ -185,11 +196,14 @@ class Discriminator(nn.Module):
                 out_ch = out_ch // cfg.num_frames_div_factor
             if res == cfg.concat_res:
                 in_ch = (in_ch // cfg.num_frames_div_factor) * nf
-            setattr(self, f"b{res}", DiscriminatorBlock(
+            block = DiscriminatorBlock(
                 in_ch, chans[res], out_ch, resolution=res, img_channels=cfg.img_channels,
-                architecture=cfg.architecture, resample_filter=cfg.resample_filter,
-                conv_clamp=cfg.conv_clamp, use_bf16=(res >= bf16_resolution),
-                generator=generator))
+                first_layer_idx=cur_layer_idx, architecture=cfg.architecture,
+                resample_filter=cfg.resample_filter, conv_clamp=cfg.conv_clamp,
+                use_bf16=(res >= bf16_resolution), freeze_layers=cfg.freeze_layers,
+                generator=generator)
+            setattr(self, f"b{res}", block)
+            cur_layer_idx += block.num_layers
 
         if total_c_dim > 0 and cmap_dim > 0:
             self.mapping = MappingNetwork(z_dim=0, c_dim=total_c_dim, w_dim=cmap_dim,

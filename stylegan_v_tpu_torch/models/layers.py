@@ -61,14 +61,18 @@ class FullyConnectedLayer(nn.Module):
 class Conv2dLayer(nn.Module):
     """Equalized-LR conv with optional FIR up/downsampling (reference layers.py:143-197).
 
-    Computes in the dtype of its input.
+    Computes in the dtype of its input. `trainable=False` (Freeze-D) detaches
+    weight and bias in forward, so their gradient is zero, as the JAX
+    package's stop_gradient gives it (stylegan_v_tpu/models/layers.py:86-88).
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  bias: bool = True, activation: str = "linear", up: int = 1, down: int = 1,
                  resample_filter=(1, 3, 3, 1), conv_clamp: Optional[float] = None,
-                 lr_multiplier: float = 1.0, generator: Optional[torch.Generator] = None):
+                 lr_multiplier: float = 1.0, trainable: bool = True,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
+        self.trainable = trainable
         self.activation = activation
         self.up = up
         self.down = down
@@ -83,8 +87,12 @@ class Conv2dLayer(nn.Module):
         self.bias = nn.Parameter(torch.zeros([out_channels])) if bias else None
 
     def forward(self, x: torch.Tensor, gain: float = 1.0) -> torch.Tensor:
-        w = self.weight * (self.weight_gain * self.lr_multiplier)
-        b = self.bias * self.lr_multiplier if self.bias is not None else None
+        w, b = self.weight, self.bias
+        if not self.trainable:
+            w = w.detach()
+            b = b.detach() if b is not None else None
+        w = w * (self.weight_gain * self.lr_multiplier)
+        b = b * self.lr_multiplier if b is not None else None
         x = conv2d_resample(x, w, f=self.resample_filter, up=self.up,
                             down=self.down, padding=self.padding,
                             flip_weight=(self.up == 1))

@@ -1,6 +1,11 @@
 from .bias_act import activation_funcs, bias_act  # noqa: F401
 from .conv2d_resample import conv2d_resample  # noqa: F401
-from .fir_kernels import downfirdn2d_x2, downfirdn2d_x2_plain  # noqa: F401
+from .fir_kernels import (  # noqa: F401
+    downfirdn2d_x2,
+    downfirdn2d_x2_bwd,
+    downfirdn2d_x2_bwd_plain,
+    downfirdn2d_x2_plain,
+)
 from .modulated_conv2d import modulated_conv2d  # noqa: F401
 from .upfirdn2d import (  # noqa: F401
     downsample2d,

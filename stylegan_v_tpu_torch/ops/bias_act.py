@@ -2,8 +2,9 @@
 
 Counterpart of stylegan_v_tpu/ops/bias_act.py (reference
 src/torch_utils/ops/bias_act.py). The bias runs along `dim`, 1 by default
-for NCHW. The clamp's gradient is zero where the output was clipped, as
-`torch.clamp` gives it.
+for NCHW. The clamp's gradient is zero beyond the bounds and one half where
+the input equals a bound, as the JAX package's `jnp.clip` gives it (a
+`torch.clamp` would pass all of it there).
 """
 from __future__ import annotations
 
@@ -63,5 +64,6 @@ def bias_act(x: torch.Tensor, b: Optional[torch.Tensor] = None, dim: int = 1,
     if gain != 1.0:
         x = x * float(torch.tensor(gain, dtype=x.dtype))   # gain rounded to x's dtype
     if clamp is not None:
-        x = x.clamp(-clamp, clamp)
+        bound = torch.tensor(float(clamp), dtype=x.dtype)     # a CPU scalar operand
+        x = torch.minimum(torch.maximum(x, -bound), bound)
     return x

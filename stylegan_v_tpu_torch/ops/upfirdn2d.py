@@ -10,9 +10,17 @@ Semantics (reference upfirdn2d.py:120-158):
   3. Convolve with the FIR filter f (flip_filter=False means true convolution).
   4. Downsample by keeping every down-th pixel (starting at 0).
 
-On a CUDA tensor, exactly one case goes to a hand-written kernel: up=1,
-down=2, a 4x4 filter and padding [1,1,1,1], with even H and W
-(`fir_kernels.downfirdn2d_x2`). Every other case is plain PyTorch.
+Exactly one case goes through the hand-written kernel pair: up=1, down=2, a
+4x4 filter and padding [1,1,1,1], with even H and W. It runs
+`fir_kernels._DownFirX2`, whose forward is K1 (`downfirdn2d_x2`) and whose
+backward is K1-bwd, on a CUDA tensor as kernels and on a CPU tensor as their
+plain versions. Every other case is plain PyTorch inside `_UpFirDn2d`, whose
+backward is upfirdn2d again with the filter flipped, up and down swapped
+and the padding mirrored (reference upfirdn2d.py:187-230), so every order
+of derivative is a forward FIR pass. Left to autograd, the second order of
+a depthwise conv goes through PyTorch's generic grouped-convolution double
+backward, which loops over the channels: R1 at 16 videos x 3 frames took
+12 s a step that way on an H100.
 
 Filters are host constants: `setup_filter` returns a float32 CPU tensor, and
 each call copies it to the device without a stream sync.
@@ -26,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.misc import parse_padding, parse_scaling
-from .fir_kernels import downfirdn2d_x2
+from .fir_kernels import _DownFirX2
 
 Filter = Union[torch.Tensor, np.ndarray, Sequence[float], None]
 
@@ -86,7 +94,7 @@ def _depthwise_pass(x: torch.Tensor, k: torch.Tensor, up: Sequence[int],
 
 
 def _is_k1_case(x: torch.Tensor, f: torch.Tensor, up, down, padding) -> bool:
-    return (x.is_cuda and f.shape == (4, 4) and up == [1, 1] and down == [2, 2]
+    return (f.shape == (4, 4) and up == [1, 1] and down == [2, 2]
             and padding == [1, 1, 1, 1] and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0)
 
 
@@ -113,8 +121,33 @@ def upfirdn2d(x: torch.Tensor, f: Filter, up=1, down=1, padding=0,
     if _is_k1_case(x, f, up, down, padding):
         # The kernel flips its filter (true convolution); pre-flip to correlate.
         fk = f.flip([0, 1]) if flip_filter else f
-        return downfirdn2d_x2(x, fk * gain)
+        return _DownFirX2.apply(x, fk * gain)
+    return _UpFirDn2d.apply(x, f, up, down, padding, flip_filter, gain)
 
+
+class _UpFirDn2d(torch.autograd.Function):
+    """upfirdn2d with upfirdn2d as its gradient (the filter is a constant)."""
+
+    @staticmethod
+    def forward(ctx, x, f, up, down, padding, flip_filter, gain):
+        ctx.args = f, up, down, padding, flip_filter, gain
+        ctx.in_hw = x.shape[2:]
+        return _upfirdn2d_plain(x, f, up, down, padding, flip_filter, gain)
+
+    @staticmethod
+    def backward(ctx, dy):
+        f, (upx, upy), (downx, downy), (px0, _, py0, _), flip_filter, gain = ctx.args
+        ih, iw = ctx.in_hw
+        oh, ow = dy.shape[2:]
+        fw, fh = _filter_size(f)
+        p = [fw - px0 - 1, iw * upx - ow * downx + px0 - upx + 1,
+             fh - py0 - 1, ih * upy - oh * downy + py0 - upy + 1]
+        dx = _UpFirDn2d.apply(dy, f, [downx, downy], [upx, upy], p, not flip_filter, gain)
+        return dx, None, None, None, None, None, None
+
+
+def _upfirdn2d_plain(x: torch.Tensor, f: torch.Tensor, up, down, padding,
+                     flip_filter: bool, gain: float) -> torch.Tensor:
     if not flip_filter:
         f = f.flip(list(range(f.ndim)))
     if f.ndim == 2:
