@@ -18,84 +18,19 @@ or raises; on a CPU tensor it runs its plain PyTorch version (`*_plain`).
 differentiable to any order: K1's backward is K1-bwd and K1-bwd's backward
 is K1. The filter is a host constant and takes no gradient.
 
-Each kernel is built at first use with nvcc for sm_90a into a shared library
-with a plain C interface, under `_build/` beside this package's `csrc/`, and
-loaded with ctypes. A library's name carries a hash of its source and flags,
-so an edited source is rebuilt; the sources build in parallel, one nvcc each.
+Each kernel is built at first use by `cuda_build` (nvcc for sm_90a, ctypes).
 """
 from __future__ import annotations
 
 import ctypes
-import functools
-import hashlib
-import os
-import subprocess
-import tempfile
-from pathlib import Path
-from typing import List
 
 import torch
 import torch.nn.functional as F
 
-_PKG_DIR = Path(__file__).resolve().parents[1]
-SOURCES = {name: _PKG_DIR / "csrc" / f"{name}.cu"
-           for name in ("downfirdn2d_x2", "downfirdn2d_x2_bwd")}
-BUILD_DIR = _PKG_DIR / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+from .cuda_build import DTYPE_CODES, check_launch, entry_point, on_cuda
 
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME   # imported only to build
-    if CUDA_HOME is None:
-        raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
-    return os.path.join(CUDA_HOME, "bin", "nvcc")
-
-
-def _library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
-
-
-def build_libraries() -> List[Path]:
-    """Compile every csrc source whose library is not built yet, all at once."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    started = []
-    for name in SOURCES:
-        lib = _library_path(name)
-        if lib.exists():
-            continue
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True)
-        started.append((lib, tmp, cmd, proc))
-    failures = []
-    for lib, tmp, cmd, proc in started:
-        out, _ = proc.communicate()
-        if proc.returncode == 0:
-            os.replace(tmp, lib)           # atomic: concurrent builds agree
-        else:
-            failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    if failures:
-        raise RuntimeError("\n".join(failures))
-    return [_library_path(name) for name in SOURCES]
-
-
-@functools.lru_cache(maxsize=None)
-def _entry_point(name: str):
-    build_libraries()
-    fn = getattr(ctypes.CDLL(str(_library_path(name))), name)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float),
-                   ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
 
 def _flipped_filter(f) -> torch.Tensor:
@@ -117,7 +52,7 @@ def _launch(wrapper, inp: torch.Tensor, out: torch.Tensor, f, H: int, W: int) ->
     """Launch the kernel of `wrapper` (its C entry point has the wrapper's name)
     from inp into out, over N*C planes of the full-size H x W; count it."""
     name = wrapper.__name__
-    if inp.dtype not in _DTYPE_CODES:
+    if inp.dtype not in DTYPE_CODES:
         raise ValueError(f"{name} takes float32 or bfloat16, got {inp.dtype}")
     if not inp.is_contiguous():
         raise ValueError(f"{name} needs a contiguous NCHW tensor")
@@ -125,22 +60,13 @@ def _launch(wrapper, inp: torch.Tensor, out: torch.Tensor, f, H: int, W: int) ->
         return
     fk = _flipped_filter(torch.as_tensor(f).detach().cpu())
     taps = (ctypes.c_float * 16)(*fk.reshape(-1).tolist())
-    fn = _entry_point(name)
+    fn = entry_point(name, _ARGTYPES)
     with torch.cuda.device(inp.device):
         stream = torch.cuda.current_stream(inp.device).cuda_stream
-        err = fn(inp.data_ptr(), out.data_ptr(), taps, _DTYPE_CODES[inp.dtype],
+        err = fn(inp.data_ptr(), out.data_ptr(), taps, DTYPE_CODES[inp.dtype],
                  inp.shape[0] * inp.shape[1], H, W, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+    check_launch(name, err)
     wrapper.launches += 1
-
-
-def _on_cuda(x: torch.Tensor, name: str) -> bool:
-    if x.device.type == "cpu":
-        return False
-    if not x.is_cuda:
-        raise ValueError(f"{name} runs on CPU or CUDA, got {x.device}")
-    return True
 
 
 def downfirdn2d_x2_plain(x: torch.Tensor, f) -> torch.Tensor:
@@ -164,7 +90,7 @@ def downfirdn2d_x2(x: torch.Tensor, f) -> torch.Tensor:
     carries the gradient.
     """
     _check_input(x)
-    if not _on_cuda(x, "downfirdn2d_x2"):
+    if not on_cuda(x, "downfirdn2d_x2"):
         return downfirdn2d_x2_plain(x, f)
     N, C, H, W = x.shape
     y = torch.empty((N, C, H // 2, W // 2), dtype=x.dtype, device=x.device)
@@ -197,7 +123,7 @@ def downfirdn2d_x2_bwd(dy: torch.Tensor, f) -> torch.Tensor:
     """
     if dy.ndim != 4:
         raise ValueError(f"downfirdn2d_x2_bwd needs NCHW, got shape {tuple(dy.shape)}")
-    if not _on_cuda(dy, "downfirdn2d_x2_bwd"):
+    if not on_cuda(dy, "downfirdn2d_x2_bwd"):
         return downfirdn2d_x2_bwd_plain(dy, f)
     N, C, Ho, Wo = dy.shape
     dx = torch.empty((N, C, 2 * Ho, 2 * Wo), dtype=dy.dtype, device=dy.device)

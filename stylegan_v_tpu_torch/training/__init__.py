@@ -1,3 +1,9 @@
+from .augment import (  # noqa: F401
+    AUGPIPE_SPECS,
+    AugmentConfig,
+    GeneratorDraws,
+    make_augment_pipe,
+)
 from .loss import GANLoss, LossConfig  # noqa: F401
 from .train_step import (  # noqa: F401
     OptimizerConfig,

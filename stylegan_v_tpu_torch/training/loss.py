@@ -14,10 +14,16 @@ Phases (reference loss.py:74-173):
   * Dr1   - R1 gradient penalty, averaged per video
 
 Every random draw is an argument: `motion_z` (the motion trajectories),
-`pl_noise` (Gpl's image-space noise, unscaled N(0, 1)) and `mix` (style
-mixing: the cutoff and the second z). The train step makes them, from a
-torch.Generator or from the caller. Per-layer noise, when the generator
-config has it, is drawn inside synthesis from `generator`.
+`pl_noise` (Gpl's image-space noise, unscaled N(0, 1)), `mix` (style
+mixing: the cutoff and the second z) and `aug_draws` (the ADA pipe's draw
+source or a torch.Generator, training/augment.py). The train step makes
+them, from a torch.Generator or from the caller. Per-layer noise, when the
+generator config has it, is drawn inside synthesis from `generator`.
+
+With an augment pipe, every D input goes through it first, at `augment_p`
+(a float32 device tensor), as the JAX package's run_D does: with
+video_consistent_aug the frames of a video are fused on the channel axis,
+frame major, so they share one transform (reference loss.py:56-67).
 """
 from __future__ import annotations
 
@@ -53,16 +59,17 @@ def _score_stats(logits: torch.Tensor, kind: str) -> Stats:
 class GANLoss:
     """Bundles G, D and the loss config into the phase losses.
 
-    augment_fn: the ADA pipe, not ported yet (ROADMAP P5); it must be None.
+    augment_fn: Optional[(draws, img [N, C, H, W], p) -> img], the ADA pipe
+    (training/augment.py:make_augment_pipe).
     """
 
     def __init__(self, G: Generator, D: Discriminator, cfg: LossConfig,
                  augment_fn=None):
-        if augment_fn is not None:
-            raise NotImplementedError("the ADA augment pipe is not ported yet (ROADMAP P5)")
         self.G = G
         self.D = D
         self.cfg = cfg
+        self.augment_fn = augment_fn
+        self.num_frames = G.cfg.sampling.num_frames_per_video
 
     # ---------------- submodule runners ----------------
 
@@ -86,18 +93,31 @@ class GANLoss:
                       generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return self.G.synthesis(ws, t=t, c=c, motion_z=motion_z, generator=generator)
 
-    def run_D(self, img: torch.Tensor, c: Optional[torch.Tensor],
-              t: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def augment(self, img: torch.Tensor, aug_draws, augment_p) -> torch.Tensor:
+        """Video-consistent ADA (reference loss.py:56-67) on [B*F, C, H, W]."""
+        f = self.num_frames
+        if self.cfg.video_consistent_aug and f > 1:
+            nf, ch, h, w = img.shape
+            # [B*F, C, H, W] -> [B, F*C, H, W]: all frames share one transform
+            v = self.augment_fn(aug_draws, img.reshape(nf // f, f * ch, h, w), augment_p)
+            return v.reshape(nf, ch, h, w)
+        return self.augment_fn(aug_draws, img, augment_p)
+
+    def run_D(self, img: torch.Tensor, c: Optional[torch.Tensor], t: torch.Tensor,
+              aug_draws=None, augment_p=None) -> Dict[str, torch.Tensor]:
+        if self.augment_fn is not None:
+            img = self.augment(img, aug_draws, augment_p)
         return self.D(img, c, t)
 
     # ---------------- phase losses ----------------
 
     def gmain(self, z, c, t, motion_z, mix: Mix = None,
-              generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Stats]:
+              generator: Optional[torch.Generator] = None, aug_draws=None,
+              augment_p=None) -> Tuple[torch.Tensor, Stats]:
         """softplus(-D(G)) + the in-place w_avg update (reference loss.py:84-99)."""
         ws = self.run_mapping(z, c, update_w_avg=True, mix=mix)
         img = self.run_synthesis(ws, t, c, motion_z, generator)
-        logits = self.run_D(img, c, t)["image_logits"]
+        logits = self.run_D(img, c, t, aug_draws, augment_p)["image_logits"]
         loss = F.softplus(-logits).mean()
         return loss, {**_score_stats(logits, "fake"), "Loss/G/loss": loss.detach()}
 
@@ -124,21 +144,23 @@ class GANLoss:
         return loss, new_pl_mean, stats
 
     def dgen(self, z, c, t, motion_z, mix: Mix = None,
-             generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, Stats]:
+             generator: Optional[torch.Generator] = None, aug_draws=None,
+             augment_p=None) -> Tuple[torch.Tensor, Stats]:
         """softplus(D(G)), G frozen (reference loss.py:119-137)."""
         with torch.no_grad():
             ws = self.run_mapping(z, c, update_w_avg=False, mix=mix)
             img = self.run_synthesis(ws, t, c, motion_z, generator)
-        logits = self.run_D(img, c, t)["image_logits"]
+        logits = self.run_D(img, c, t, aug_draws, augment_p)["image_logits"]
         return F.softplus(logits).mean(), _score_stats(logits, "fake")
 
     def dreal_dr1(self, real_img: torch.Tensor, c, t, do_main: bool, do_r1: bool,
-                  r1_gamma: float) -> Tuple[torch.Tensor, Stats]:
+                  r1_gamma: float, aug_draws=None, augment_p=None) -> Tuple[torch.Tensor, Stats]:
         """Dreal + R1 sharing ONE D forward (reference loss.py:139-173): R1 takes
-        the gradient of that forward's logits, which Dreal reuses."""
+        the gradient of that forward's logits, which Dreal reuses, with respect
+        to the real frames before the augment."""
         if do_r1:
             real_img = real_img.detach().requires_grad_(True)
-        logits = self.run_D(real_img, c, t)["image_logits"]
+        logits = self.run_D(real_img, c, t, aug_draws, augment_p)["image_logits"]
         stats = _score_stats(logits, "real")
         loss = torch.zeros((), device=logits.device)
         if do_main:

@@ -11,20 +11,29 @@ share one Adam per network whose lr and betas are pre-scaled by
 mb_ratio = interval/(interval+1); reg losses are scaled by their interval.
 The caller chooses `do_gpl` and `do_dr1` (stylegan_v_tpu/training/loop.py:257-258).
 
-Random draws. The JAX step draws z, the motion trajectories, Gpl's noise and
-the style-mixing cutoffs inside. The port takes them as `draws`, or makes
-them from an explicit torch.Generator (`sample_draws`):
+Random draws. The JAX step draws z, the motion trajectories, Gpl's noise,
+the style-mixing cutoffs and the ADA pipe's transforms inside. The port
+takes them as `draws`, or makes them from an explicit torch.Generator
+(`sample_draws`):
 
     draws = {"Gmain": {"z": [B, z_dim], "motion_z": [B, L, mz],
-                       "mix_cutoff": [R] int, "mix_z": [B, z_dim]},
+                       "mix_cutoff": [R] int, "mix_z": [B, z_dim],
+                       "augment": [R draw sources]},
              "Gpl":   {"z": [B, z_dim], "motion_z": [R*b, L, mz],
                        "pl_noise": [R*b*F, C, H, W],
                        "mix_cutoff": [R] int, "mix_z": [R*b, z_dim]},
-             "Dgen":  like "Gmain"}
+             "Dgen":  like "Gmain",
+             "Dreal": {"augment": [R draw sources]},
+             "Dr1":   {"augment": [R draw sources]}}
 
-with R accumulation rounds, b = (B/R) // pl_batch_shrink, and the mix_*
-entries only when style_mixing_prob > 0. Round r takes the r-th of R equal
-slices of every entry. "Gpl" is read only when do_gpl.
+with R accumulation rounds, b = (B/R) // pl_batch_shrink, the mix_*
+entries only when style_mixing_prob > 0, and the "augment" entries (and
+"Dreal", "Dr1") only with an augment pipe. Round r takes the r-th of R
+equal slices of every tensor entry and the r-th draw source, which feeds
+that round's D call of the phase (training/augment.py: an object with
+rand(shape) and randn(shape), or a torch.Generator). "Gpl" is read only
+when do_gpl, "Dr1" only when do_dr1. Every D call augments at the state's
+`augment_p`, a device tensor the step never reads on the host.
 
 Batch (torch tensors, [B, ...] global shapes; moved to the modules' device):
   real_img: [B, F, C, H, W] uint8, normalised on the device
@@ -42,9 +51,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..models import Discriminator, Generator
+from .augment import GeneratorDraws
 from .loss import GANLoss, LossConfig, Stats
 
-Draws = Dict[str, Dict[str, torch.Tensor]]
+Draws = Dict[str, Dict[str, object]]     # tensors, and lists of augment draw sources
 
 
 @dataclass(frozen=True)
@@ -126,8 +136,10 @@ def init_train_state(G: Generator, D: Discriminator, opt_g_cfg: OptimizerConfig,
 
 
 def sample_draws(G: Generator, loss_cfg: LossConfig, batch_size: int, rounds: int,
-                 generator: torch.Generator, do_gpl: bool) -> Draws:
-    """Every random draw of one step (module docstring), on the generator's device."""
+                 generator: torch.Generator, do_gpl: bool, augment: bool = False,
+                 do_dr1: bool = False) -> Draws:
+    """Every random draw of one step (module docstring), on the generator's
+    device. The augment pipe draws from `generator` itself, when it runs."""
     cfg = G.cfg
     dev = generator.device
     num_ws = G.num_ws
@@ -152,6 +164,10 @@ def sample_draws(G: Generator, loss_cfg: LossConfig, batch_size: int, rounds: in
     draws = {"Gmain": phase(batch_size, False), "Dgen": phase(batch_size, False)}
     if do_gpl:
         draws["Gpl"] = phase(rounds * (batch_size // rounds // loss_cfg.pl_batch_shrink), True)
+    if augment:
+        sources = [GeneratorDraws(generator)] * rounds
+        for name in ("Gmain", "Dgen", "Dreal") + (("Dr1",) if do_dr1 else ()):
+            draws.setdefault(name, {})["augment"] = sources
     return draws
 
 
@@ -184,6 +200,8 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
 
     `draws` (module docstring) replaces every random draw of the step; without
     it they come from `generator`, a torch.Generator on the modules' device.
+    `augment_fn` is the ADA pipe (training/augment.py:make_augment_pipe) or
+    None.
     """
     if d_lr_scales:
         raise NotImplementedError("per-subtree D learning rates (MoCoGAN) are not "
@@ -213,7 +231,8 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
         if draws is None:
             if generator is None:
                 raise ValueError("train_step needs a torch.Generator or explicit draws")
-            draws = sample_draws(G, loss_cfg, B, rounds, generator, do_gpl)
+            draws = sample_draws(G, loss_cfg, B, rounds, generator, do_gpl,
+                                 augment=augment_fn is not None, do_dr1=do_dr1)
         batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
         real_img = batch["real_img"].float() / 127.5 - 1.0           # [B, F, C, H, W]
         real_c = batch["real_c"] if c_dim > 0 else None
@@ -228,6 +247,12 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
             n = x.shape[0] // rounds
             return x[r * n:(r + 1) * n].to(device, non_blocking=True)
 
+        def aug_inputs(name: str, r: int):
+            """Round r's augment draws and p for a phase that runs D."""
+            if augment_fn is None:
+                return {}
+            return dict(aug_draws=draws[name]["augment"][r], augment_p=state.augment_p)
+
         def phase_inputs(name: str, p: int, r: int):
             d = draws[name]
             mix = None
@@ -241,7 +266,8 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
 
         # ---- Gmain (the w_avg buffer updates in place, round by round) ----
         stats.update(_accumulate(params_G, rounds,
-                                 lambda r: loss.gmain(**phase_inputs("Gmain", 0, r))))
+                                 lambda r: loss.gmain(**phase_inputs("Gmain", 0, r),
+                                                      **aug_inputs("Gmain", r))))
         scrub_grads(params_G, tcfg.grad_clip_value)
         state.opt_G.step()
 
@@ -263,10 +289,11 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
 
         # ---- Dmain (Dgen + Dreal in one optimizer step) --------------------
         def dmain_round(r: int):
-            l1, s1 = loss.dgen(**phase_inputs("Dgen", 2, r))
+            l1, s1 = loss.dgen(**phase_inputs("Dgen", 2, r), **aug_inputs("Dgen", r))
             ri = rows(real_img, r).flatten(0, 1)                          # [b*F, C, H, W]
             l2, s2 = loss.dreal_dr1(ri, rows(real_c, r), rows(real_t, r), do_main=True,
-                                    do_r1=False, r1_gamma=loss_cfg.r1_gamma)
+                                    do_r1=False, r1_gamma=loss_cfg.r1_gamma,
+                                    **aug_inputs("Dreal", r))
             s1.update(s2)
             s1["Loss/D/loss"] = l1.detach() + s2["Loss/D/loss_real"]
             return l1 + l2, s1
@@ -282,7 +309,8 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
             def dr1_round(r: int):
                 ri = rows(real_img, r).flatten(0, 1)
                 l, s = loss.dreal_dr1(ri, rows(real_c, r), rows(real_t, r), do_main=False,
-                                      do_r1=True, r1_gamma=loss_cfg.r1_gamma)
+                                      do_r1=True, r1_gamma=loss_cfg.r1_gamma,
+                                      **aug_inputs("Dr1", r))
                 return l * gain, s
 
             stats.update(_accumulate(params_D, rounds, dr1_round))

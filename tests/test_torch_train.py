@@ -29,6 +29,13 @@ O(1) losses and scores). Two things make that hold:
     scale, above them and far below what a wrong scale, layout or sum would
     give (order 1). The same kinks inside G move Gmain's gradients by up to
     0.8 * TOL across seeds; Gmain stays at TOL.
+  * With the ADA pipe (bgc, warp_upsample=2, from augment_p = 0.5 so that
+    the transforms fire), the JAX pipe's keys are replayed into the port's
+    (test_torch_augment.py:JaxKeyDraws). The pipe is linear in the frames
+    for given draws, so it adds no kink of its own; in the loss phases D's
+    input after the augment takes the JAX values (`pin_augment`, as `pin`
+    does for the frames), and the augment's output is held to TOL on its
+    own. The whole step is held as without the pipe.
   * Parameters after a step pass through Adam, whose update
     lr * g / (|g| + eps) is a sign for |g| >> eps: a gradient element within
     float noise of zero could move by +lr on one side and -lr on the other.
@@ -44,13 +51,16 @@ import torch
 
 from stylegan_v_tpu.models import Discriminator as JDiscriminator
 from stylegan_v_tpu.models import Generator as JGenerator
+from stylegan_v_tpu.training import augment as jaug
 from stylegan_v_tpu.training import loss as jloss_mod
 from stylegan_v_tpu.training import train_step as jts
 from stylegan_v_tpu_torch.io import (jax_to_torch_discriminator, jax_to_torch_generator,
                                      jax_to_torch_train_state)
 from stylegan_v_tpu_torch.models import Discriminator, Generator
+from stylegan_v_tpu_torch.training import augment as taug
 from stylegan_v_tpu_torch.training import loss as tloss_mod
 from stylegan_v_tpu_torch.training import train_step as tts
+from test_torch_augment import JaxKeyDraws
 from test_torch_models import port_cfg, small_disc_cfg, small_gen_cfg, to_np
 
 TOL = 1e-4
@@ -61,6 +71,14 @@ LOSS = dict(r1_gamma=1.0, pl_weight=2.0, style_mixing_prob=0.9)
 OPT = dict(lr=0.0025, eps=1e-3)
 TRAIN = dict(batch_size=B, ema_kimg=1.0, ada_target=0.6, ada_interval=1,
              G_reg_interval=4, D_reg_interval=4)
+AUG = dict(jaug.AUGPIPE_SPECS["bgc"], warp_upsample=2, warp_mode="gather")
+AUG_P = 0.5
+
+
+def augment_pipes():
+    """The JAX package's bgc pipe (gather warp) and the port's."""
+    return (jaug.make_augment_pipe(jaug.AugmentConfig(**AUG)),
+            taug.make_augment_pipe(taug.AugmentConfig(**AUG)))
 
 
 def numpy(x):
@@ -145,7 +163,7 @@ class JaxDraws:
             d["pl_noise"] = nchw(jax.random.normal(k_third, (n * F, RES, RES, 3)))
         return d
 
-    def step(self, rng, rounds, do_gpl):
+    def step(self, rng, rounds, do_gpl, augment=False, do_dr1=False):
         """All draws of train_step(state, batch, rng), as the port's `draws`."""
         keys = jax.random.split(rng, 8)
         mb = B // rounds
@@ -166,6 +184,19 @@ class JaxDraws:
         if do_gpl:
             draws["Gpl"] = gather(keys[2], lambda i: jax.random.fold_in(keys[3], i), bsz,
                                   with_noise=True)
+        if augment:
+            # each D call's augment key (train_step.py:268,317,320,345; loss.py:120,162)
+            def sources(key_of):
+                return [JaxKeyDraws(key_of(r * mb)) for r in range(rounds)]
+
+            fold = jax.random.fold_in
+            draws["Gmain"]["augment"] = sources(
+                lambda i: jax.random.split(fold(keys[1], i), 3)[2])
+            draws["Dgen"]["augment"] = sources(
+                lambda i: jax.random.split(fold(fold(keys[5], i), 0), 3)[2])
+            draws["Dreal"] = {"augment": sources(lambda i: fold(fold(keys[5], i), 1))}
+            if do_dr1:
+                draws["Dr1"] = {"augment": sources(lambda i: fold(keys[7], i))}
         return draws
 
 
@@ -181,7 +212,7 @@ def jax_side():
     return JG, JD, state, JaxDraws(JG, vars_G)
 
 
-def port_state(jstate, batch_chip=None):
+def port_state(jstate, batch_chip=None, augment_fn=None):
     """The port's state and step from the JAX state (Adam's moments are zero
     on both sides)."""
     pieces = jax_to_torch_train_state(jstate)
@@ -195,7 +226,7 @@ def port_state(jstate, batch_chip=None):
     state.pl_mean.fill_(pieces["pl_mean"])
     state.ada_sign_acc.fill_(pieces["ada_sign_acc"])
     state.step, state.cur_nimg = pieces["step"], pieces["cur_nimg"]
-    step = tts.make_train_step(G, D, tloss_mod.LossConfig(**LOSS), tcfg)
+    step = tts.make_train_step(G, D, tloss_mod.LossConfig(**LOSS), tcfg, augment_fn=augment_fn)
     return state, step
 
 
@@ -226,12 +257,32 @@ def pin(loss, jimg):
     loss.run_synthesis = pinned
 
 
-@pytest.mark.parametrize("phase", ["gmain", "gpl", "dgen", "dreal_dr1"])
-def test_loss_phase_matches_jax(jax_side, phase):
+def pin_augment(loss, jaug_nchw):
+    """Make D's input after the port's augment take the JAX pipe's values,
+    with the gradient of the port's pipe, and check those values."""
+    fn = loss.augment_fn
+
+    def pinned(draws, img, p):
+        out = fn(draws, img, p)
+        assert_tree_close({"augmented": out}, {"augmented": jaug_nchw}, what="augment ")
+        return out + (jaug_nchw - out).detach()
+
+    loss.augment_fn = pinned
+
+
+def fuse_frames(img):
+    """[B*F, H, W, C] -> [B, H, W, F*C], frame major (JAX loss.py:103-105)."""
+    img = np.asarray(img)
+    n, h, w, ch = img.shape
+    return np.moveaxis(img.reshape(n // F, F, h, w, ch), 1, -2).reshape(n // F, h, w, F * ch)
+
+
+def check_loss_phase(jax_side, phase, augment):
     JG, JD, jstate, jdraws = jax_side
-    jl = jloss_mod.GANLoss(JG, JD, jloss_mod.LossConfig(**LOSS))
+    jpipe, tpipe = augment_pipes() if augment else (None, None)
+    jl = jloss_mod.GANLoss(JG, JD, jloss_mod.LossConfig(**LOSS), augment_fn=jpipe)
     state, _ = port_state(jstate)
-    tl = tloss_mod.GANLoss(state.G, state.D, tloss_mod.LossConfig(**LOSS))
+    tl = tloss_mod.GANLoss(state.G, state.D, tloss_mod.LossConfig(**LOSS), augment_fn=tpipe)
     jbatch, _ = make_batch(7)
     z = np.random.RandomState(8).randn(B, GCFG.z_dim).astype(np.float32)
     t = jbatch["gen_t"][:, 0]
@@ -240,6 +291,13 @@ def test_loss_phase_matches_jax(jax_side, phase):
     p_G, p_D, ap, extra = jstate.params_G, jstate.params_D, jstate.augment_p, jstate.extra_G
     vars_G = {"params": p_G, **extra}
     tol = TOL
+    k_mix, k_syn, k_aug = jax.random.split(rng, 3)
+    aug = {}
+    if augment:
+        ap = jnp.float32(AUG_P)
+        # run_D's augment key: the third split in gmain and dgen, rng itself in dreal_dr1
+        aug_key = rng if phase == "dreal_dr1" else k_aug
+        aug = dict(aug_draws=JaxKeyDraws(aug_key), augment_p=torch.tensor(AUG_P))
 
     def draws(n, with_noise=False):
         d = jdraws.phase(rng, n, with_noise)
@@ -247,16 +305,22 @@ def test_loss_phase_matches_jax(jax_side, phase):
         return torch.from_numpy(d["motion_z"]), mix, d.get("pl_noise")
 
     def jax_frames():
-        k_mix, k_syn, _ = jax.random.split(rng, 3)
         ws, _ = jl.run_mapping(vars_G, z, None, k_mix, update_w_avg=False)
-        return nchw(jl.run_synthesis(vars_G, ws, t, None, k_syn))
+        return np.asarray(jl.run_synthesis(vars_G, ws, t, None, k_syn))
+
+    def pin_d_input(frames):
+        """D's input takes the JAX values: the frames', or the augment's of them."""
+        if augment:
+            pin_augment(tl, nchw(jpipe(aug_key, fuse_frames(frames), ap)))
+        if phase != "dreal_dr1":
+            pin(tl, nchw(frames))
 
     if phase == "gmain":
         fn = lambda p: jl.gmain(p, extra, {"params": p_D}, z, None, t, rng, ap)  # noqa: E731
         (jloss, (moving, jstats)), jgrads = jax.jit(jax.value_and_grad(fn, has_aux=True))(p_G)
-        pin(tl, jax_frames())
+        pin_d_input(jax_frames())
         motion_z, mix, _ = draws(B)
-        loss, stats = tl.gmain(tz, None, tt, motion_z, mix)
+        loss, stats = tl.gmain(tz, None, tt, motion_z, mix, **aug)
         # the w_avg update runs under autograd, in place, outside the graph
         w_avg = state.G.mapping.w_avg
         assert w_avg.grad_fn is None and not w_avg.requires_grad
@@ -271,16 +335,17 @@ def test_loss_phase_matches_jax(jax_side, phase):
     elif phase == "dgen":
         fn = lambda p: jl.dgen(p, vars_G, {}, z, None, t, rng, ap)  # noqa: E731
         (jloss, jstats), jgrads = jax.jit(jax.value_and_grad(fn, has_aux=True))(p_D)
-        pin(tl, jax_frames())
+        pin_d_input(jax_frames())
         motion_z, mix, _ = draws(B)
-        loss, stats = tl.dgen(tz, None, tt, motion_z, mix)
+        loss, stats = tl.dgen(tz, None, tt, motion_z, mix, **aug)
     else:
         img = jbatch["real_img"].reshape(B * F, RES, RES, 3).astype(np.float32) / 127.5 - 1
         fn = lambda p: jl.dreal_dr1(p, {}, img, None, jbatch["real_t"], rng, ap,  # noqa: E731
                                     do_main=True, do_r1=True, r1_gamma=LOSS["r1_gamma"])
         (jloss, jstats), jgrads = jax.jit(jax.value_and_grad(fn, has_aux=True))(p_D)
+        pin_d_input(img)
         loss, stats = tl.dreal_dr1(nchw(img), None, torch.from_numpy(jbatch["real_t"]),
-                                   do_main=True, do_r1=True, r1_gamma=LOSS["r1_gamma"])
+                                   do_main=True, do_r1=True, r1_gamma=LOSS["r1_gamma"], **aug)
 
     module = state.G if phase in ("gmain", "gpl") else state.D
     to_port = jax_to_torch_generator if module is state.G else jax_to_torch_discriminator
@@ -291,23 +356,40 @@ def test_loss_phase_matches_jax(jax_side, phase):
     assert_tree_close(got, to_port({"params": to_np(jgrads)}), tol, "grad ")
 
 
+@pytest.mark.parametrize("phase", ["gmain", "gpl", "dgen", "dreal_dr1"])
+def test_loss_phase_matches_jax(jax_side, phase):
+    check_loss_phase(jax_side, phase, augment=False)
+
+
+@pytest.mark.parametrize("phase", ["gmain", "dgen", "dreal_dr1"])
+def test_loss_phase_with_augment_matches_jax(jax_side, phase):
+    """Gmain, Dgen and Dreal + R1 (R1 through the pipe's double backward) with
+    the bgc pipe in front of D, the JAX augment keys replayed."""
+    check_loss_phase(jax_side, phase, augment=True)
+
+
 # ---------------------------------------------------------------- the step
 
-def run_steps(jax_side, batch_chip, plan):
+def run_steps(jax_side, batch_chip, plan, augment=False):
     """Run the JAX step and the port's on the same batches and draws; after
-    each step, hold the port's state and stats against the JAX package's."""
+    each step, hold the port's state and stats against the JAX package's.
+    With `augment`, both run the bgc pipe from augment_p = AUG_P."""
     JG, JD, jstate, jdraws = jax_side
     tcfg = jts.TrainingConfig(**TRAIN, batch_chip=batch_chip)
     opt = jts.OptimizerConfig(**OPT)
-    jstep = jts.make_train_step(JG, JD, jts.LossConfig(**LOSS), opt, opt, tcfg, donate=False)
-    state, step = port_state(jstate, batch_chip)
+    jpipe, tpipe = augment_pipes() if augment else (None, None)
+    if augment:
+        jstate = jstate.replace(augment_p=jnp.float32(AUG_P))
+    jstep = jts.make_train_step(JG, JD, jts.LossConfig(**LOSS), opt, opt, tcfg,
+                                augment_fn=jpipe, donate=False)
+    state, step = port_state(jstate, batch_chip, augment_fn=tpipe)
     rounds = B // (batch_chip or B)
     for i, (do_gpl, do_dr1) in enumerate(plan):
         jbatch, tbatch = make_batch(20 + i)
         rng = jax.random.PRNGKey(100 + i)
         jstate, jstats = jstep(jstate, jbatch, rng, do_gpl=do_gpl, do_dr1=do_dr1)
         state, stats = step(state, tbatch, do_gpl=do_gpl, do_dr1=do_dr1,
-                            draws=jdraws.step(rng, rounds, do_gpl))
+                            draws=jdraws.step(rng, rounds, do_gpl, augment, do_dr1))
         yield state, stats, jstate, jstats
 
 
@@ -329,6 +411,24 @@ def test_batch_chip_rounds_match_jax(jax_side):
         assert_state_close(state, jstate)
 
 
+def test_three_steps_with_augment_match_jax(jax_side):
+    """The steps of test_three_steps_match_jax with the bgc pipe
+    (warp_upsample=2) in front of every D call, from augment_p = 0.5."""
+    plan = [(True, True), (False, False), (False, False)]
+    for state, stats, jstate, jstats in run_steps(jax_side, None, plan, augment=True):
+        assert_stats_close(stats, jstats, GPL_TOL if "Loss/pl_penalty" in jstats else TOL)
+        assert_state_close(state, jstate)
+    assert state.step == 3 and abs(float(state.augment_p) - AUG_P) < 1e-3
+
+
+def test_batch_chip_rounds_with_augment_match_jax(jax_side):
+    """batch_chip=2 with the bgc pipe: each round's D calls take that round's
+    augment keys."""
+    for state, stats, jstate, jstats in run_steps(jax_side, 2, [(True, True)], augment=True):
+        assert_stats_close(stats, jstats, GPL_TOL)
+        assert_state_close(state, jstate)
+
+
 # ----------------------------------------------------------------- port only
 
 def small_port_models(seed=0):
@@ -337,16 +437,19 @@ def small_port_models(seed=0):
             Discriminator(port_cfg(DCFG), generator=gen))
 
 
-def test_steps_drawn_from_a_generator_are_reproducible():
-    """Without `draws`, every draw comes from the torch.Generator handed in."""
+@pytest.mark.parametrize("augment", [False, True])
+def test_steps_drawn_from_a_generator_are_reproducible(augment):
+    """Without `draws`, every draw comes from the torch.Generator handed in,
+    the augment pipe's too."""
     _, tbatch = make_batch(3)
     results = []
     for _ in range(2):
         G, D = small_port_models()
         tcfg = tts.TrainingConfig(**TRAIN)
         state = tts.init_train_state(G, D, tts.OptimizerConfig(**OPT),
-                                     tts.OptimizerConfig(**OPT), tcfg)
-        step = tts.make_train_step(G, D, tloss_mod.LossConfig(**LOSS), tcfg)
+                                     tts.OptimizerConfig(**OPT), tcfg, augment_p=AUG_P)
+        step = tts.make_train_step(G, D, tloss_mod.LossConfig(**LOSS), tcfg,
+                                   augment_fn=augment_pipes()[1] if augment else None)
         torch.manual_seed(len(results))           # the global RNG must not matter
         state, stats = step(state, tbatch, generator=torch.Generator().manual_seed(5),
                             do_gpl=True, do_dr1=True)
@@ -359,12 +462,14 @@ def test_steps_drawn_from_a_generator_are_reproducible():
         step(state, tbatch)
 
 
-@pytest.mark.parametrize("what", ["augment_fn", "zero1", "d_lr_scales", "mesh"])
+@pytest.mark.parametrize("what", ["augment_shards", "zero1", "d_lr_scales", "mesh"])
 def test_unported_options_raise(what):
     G, D = small_port_models()
     lcfg = tloss_mod.LossConfig(**LOSS)
     tcfg = tts.TrainingConfig(**TRAIN, zero1=(what == "zero1"))
-    kw = {"augment_fn": dict(augment_fn=lambda *a: a[1]), "zero1": {},
-          "d_lr_scales": dict(d_lr_scales={"video": 0.1}), "mesh": dict(mesh=object())}[what]
-    with pytest.raises(NotImplementedError, match="P5|P8|P9"):
-        tts.make_train_step(G, D, lcfg, tcfg, **kw)
+    kw = {"augment_shards": lambda: dict(augment_fn=taug.make_augment_pipe(
+              taug.AugmentConfig(**AUG, data_shards=2))),
+          "zero1": dict, "d_lr_scales": lambda: dict(d_lr_scales={"video": 0.1}),
+          "mesh": lambda: dict(mesh=object())}[what]
+    with pytest.raises(NotImplementedError, match="P8|P9"):
+        tts.make_train_step(G, D, lcfg, tcfg, **kw())
