@@ -11,8 +11,13 @@ holds them against the port's plain PyTorch paths:
               K4 affine_warp, K4-bwd affine_warp_bwd), one nvcc each for
               sm_90a, all started together.
   3. kernel:  K1 against its plain version at the six shapes of the
-              Discriminator's resnet skips (2 videos x 3 frames), float32 and
-              bf16, plus an asymmetric filter; CUDA-event times of both.
+              Discriminator's resnet skips, at 2 videos x 3 frames and at the
+              step's 16 x 3, float32 and bf16, plus an asymmetric filter at
+              the first shape; CUDA-event times of the kernel, its plain
+              version and its library call (F.conv2d, depthwise) in turns, in
+              D's dtype at each shape, at 16 x 3 with a cold L2 (copies of
+              the input rotated past 100 MB); GB/s and share of the HBM
+              bound; the 16 x 3 sums are one D pass.
   4. slice:   G(z, None, t) for 4 videos x 3 timestamps, then D on the
               frames, with weights from a seeded torch.Generator; the frames
               and logits must be finite and K1 must launch 6 times.
@@ -20,8 +25,9 @@ holds them against the port's plain PyTorch paths:
   6. parity:  a reduced-width G->D on the card (with the kernel) against the
               same weights and inputs on the CPU (plain path).
   7. bwd:     K1-bwd against its plain version at the output shapes of the
-              six skips, as phase 3; autograd through K1 launches K1-bwd, and
-              a second-order grad launches K1 again.
+              six skips, as phase 3 (library call F.conv_transpose2d);
+              autograd through K1 launches K1-bwd, and a second-order grad
+              launches K1 again.
   8. train:   the no-augment training step at 16 videos x 3 frames, 256^2:
               one step with R1, three without, one more with R1; every loss,
               stat and parameter finite, K1 and K1-bwd launch counts per
@@ -33,7 +39,10 @@ holds them against the port's plain PyTorch paths:
               shapes of the ADA pipe at 16 videos x 3 frames (taken from the
               pipe itself), float32 and bf16, with three sets of G_inv
               (identity, bgc draws at p = 1, an extreme map); CUDA-event
-              times in turns; autograd through K4 to second order.
+              times in turns, at the step's call with the nearest PyTorch
+              calls (F.grid_sample after F.affine_grid, and
+              aten.grid_sampler_2d_backward: not the same function, whose
+              border half pixel differs); autograd through K4 to second order.
  11. ada:     the ADA training step (bgc, warp_upsample=2) at 16 x 3, 256^2,
               augment_p = 0.5: one step with R1, three without, one more
               with R1, as phase 8, with K1, K1-bwd, K4 and K4-bwd launch
@@ -44,7 +53,9 @@ holds them against the port's plain PyTorch paths:
               CPU, with the same draws on both.
 
 Any failed check exits non-zero. The last two lines are the kernel record
-and {"ok": true, "device": {...}}. There is no CPU path: without a CUDA
+(each kernel's launches in phase 11, worst error, time, plain and library
+time, and its bound: bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s,
+whichever is larger) and {"ok": true, "device": {...}}. There is no CPU path: without a CUDA
 device the script fails.
 """
 from __future__ import annotations
@@ -66,6 +77,11 @@ D_SKIP_SHAPES = [  # (frames or videos, C, H, W) at 2 videos x 3 frames, D's dty
     ((6, 256, 64, 64), "bfloat16"), ((6, 512, 32, 32), "bfloat16"),
     ((2, 768, 16, 16), "float32"), ((2, 512, 8, 8), "float32"),
 ]
+# The same skips at the training step's 16 videos x 3 frames: one D pass.
+D_SKIP_SHAPES_16X3 = [((8 * n, c, h, w), dtype) for (n, c, h, w), dtype in D_SKIP_SHAPES]
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet (700 W)
+F32_FLOPS_PER_S = 67e12        # the same card's float32 rate outside the tensor cores
+L2_COLD_BYTES = 100e6          # rotate among copies of an input until they exceed twice the L2
 
 
 def check(ok: bool, what: str) -> None:
@@ -82,6 +98,51 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def in_turns(fns, iters: int):
+    """CUDA-event ms of each of fns, timed in turns A B C C B A and averaged."""
+    order = list(range(len(fns)))
+    ms = [0.0] * len(fns)
+    for k in order + order[::-1]:
+        ms[k] += cuda_ms(fns[k], iters) / 2
+    return ms
+
+
+def rotating(fn, inputs):
+    """fn on inputs[0], inputs[1], ... in turn: a cold L2 for each call."""
+    n = [0]
+
+    def call():
+        n[0] += 1
+        return fn(inputs[n[0] % len(inputs)])
+    return call
+
+
+def cold_copies(x):
+    """x and enough copies of it to exceed L2_COLD_BYTES together."""
+    k = max(1, -(-int(L2_COLD_BYTES) // (x.numel() * x.element_size())))
+    return [x] + [x.clone() for _ in range(k - 1)]
+
+
+def bound_ms(nbytes: float, flops: float):
+    """The least time for moving nbytes and computing flops (float32, outside
+    the tensor cores) on the card, and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def depthwise_library(kind, f, C, dtype, dev):
+    """The one PyTorch call that computes K1 ("down": F.conv2d) or K1-bwd
+    ("up": F.conv_transpose2d) in the input's dtype: depthwise, stride 2,
+    padding 1, the flipped filter. A yardstick only; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+    w = torch.as_tensor(f, dtype=torch.float32).flip([0, 1])[None, None]
+    w = w.expand(C, 1, 4, 4).to(dev, dtype).contiguous()
+    if kind == "down":
+        return lambda x: F.conv2d(x, w, stride=2, padding=1, groups=C)
+    return lambda dy: F.conv_transpose2d(dy, w, stride=2, padding=1, groups=C)
 
 
 def phase_device():
@@ -106,48 +167,70 @@ def phase_build():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def phase_kernel(dev, tag, kernel, plain, shapes):
-    """A kernel against its plain version at `shapes` (its inputs) in float32
-    and bf16 (the first shape with an asymmetric filter too), with CUDA-event
-    times taken in turns; returns the worst error and the kernel and plain
-    times summed over the shapes in D's own dtype there."""
+def phase_kernel(dev, tag, kind, kernel, plain):
+    """K1 (kind "down") or K1-bwd ("up") against its plain version at D's six
+    skip shapes at 2 x 3 and at 16 x 3, in float32 and bf16 (the first shape
+    of each with an asymmetric filter too), with CUDA-event times of the
+    kernel, its plain version and its library call in turns, in D's dtype at
+    each shape; at 16 x 3 with a cold L2. Returns the worst error and, summed
+    over the six shapes at 16 x 3 (one D pass), the kernel, plain, library and
+    bound times."""
     import torch
     from stylegan_v_tpu_torch.ops import setup_filter
 
     sym = setup_filter([1, 3, 3, 1])
     asym = (torch.arange(16, dtype=torch.float32).reshape(4, 4) - 5.0) / 40
     g = torch.Generator(device=dev).manual_seed(0)
-    max_err, path_ms, path_plain_ms = 0.0, 0.0, 0.0
-    for i, (shape, path_dtype) in enumerate(shapes):
-        for dtype_name in ("float32", "bfloat16"):
-            dtype = getattr(torch, dtype_name)
-            x = torch.randn(shape, generator=g, device=dev).to(dtype)
-            err = 0.0
-            for name, f in [("sym", sym)] + ([("asym", asym)] if i == 0 else []):
-                got, want = kernel(x, f), plain(x, f)
-                torch.cuda.synchronize()
-                e = (got.float() - want.float()).abs().max().item()
-                tol = KERNEL_TOL[dtype_name]
-                check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
-                      f"{tag} vs plain {shape} {dtype_name} {name}: max err {e}")
-                err = max(err, e)
-            max_err = max(max_err, err)
-            for _ in range(3):                        # warm-up
-                kernel(x, sym), plain(x, sym)
-            # in turns: plain, kernel, kernel, plain
-            plain_a = cuda_ms(lambda: plain(x, sym), 20)
-            kern_a = cuda_ms(lambda: kernel(x, sym), 20)
-            kern_b = cuda_ms(lambda: kernel(x, sym), 20)
-            plain_b = cuda_ms(lambda: plain(x, sym), 20)
-            kern, plain_t = (kern_a + kern_b) / 2, (plain_a + plain_b) / 2
-            if dtype_name == path_dtype:
-                path_ms += kern
-                path_plain_ms += plain_t
-            moved = (x.numel() + got.numel()) * x.element_size()
-            gbps = moved / (kern * 1e-3) / 1e9
-            print(f"{tag} {list(shape)} {dtype_name}: max_abs_err {err:.3g}  "
-                  f"kernel {kern:.4f} ms ({gbps:.0f} GB/s)  plain {plain_t:.4f} ms", flush=True)
-    return max_err, path_ms, path_plain_ms
+    max_err = 0.0
+    sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    for batch, shapes in (("2x3", D_SKIP_SHAPES), ("16x3", D_SKIP_SHAPES_16X3)):
+        small = {"ms": 0.0, "plain_ms": 0.0}
+        for i, ((n, c, h, w), path_dtype) in enumerate(shapes):
+            shape = (n, c, h, w) if kind == "down" else (n, c, h // 2, w // 2)
+            for dtype_name in ("float32", "bfloat16"):
+                dtype = getattr(torch, dtype_name)
+                x = torch.randn(shape, generator=g, device=dev).to(dtype)
+                for name, f in [("sym", sym)] + ([("asym", asym)] if i == 0 else []):
+                    got, want = kernel(x, f), plain(x, f)
+                    torch.cuda.synchronize()
+                    e = (got.float() - want.float()).abs().max().item()
+                    tol = KERNEL_TOL[dtype_name]
+                    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                          f"{tag} vs plain {batch} {list(shape)} {dtype_name} {name}: "
+                          f"max err {e}")
+                    max_err = max(max_err, e)
+                if dtype_name != path_dtype:
+                    continue
+                library = depthwise_library(kind, sym, c, dtype, dev)
+                xs = cold_copies(x) if batch == "16x3" else [x]
+                fns = [rotating(lambda x: plain(x, sym), xs),
+                       rotating(lambda x: kernel(x, sym), xs), rotating(library, xs)]
+                for fn in fns:                                  # warm-up
+                    fn(), fn()
+                plain_t, kern, lib = in_turns(fns, 10)
+                nbytes = (x.numel() + got.numel()) * x.element_size()
+                # K1: 16 FMAs for each of x / 4 outputs; K1-bwd: 4 for each dx output
+                bound, by = bound_ms(nbytes, 8 * max(x.numel(), got.numel()))
+                print(f"{tag} {batch} {list(shape)} {dtype_name}: kernel {kern:.4f} ms "
+                      f"({nbytes / (kern * 1e-3) / 1e9:.0f} GB/s, {bound / kern:.1%} of the "
+                      f"{bound:.4f} ms bound)  plain {plain_t:.4f} ms  library {lib:.4f} ms",
+                      flush=True)
+                if batch == "16x3":
+                    for k, v in (("ms", kern), ("plain_ms", plain_t), ("library_ms", lib),
+                                 ("bound_ms", bound)):
+                        sums[k] += v
+                    sums["bound_by"] = by if sums.get("bound_by", by) == by else "mixed"
+                else:
+                    small["ms"] += kern
+                    small["plain_ms"] += plain_t
+                del xs, fns
+        if batch == "2x3":
+            print(f"{tag} one D pass at 2x3: kernel {small['ms']:.4f} ms, plain "
+                  f"{small['plain_ms']:.4f} ms", flush=True)
+    print(f"{tag} one D pass at 16x3 (cold L2): kernel {sums['ms']:.4f} ms, plain "
+          f"{sums['plain_ms']:.4f} ms, library {sums['library_ms']:.4f} ms, bound "
+          f"{sums['bound_ms']:.4f} ms ({sums['bound_ms'] / sums['ms']:.1%} of it)", flush=True)
+    return max_err, sums
 
 
 def ffs256_models(dev):
@@ -268,8 +351,7 @@ def phase_bwd(dev):
                                           downfirdn2d_x2_bwd_plain, downfirdn2d_x2_plain,
                                           fir_kernels, setup_filter)
 
-    shapes = [((n, c, h // 2, w // 2), dtype) for (n, c, h, w), dtype in D_SKIP_SHAPES]
-    result = phase_kernel(dev, "[7 bwd]", downfirdn2d_x2_bwd, downfirdn2d_x2_bwd_plain, shapes)
+    result = phase_kernel(dev, "[7 bwd]", "up", downfirdn2d_x2_bwd, downfirdn2d_x2_bwd_plain)
     # Autograd through K1 on the card: first order launches K1-bwd, second order K1.
     f = setup_filter([1, 3, 3, 1])
     x = torch.randn(2, 8, 32, 32, device=dev, requires_grad=True)
@@ -478,10 +560,12 @@ def warp_calls(dev):
 
 def phase_warp(dev):
     """K4 and K4-bwd against their plain versions at the pipe's shapes; returns
-    each one's worst error and its time and the plain version's at the ADA
-    step's call (the 536^2 canvas in the pipe's bf16)."""
+    each one's worst error and its time, the plain version's and the nearest
+    PyTorch call's at the ADA step's call (the 536^2 canvas in the pipe's
+    bf16)."""
     import math
     import torch
+    import torch.nn.functional as F
     from stylegan_v_tpu_torch.ops import (affine_grid_sample, affine_grid_sample_bwd_plain,
                                           affine_grid_sample_plain, affine_warp,
                                           affine_warp_bwd)
@@ -514,17 +598,28 @@ def phase_warp(dev):
                           f"{name} vs plain {[N, C, H, W]} {dtype_name} {set_name}: max err {e}")
                     err[name] = max(err[name], e)
                     worst[name] = max(worst[name], e)
+            # The nearest PyTorch calls, not the same function (border half pixel):
+            # a yardstick at the step's call only; the port never calls them.
+            theta = G_bgc[:, :2].to(dtype)
+            grid = F.affine_grid(theta, [N, C, out_h, out_w], align_corners=False)
+            nearest = {
+                "K4": lambda: F.grid_sample(
+                    x, F.affine_grid(theta, [N, C, out_h, out_w], align_corners=False),
+                    mode="bilinear", padding_mode="reflection", align_corners=False),
+                "K4-bwd": lambda: torch.ops.aten.grid_sampler_2d_backward(
+                    dy, x, grid, 0, 2, False, [True, False])}
             times = {}
             for name, kernel, plain in (("K4", fwd, fwd_plain), ("K4-bwd", bwd, bwd_plain)):
-                kernel(G_bgc), plain(G_bgc)                                 # warm-up
-                # in turns: plain, kernel, kernel, plain
-                plain_a = cuda_ms(lambda: plain(G_bgc), 10)
-                kern_a = cuda_ms(lambda: kernel(G_bgc), 10)
-                kern_b = cuda_ms(lambda: kernel(G_bgc), 10)
-                plain_b = cuda_ms(lambda: plain(G_bgc), 10)
-                times[name] = ((kern_a + kern_b) / 2, (plain_a + plain_b) / 2)
-                if i == 0 and dtype == path_dtype:
-                    path[name] = times[name]
+                at_path = i == 0 and dtype == path_dtype
+                fns = [lambda: plain(G_bgc), lambda: kernel(G_bgc)]
+                fns += [nearest[name]] if at_path else []
+                for fn in fns:                                          # warm-up
+                    fn()
+                t = in_turns(fns, 10)
+                times[name] = (t[1], t[0])
+                if at_path:   # K4: 4 taps per output; K4-bwd: 4 per dy element (2 flops each)
+                    nbytes = (x.numel() + dy.numel()) * x.element_size()
+                    path[name] = (t[1], t[0], t[2], *bound_ms(nbytes, 8 * dy.numel()))
             moved = (x.numel() + dy.numel()) * x.element_size()
             print(f"[10 warp] {[N, C, H, W]} -> {[out_h, out_w]} {dtype_name}: K4 "
                   f"{times['K4'][0]:.4f} ms ({moved / times['K4'][0] / 1e6:.0f} GB/s) plain "
@@ -648,6 +743,39 @@ def phase_aug_parity(dev):
           f"CPU, tol {PARITY_TOL} x scale: " + "; ".join(msgs), flush=True)
 
 
+def kernel_records(k1, k1_bwd, k4, k4_bwd, launches):
+    """The kernel record: each kernel's launches in the ADA run (phase 11),
+    worst error against its plain version, and its time, its plain version's
+    and its library call's beside its bound: K1 and K1-bwd summed over one D
+    pass at 16 x 3 (phases 3, 7), K4 and K4-bwd at the step's warp (phase 10)."""
+    warp = "stylegan_v_tpu/ops/grid_sample.py:33 (XLA gather; no Pallas kernel)"
+    conv = "depthwise, stride 2, padding 1, in the input's dtype"
+    near = "not the same function (border half pixel)"
+    records = []
+    for name, times, err, n, replaces, library in (
+            ("downfirdn2d_x2", k1[1], k1[0], launches[0],
+             "stylegan_v_tpu/ops/pallas_kernels.py:100", f"F.conv2d ({conv})"),
+            ("downfirdn2d_x2_bwd", k1_bwd[1], k1_bwd[0], launches[1],
+             "stylegan_v_tpu/ops/pallas_kernels.py:100 (its gradient, from jax.grad)",
+             f"F.conv_transpose2d ({conv})"),
+            ("affine_warp", dict(zip(("ms", "plain_ms", "library_ms", "bound_ms", "bound_by"),
+                                     k4[1:])), k4[0], launches[2], warp,
+             "F.grid_sample(x, F.affine_grid(G_inv[:, :2]), bilinear, reflection, "
+             f"align_corners=False): {near}"),
+            ("affine_warp_bwd", dict(zip(("ms", "plain_ms", "library_ms", "bound_ms",
+                                          "bound_by"), k4_bwd[1:])), k4_bwd[0], launches[3],
+             f"{warp} (its gradient, from jax.grad)",
+             f"aten.grid_sampler_2d_backward(output_mask=[True, False]): {near}")):
+        records.append({"name": name, "route": "cuda",
+                        "source": f"stylegan_v_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+                        "launches": n, "max_abs_err": err, "ms": times["ms"],
+                        "plain_ms": times["plain_ms"], "bound_ms": times["bound_ms"],
+                        "bound_by": times["bound_by"], "library_call": library,
+                        "library_ms": times["library_ms"],
+                        "share_of_bound": times["bound_ms"] / times["ms"]})
+    return records
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -658,7 +786,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
-    k1 = phase_kernel(dev, "[3 kernel]", downfirdn2d_x2, downfirdn2d_x2_plain, D_SKIP_SHAPES)
+    k1 = phase_kernel(dev, "[3 kernel]", "down", downfirdn2d_x2, downfirdn2d_x2_plain)
     G, D = ffs256_models(dev)
     phase_slice(dev, G, D)
     phase_speed(dev, G, smi)
@@ -673,17 +801,7 @@ def main() -> int:
     del G, D
     torch.cuda.empty_cache()
     phase_aug_parity(dev)
-    warp = "stylegan_v_tpu/ops/grid_sample.py:33 (XLA gather; no Pallas kernel)"
-    records = []
-    for name, (err, ms, plain_ms), n, replaces in (
-            ("downfirdn2d_x2", k1, launches[0], "stylegan_v_tpu/ops/pallas_kernels.py:100"),
-            ("downfirdn2d_x2_bwd", k1_bwd, launches[1],
-             "stylegan_v_tpu/ops/pallas_kernels.py:100 (its gradient, from jax.grad)"),
-            ("affine_warp", k4, launches[2], warp),
-            ("affine_warp_bwd", k4_bwd, launches[3], f"{warp} (its gradient, from jax.grad)")):
-        records.append({"name": name, "route": "cuda",
-                        "source": f"stylegan_v_tpu_torch/csrc/{name}.cu", "replaces": replaces,
-                        "launches": n, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    records = kernel_records(k1, k1_bwd, k4, k4_bwd, launches)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

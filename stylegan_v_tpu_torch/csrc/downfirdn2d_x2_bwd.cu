@@ -26,99 +26,131 @@
 // nearest even). It equals conv_transpose2d(dy, fk, stride=2, padding=1) per
 // channel.
 //
-// Bound: memory. It reads N*C*H*W/4 elements and writes four times that.
-// One thread computes one quad: it loads the 3x3 neighbourhood of d[Y][X]
-// (neighbouring threads share it through L1), so every tap index is known
-// at compile time, and stores each output row of the quad as one two-element
-// vector. A 3-D grid (X in blocks of threads, Y, plane) needs no integer
-// division. Shared-memory tiling and wider stores are later work.
+// Bound: HBM. It reads N*C*H*W/4 elements and writes four times that, for 4
+// multiply-adds per output. Design (the tile plan is
+// ops/fir_kernels.py:fir_plan, see fir_tile.cuh), K1's transposed:
+// - A block copies a (tile_h + 2) x (tile_w + 2*pad) dy window, halo and
+//   zeros outside the plane included, into shared memory by 16-byte
+//   cp.async; persistent blocks overlap the next tile's copy with this
+//   tile's sums (two stages).
+// - A thread computes 2 dy rows x 16/2 bytes of quads (4 quads in bf16, 2 in
+//   f32), so every dx row it writes is one 16-byte vector, from four window
+//   rows read as 8-byte vectors; every tap index is fixed at compile time.
+// - Planes with at most 16 bytes' worth of quads a row are packed several to
+//   a tile, so that every lane has work; no integer division per element.
+// Shapes whose rows are not whole 16-byte vectors (or a misaligned dy) take
+// the same plan with element-wise copies and stores.
 //
 // The C entry point launches on the given stream, does not synchronise,
-// allocates nothing and returns cudaGetLastError().
+// allocates nothing and returns the CUDA error of the launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <stdint.h>
+#include "fir_tile.cuh"
 
 namespace {
 
-struct Filter4x4 {
-  float v[16];
-};
+using fir::Filter4x4;
+using fir::Plan;
+using fir::Tile;
 
-__device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(FIR_MAX_THREADS)
+    downfirdn2d_x2_bwd_kernel(const T* __restrict__ dy, T* __restrict__ dx, const Filter4x4 f,
+                              const Plan pl) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int Q = 8 / (int)sizeof(T);  // quads per thread and dy row
+  const int cx = threadIdx.x % pl.nx, rest = threadIdx.x / pl.nx;
+  const int cy = rest % pl.ny, cp = rest / pl.ny;
+  const int Ho = pl.grid_h, Wo = pl.grid_w, W = 2 * Wo;
+  fir::tile_loop<T, VEC, false>(dy, pl, smem, [&](const Tile& tl, const T* sw) {
+    const int64_t plane = tl.plane0 + cp;
+    const int Y0 = tl.h0 + 2 * cy, X0 = tl.w0 + Q * cx;
+    if (plane >= pl.planes || Y0 >= Ho || X0 >= Wo) return;
+    // window row of dy row Y0 - 1 + r: 2cy + r; column of X0 - 1 + k: Q cx + pad - 1 + k
+    const T* s = sw + ((size_t)cp * pl.win_h + 2 * cy) * pl.row_stride + Q * cx + pl.pad - 1;
+    float d[4][Q + 2];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) fir::load_row<T, VEC, Q + 2, 8>(s + r * pl.row_stride, d[r]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int Y = Y0 + i;
+      if (Y >= Ho) break;
+      const float* m = d[i];      // d[Y-1][X0-1 ..]
+      const float* z = d[i + 1];  // d[Y][..]
+      const float* p = d[i + 2];  // d[Y+1][..]
+      float top[2 * Q], bot[2 * Q];
+#pragma unroll
+      for (int q = 0; q < Q; ++q) {
+        const float mm = m[q], m0 = m[q + 1], mp = m[q + 2];
+        const float zm = z[q], z0 = z[q + 1], zp = z[q + 2];
+        const float pm = p[q], p0 = p[q + 1], pp = p[q + 2];
+        float a = 0.f, b = 0.f;
+        a += f.v[5] * z0;  a += f.v[7] * zm;  a += f.v[13] * m0;  a += f.v[15] * mm;
+        b += f.v[4] * zp;  b += f.v[6] * z0;  b += f.v[12] * mp;  b += f.v[14] * m0;
+        top[2 * q] = a;
+        top[2 * q + 1] = b;
+        a = 0.f;
+        b = 0.f;
+        a += f.v[1] * p0;  a += f.v[3] * pm;  a += f.v[9] * z0;   a += f.v[11] * zm;
+        b += f.v[0] * pp;  b += f.v[2] * p0;  b += f.v[8] * zp;   b += f.v[10] * z0;
+        bot[2 * q] = a;
+        bot[2 * q + 1] = b;
+      }
+      T* out = dx + (plane * 2 * Ho + 2 * Y) * (int64_t)W + 2 * X0;
+      fir::store_run<T, VEC, 2 * Q>(out, top, W - 2 * X0);
+      fir::store_run<T, VEC, 2 * Q>(out + W, bot, W - 2 * X0);
+    }
+  });
 }
 
-template <typename T>
-__global__ void downfirdn2d_x2_bwd_kernel(const T* __restrict__ dy, T* __restrict__ dx,
-                                          const Filter4x4 f, const int Ho, const int Wo,
-                                          const int64_t planes) {
-  const int X = blockIdx.x * blockDim.x + threadIdx.x;
-  const int Y = blockIdx.y;
-  if (X >= Wo) return;
-  const int W = 2 * Wo;
-  const bool up = Y > 0, down = Y + 1 < Ho, left = X > 0, right = X + 1 < Wo;
-  for (int64_t p = blockIdx.z; p < planes; p += gridDim.z) {
-    const T* r = dy + (p * Ho + Y) * (int64_t)Wo + X;      // d[Y][X]
-    // d[Y+i][X+j] for i, j in {-1, 0, 1}, zero outside the plane
-    const float mm = (up && left) ? load_f32(r - Wo - 1) : 0.f;
-    const float m0 = up ? load_f32(r - Wo) : 0.f;
-    const float mp = (up && right) ? load_f32(r - Wo + 1) : 0.f;
-    const float zm = left ? load_f32(r - 1) : 0.f;
-    const float z0 = load_f32(r);
-    const float zp = right ? load_f32(r + 1) : 0.f;
-    const float pm = (down && left) ? load_f32(r + Wo - 1) : 0.f;
-    const float p0 = down ? load_f32(r + Wo) : 0.f;
-    const float pp = (down && right) ? load_f32(r + Wo + 1) : 0.f;
-    T* out = dx + (p * 2 * Ho + 2 * Y) * (int64_t)W + 2 * X;
-    float a = 0.f, b = 0.f;
-    a += f.v[5] * z0;  a += f.v[7] * zm;  a += f.v[13] * m0;  a += f.v[15] * mm;
-    b += f.v[4] * zp;  b += f.v[6] * z0;  b += f.v[12] * mp;  b += f.v[14] * m0;
-    store2(out, a, b);
-    a = 0.f;
-    b = 0.f;
-    a += f.v[1] * p0;  a += f.v[3] * pm;  a += f.v[9] * z0;   a += f.v[11] * zm;
-    b += f.v[0] * pp;  b += f.v[2] * p0;  b += f.v[8] * zp;   b += f.v[10] * z0;
-    store2(out + W, a, b);
-  }
+template <typename T, bool VEC>
+cudaError_t launch(const void* dy, void* dx, const Filter4x4& f, const Plan& pl,
+                   cudaStream_t stream) {
+  auto kernel = downfirdn2d_x2_bwd_kernel<T, VEC>;
+  const int smem = 2 * pl.stage_bytes;
+  cudaError_t err = fir::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<pl.grid, pl.threads, smem, stream>>>(static_cast<const T*>(dy),
+                                                 static_cast<T*>(dx), f, pl);
+  return cudaGetLastError();
 }
 
-template <typename T>
-void launch(const void* dy, void* dx, const Filter4x4& f, int64_t planes, int H, int W,
-            cudaStream_t stream) {
-  const int Ho = H / 2, Wo = W / 2;
-  const int threads = Wo >= 128 ? 128 : 32 * ((Wo + 31) / 32);
-  const dim3 grid((Wo + threads - 1) / threads, Ho,
-                  (unsigned)(planes < 65535 ? planes : 65535));  // planes loop in-kernel
-  downfirdn2d_x2_bwd_kernel<T><<<grid, threads, 0, stream>>>(
-      static_cast<const T*>(dy), static_cast<T*>(dx), f, Ho, Wo, planes);
+template <typename T, bool VEC>
+cudaError_t occupancy(int threads, int smem, int* blocks) {
+  auto kernel = downfirdn2d_x2_bwd_kernel<T, VEC>;
+  cudaError_t err = fir::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. f_flipped: 16 host floats, row-major,
-// already flipped. planes = N*C. H and W are the OUTPUT's (even); dy is
-// [planes, H/2, W/2] and dx [planes, H, W], both contiguous.
+// already flipped. plan: the int64 plan of ops/fir_kernels.py:fir_plan for
+// dy [planes, Ho, Wo], contiguous; dx is [planes, 2Ho, 2Wo].
 extern "C" int downfirdn2d_x2_bwd(const void* dy, void* dx, const float* f_flipped, int dtype,
-                                  int64_t planes, int H, int W, void* stream) {
+                                  const int64_t* plan, void* stream) {
   Filter4x4 f;
   for (int i = 0; i < 16; ++i) f.v[i] = f_flipped[i];
+  const int64_t size = dtype == 0 ? 4 : 2;   // the runs the kernel is written for
+  if (plan[fir::kRunH] != 2 || plan[fir::kRunW] * size != 8) return (int)cudaErrorInvalidValue;
+  const Plan pl = fir::read_plan(plan);
+  const bool vec = plan[fir::kVec] != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    launch<float>(dy, dx, f, planes, H, W, s);
-  } else if (dtype == 1) {
-    launch<__nv_bfloat16>(dy, dx, f, planes, H, W, s);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (dtype == 0) return (int)(vec ? launch<float, true>(dy, dx, f, pl, s)
+                                   : launch<float, false>(dy, dx, f, pl, s));
+  if (dtype == 1) return (int)(vec ? launch<__nv_bfloat16, true>(dy, dx, f, pl, s)
+                                   : launch<__nv_bfloat16, false>(dy, dx, f, pl, s));
+  return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of `threads` threads and 2 * stage_bytes of shared memory that one
+// SM holds at once, for the plan's persistent grid.
+extern "C" int downfirdn2d_x2_bwd_occupancy(int dtype, int vec, int threads, int stage_bytes,
+                                            int* blocks) {
+  const int smem = 2 * stage_bytes;
+  if (dtype == 0) return (int)(vec ? occupancy<float, true>(threads, smem, blocks)
+                                   : occupancy<float, false>(threads, smem, blocks));
+  if (dtype == 1) return (int)(vec ? occupancy<__nv_bfloat16, true>(threads, smem, blocks)
+                                   : occupancy<__nv_bfloat16, false>(threads, smem, blocks));
+  return (int)cudaErrorInvalidValue;
 }

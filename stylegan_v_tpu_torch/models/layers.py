@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import activation_funcs, bias_act, conv2d_resample, setup_filter
+from ..ops import activation_funcs, bias_act, conv2d_resample, leaky_relu, setup_filter
 from ..utils.misc import assert_shape, normal_param
 from .config import SamplingConfig
 
@@ -189,8 +189,9 @@ class EqLRConv1d(nn.Module):
         if self.bias is not None:
             y = y + (self.bias * self.lr_multiplier)[None, :, None]
         if self.activation == "lrelu":
-            # plain torch-style leaky_relu: NO sqrt(2) gain (reference layers.py:370)
-            y = F.leaky_relu(y, 0.2)
+            # plain torch-style leaky_relu: NO sqrt(2) gain (reference layers.py:370),
+            # with jax.nn.leaky_relu's gradient at 0
+            y = leaky_relu(y, 0.2)
         return y
 
 

@@ -1,4 +1,4 @@
-from .bias_act import activation_funcs, bias_act  # noqa: F401
+from .bias_act import activation_funcs, bias_act, leaky_relu  # noqa: F401
 from .conv2d_resample import conv2d_resample  # noqa: F401
 from .fir_kernels import (  # noqa: F401
     downfirdn2d_x2,

@@ -75,11 +75,12 @@ def build_libraries() -> List[Path]:
 
 
 @functools.lru_cache(maxsize=None)
-def entry_point(name: str, argtypes: Sequence):
-    """The C function `name` of csrc/<name>.cu (built if need be); it returns
-    a cudaError_t as an int. argtypes is a tuple of ctypes types."""
+def entry_point(name: str, argtypes: Sequence, symbol: str = ""):
+    """The C function `symbol` (by default `name`) of csrc/<name>.cu (built if
+    need be); it returns a cudaError_t as an int. argtypes is a tuple of
+    ctypes types."""
     build_libraries()
-    fn = getattr(ctypes.CDLL(str(_library_path(name))), name)
+    fn = getattr(ctypes.CDLL(str(_library_path(name))), symbol or name)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn

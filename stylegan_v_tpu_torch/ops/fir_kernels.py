@@ -19,10 +19,14 @@ differentiable to any order: K1's backward is K1-bwd and K1-bwd's backward
 is K1. The filter is a host constant and takes no gradient.
 
 Each kernel is built at first use by `cuda_build` (nvcc for sm_90a, ctypes).
+Its launch geometry is `fir_plan`, computed here so that the CPU tests can
+check that the tiles cover every output exactly once.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,7 +34,146 @@ import torch.nn.functional as F
 from .cuda_build import DTYPE_CODES, check_launch, entry_point, on_cuda
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
-             ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+             ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p)
+_OCCUPANCY_ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int))
+THREADS = 128          # threads a block aims at (at most FIR_MAX_THREADS, csrc/fir_tile.cuh)
+
+
+class FirPlan(NamedTuple):
+    """The launch geometry of K1 (kind "down") or K1-bwd ("up"); the field
+    order is the int64 array the C entry points read (csrc/fir_tile.cuh).
+
+    The tile grid is K1's output [planes, grid_h, grid_w] or K1-bwd's dy. A
+    tile is planes_per_tile planes x tile_h x tile_w cells; tile t is
+    (t // (tiles_w tiles_h), t // tiles_w % tiles_h, t % tiles_w) in
+    (planes, rows, columns). Thread k of `threads` takes run_h rows x run_w
+    columns at (k // (nx ny), k // nx % ny, k % nx) in runs; what falls
+    outside the grid is masked. The tile reads its window, win_h x win_w
+    source elements per plane from row scale*h0 - 1 and column
+    scale*w0 - pad, in `chunk`-element copies (cpr a row), each row
+    row_stride elements apart in shared memory (K1 with vec swizzles the
+    chunks of a row and holds an even number of them); the magic and
+    shift pairs divide by cpr and win_h (`fast_div_magic`). `grid` blocks
+    walk over the tiles, each holding two stages of stage_bytes."""
+    planes: int
+    src_h: int
+    src_w: int
+    grid_h: int
+    grid_w: int
+    vec: int
+    scale: int
+    run_h: int
+    run_w: int
+    planes_per_tile: int
+    tile_h: int
+    tile_w: int
+    nx: int
+    ny: int
+    threads: int
+    tiles_p: int
+    tiles_h: int
+    tiles_w: int
+    tiles: int
+    grid: int
+    pad: int
+    win_h: int
+    win_w: int
+    row_stride: int
+    chunk: int
+    cpr: int
+    cpr_magic: int
+    cpr_shift: int
+    winh_magic: int
+    winh_shift: int
+    stage_bytes: int
+
+
+def fast_div_magic(d: int) -> Tuple[int, int]:
+    """(magic, shift) with n // d == ((n * magic >> 32) + n) >> shift for
+    0 <= n < 2**31, as csrc/fir_tile.cuh:fast_div computes it."""
+    shift = (d - 1).bit_length()
+    return ((1 << 32) * ((1 << shift) - d)) // d + 1, shift
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def fir_plan(kind: str, planes: int, src_h: int, src_w: int, itemsize: int, vec: bool,
+             resident: int) -> FirPlan:
+    """The tile plan of K1 ("down": x [planes, src_h, src_w]) or K1-bwd ("up":
+    dy [planes, src_h, src_w]) for `itemsize`-byte elements. With vec, every
+    row is whole 16-byte vectors: copies and stores go 16 bytes at a time.
+    `resident` is the number of blocks the card holds at once."""
+    v = 16 // itemsize                       # elements in 16 bytes
+    if kind == "down":                       # a thread: 2 output rows x 16 bytes
+        scale, grid_h, grid_w, run_w = 2, src_h // 2, src_w // 2, v
+    elif kind == "up":                       # a thread: 2 dy rows x 16/2 bytes of quads
+        scale, grid_h, grid_w, run_w = 1, src_h, src_w, v // 2
+    else:
+        raise ValueError(f"kind is 'down' or 'up', got {kind!r}")
+    run_h = 2
+    tile_w = min(_ceil_div(grid_w, run_w) * run_w, 16 * run_w)
+    nx = tile_w // run_w
+    tile_h = min(_ceil_div(grid_h, run_h) * run_h, run_h * max(1, THREADS // nx))
+    ny = tile_h // run_h
+    whole = tile_h >= grid_h and tile_w >= grid_w          # pack small planes
+    per_tile = max(1, min(planes, THREADS // (nx * ny))) if whole else 1
+    pad, chunk = (v, v) if vec else (1, 1)
+    win_h, win_w = scale * tile_h + 2, scale * tile_w + 2 * pad
+    tiles_p, tiles_h = _ceil_div(planes, per_tile), _ceil_div(grid_h, tile_h)
+    tiles_w = _ceil_div(grid_w, tile_w)
+    tiles = tiles_p * tiles_h * tiles_w
+    cpr = win_w // chunk
+    row_stride = win_w + chunk * (cpr % 2) if vec and kind == "down" else win_w
+    stage_bytes = _ceil_div(per_tile * win_h * row_stride * itemsize, 16) * 16
+    return FirPlan(planes, src_h, src_w, grid_h, grid_w, int(vec), scale, run_h, run_w,
+                   per_tile, tile_h, tile_w, nx, ny, per_tile * nx * ny, tiles_p, tiles_h,
+                   tiles_w, tiles, min(tiles, resident), pad, win_h, win_w, row_stride, chunk,
+                   cpr, *fast_div_magic(cpr), *fast_div_magic(win_h), stage_bytes)
+
+
+_TAPS_BY_TENSOR: dict = {}
+
+
+def _taps(name: str, f):
+    """The 4x4 filter f, flipped, as the ctypes array the entry points take;
+    for a tensor, remembered by its identity and version, so that the same
+    filter costs no host work on the next launch."""
+    if isinstance(f, torch.Tensor):
+        hit = _TAPS_BY_TENSOR.get(id(f))
+        if hit is not None and hit[0] is f and hit[1] == f._version:
+            return hit[2]
+    t = torch.as_tensor(f, dtype=torch.float32).detach().cpu()
+    if tuple(t.shape) != (4, 4):
+        raise ValueError(f"{name} needs a 4x4 filter, got {tuple(t.shape)}")
+    taps = (ctypes.c_float * 16)(*_flipped_filter(t).reshape(-1).tolist())
+    if isinstance(f, torch.Tensor):
+        if len(_TAPS_BY_TENSOR) >= 64:
+            _TAPS_BY_TENSOR.clear()
+        _TAPS_BY_TENSOR[id(f)] = (f, f._version, taps)   # holds f: its id stays unique
+    return taps
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_plan(name: str, planes: int, H: int, W: int, dtype: torch.dtype, vec: bool,
+                 device: int):
+    """fir_plan for csrc/<name>.cu, with the grid the card holds at once, as
+    the int64 array its entry point takes."""
+    kind = "down" if name == "downfirdn2d_x2" else "up"
+    plan = fir_plan(kind, planes, H, W, dtype.itemsize, vec, resident=1)
+    blocks = ctypes.c_int(0)
+    occupancy = entry_point(name, _OCCUPANCY_ARGTYPES, f"{name}_occupancy")
+    with torch.cuda.device(device):
+        check_launch(f"{name}_occupancy", occupancy(DTYPE_CODES[dtype], int(vec), plan.threads,
+                                                    plan.stage_bytes, ctypes.byref(blocks)))
+    if blocks.value < 1:
+        raise RuntimeError(f"{name}: no block of {plan.threads} threads and "
+                           f"{2 * plan.stage_bytes} bytes of shared memory fits an SM")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = plan._replace(grid=min(plan.tiles, blocks.value * sms))
+    return (ctypes.c_int64 * len(plan))(*plan)
 
 
 def _flipped_filter(f) -> torch.Tensor:
@@ -48,9 +191,9 @@ def _check_input(x: torch.Tensor) -> None:
         raise ValueError(f"downfirdn2d_x2 needs even H and W, got {tuple(x.shape)}")
 
 
-def _launch(wrapper, inp: torch.Tensor, out: torch.Tensor, f, H: int, W: int) -> None:
+def _launch(wrapper, inp: torch.Tensor, out: torch.Tensor, f) -> None:
     """Launch the kernel of `wrapper` (its C entry point has the wrapper's name)
-    from inp into out, over N*C planes of the full-size H x W; count it."""
+    from inp into out, over inp's N*C planes; count it."""
     name = wrapper.__name__
     if inp.dtype not in DTYPE_CODES:
         raise ValueError(f"{name} takes float32 or bfloat16, got {inp.dtype}")
@@ -58,13 +201,19 @@ def _launch(wrapper, inp: torch.Tensor, out: torch.Tensor, f, H: int, W: int) ->
         raise ValueError(f"{name} needs a contiguous NCHW tensor")
     if out.numel() == 0:
         return
-    fk = _flipped_filter(torch.as_tensor(f).detach().cpu())
-    taps = (ctypes.c_float * 16)(*fk.reshape(-1).tolist())
+    taps = _taps(name, f)
+    N, C, H, W = inp.shape
+    small_w = W if name == "downfirdn2d_x2_bwd" else W // 2   # K1's output, K1-bwd's input
+    vec = small_w % (16 // inp.element_size()) == 0 and inp.data_ptr() % 16 == 0
+    device = inp.device.index
+    args = (inp.data_ptr(), out.data_ptr(), taps, DTYPE_CODES[inp.dtype],
+            _launch_plan(name, N * C, H, W, inp.dtype, vec, device))
     fn = entry_point(name, _ARGTYPES)
-    with torch.cuda.device(inp.device):
-        stream = torch.cuda.current_stream(inp.device).cuda_stream
-        err = fn(inp.data_ptr(), out.data_ptr(), taps, DTYPE_CODES[inp.dtype],
-                 inp.shape[0] * inp.shape[1], H, W, stream)
+    if device == torch._C._cuda_getDevice():       # the raw stream: no Stream object
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
     check_launch(name, err)
     wrapper.launches += 1
 
@@ -94,7 +243,7 @@ def downfirdn2d_x2(x: torch.Tensor, f) -> torch.Tensor:
         return downfirdn2d_x2_plain(x, f)
     N, C, H, W = x.shape
     y = torch.empty((N, C, H // 2, W // 2), dtype=x.dtype, device=x.device)
-    _launch(downfirdn2d_x2, x, y, f, H, W)
+    _launch(downfirdn2d_x2, x, y, f)
     return y
 
 
@@ -127,7 +276,7 @@ def downfirdn2d_x2_bwd(dy: torch.Tensor, f) -> torch.Tensor:
         return downfirdn2d_x2_bwd_plain(dy, f)
     N, C, Ho, Wo = dy.shape
     dx = torch.empty((N, C, 2 * Ho, 2 * Wo), dtype=dy.dtype, device=dy.device)
-    _launch(downfirdn2d_x2_bwd, dy, dx, f, 2 * Ho, 2 * Wo)
+    _launch(downfirdn2d_x2_bwd, dy, dx, f)
     return dx
 
 

@@ -121,7 +121,7 @@ def upfirdn2d(x: torch.Tensor, f: Filter, up=1, down=1, padding=0,
     if _is_k1_case(x, f, up, down, padding):
         # The kernel flips its filter (true convolution); pre-flip to correlate.
         fk = f.flip([0, 1]) if flip_filter else f
-        return _DownFirX2.apply(x, fk * gain)
+        return _DownFirX2.apply(x, fk if gain == 1 else fk * gain)
     return _UpFirDn2d.apply(x, f, up, down, padding, flip_filter, gain)
 
 

@@ -135,6 +135,50 @@ def test_bias_act_clamp_ties_match_jax():
     np.testing.assert_array_equal(tx.grad.numpy(), [0, 0.5, 1, 1, 1, 0.5, 0])
 
 
+@pytest.mark.parametrize("clamp", [None, 1.5])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bias_act_lrelu_grads_at_zero_match_jax(dtype, clamp):
+    """jax.nn.leaky_relu passes the whole gradient where its input is exactly 0
+    (+0 or -0); F.leaky_relu passed the slope. Value, vjp and second order
+    (the gradient of <vjp(dy), v> in x and in dy) against jax.vjp: exact at
+    the zeros, elsewhere within one rounding of the working dtype (JAX scales
+    by the slope rounded to bf16, torch by the float32 slope)."""
+    rng = np.random.RandomState(11)
+    x = (rng.randn(96) * 2).astype(np.float32)
+    x[::4], x[2::8] = 0.0, -0.0
+    dy, v = rng.randn(2, 96).astype(np.float32)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    zeros = x == 0
+    tol = 1e-6 if dtype == "float32" else 1e-2
+
+    def jfn(x):
+        return jbias_act(x, None, act="lrelu", clamp=clamp)
+
+    def probe(x, dy):
+        return jnp.sum(jax.vjp(jfn, x)[1](dy)[0] * v.astype(jdt))
+
+    jx, jdy = jnp.asarray(x, jdt), jnp.asarray(dy, jdt)
+    y, vjp = jax.vjp(jfn, jx)
+    want = [y, vjp(jdy)[0], *jax.grad(probe, argnums=(0, 1))(jx, jdy)]
+    tx = torch.from_numpy(x).to(tdt).requires_grad_(True)
+    tdy = torch.from_numpy(dy).to(tdt).requires_grad_(True)
+    ty = bias_act(tx, None, dim=0, act="lrelu", clamp=clamp)
+    tg, = torch.autograd.grad(ty, tx, tdy, create_graph=True)
+    tsx, tsdy = torch.autograd.grad((tg * torch.from_numpy(v).to(tdt)).sum(), [tx, tdy],
+                                    allow_unused=True)
+    tsx = torch.zeros_like(tx) if tsx is None else tsx
+    for what, got, w in zip(("value", "vjp", "second order in x", "second order in dy"),
+                            (ty, tg, tsx, tsdy), want):
+        got = got.detach().float().numpy()
+        w = np.asarray(w.astype(jnp.float32))
+        np.testing.assert_array_equal(got[zeros], w[zeros], err_msg=f"{what} at the zeros")
+        np.testing.assert_allclose(got, w, rtol=tol, atol=tol, err_msg=what)
+    # the gradient at 0 is the gain (and at a clamp bound it would be halved)
+    np.testing.assert_array_equal(tg.detach().float().numpy()[zeros],
+                                  (tdy.detach() * float(torch.tensor(np.sqrt(2), dtype=tdt))
+                                   ).to(tdt).float().numpy()[zeros])
+
+
 @pytest.mark.parametrize("k,up,down", [(3, 2, 1), (3, 1, 2), (1, 2, 1), (1, 1, 2)])
 def test_conv2d_resample_grads(k, up, down):
     rng = np.random.RandomState(3)

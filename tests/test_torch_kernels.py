@@ -81,6 +81,138 @@ def test_bwd_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
         downfirdn2d_x2_bwd(torch.zeros(2, 3, 4), ASYM)
 
 
+# ------------------------------------------------- K1 and K1-bwd tile plans
+
+# K1's inputs: D's six resnet skips at 16 videos x 3 frames and at 2 x 3, and
+# edge cases: H = W = 2, W = 2 with a tall H, Wo (136) not a multiple of the
+# tile, one plane, more than 65,535 planes.
+K1_SHAPES = [(48, 64, 256, 256), (48, 128, 128, 128), (48, 256, 64, 64), (48, 512, 32, 32),
+             (16, 768, 16, 16), (16, 512, 8, 8),
+             (6, 64, 256, 256), (6, 128, 128, 128), (6, 256, 64, 64), (6, 512, 32, 32),
+             (2, 768, 16, 16), (2, 512, 8, 8),
+             (1, 1, 2, 2), (2, 3, 2, 2), (1, 2, 1024, 2), (1, 3, 20, 272), (1, 1, 64, 64),
+             (1, 70000, 4, 4)]
+
+
+def plan_cases():
+    """(kind, source shape, itemsize, vec) for K1 on x and K1-bwd on dy = K1's output."""
+    for n, c, h, w in K1_SHAPES:
+        for kind, (sh, sw) in (("down", (h, w)), ("up", (h // 2, w // 2))):
+            for itemsize in (2, 4):
+                small_w = sw // 2 if kind == "down" else sw   # K1's output, K1-bwd's input
+                for vec in (False, True) if small_w % (16 // itemsize) == 0 else (False,):
+                    yield pytest.param(kind, (n * c, sh, sw), itemsize, vec,
+                                       id=f"{kind}-{n}x{c}x{sh}x{sw}-{itemsize}B-vec{int(vec)}")
+
+
+def thread_reads(plan, kind):
+    """Per axis, the source offsets (rows, columns) that the thread at run
+    (cy, cx) reads from the window, relative to the window's origin, as the
+    kernels read them (csrc/downfirdn2d_x2*.cu, fir_tile.cuh:load_row)."""
+    cy, cx = np.arange(plan.ny)[:, None], np.arange(plan.nx)[:, None]
+    if kind == "down":          # six rows from 4cy; columns from 2 run_w cx + pad - 1
+        rows = 4 * cy + np.arange(6)
+        first, n, chunk = 2 * plan.run_w * cx + plan.pad - 1, 2 * plan.run_w + 2, plan.run_w
+    else:                       # four rows from 2cy; columns from run_w cx + pad - 1
+        rows = 2 * cy + np.arange(4)
+        first, n, chunk = plan.run_w * cx + plan.pad - 1, plan.run_w + 2, plan.run_w
+    if plan.vec:                # whole vectors of `chunk` elements from first - (chunk - 1)
+        start = first - (chunk - 1)
+        count = -(-(n + chunk - 1) // chunk) * chunk
+        cols = start + np.arange(count)
+    else:
+        cols = first + np.arange(n)
+    return rows, cols, first + np.arange(n)
+
+
+@pytest.mark.parametrize("kind,shape,itemsize,vec", list(plan_cases()))
+def test_fir_plan_covers_every_output_once_and_reads_inside_its_window(kind, shape, itemsize,
+                                                                       vec):
+    planes, sh, sw = shape
+    plan = fir_kernels.fir_plan(kind, planes, sh, sw, itemsize, vec, resident=4 * 132)
+    assert len(plan) == len(fir_kernels.FirPlan._fields)
+    assert plan.grid_h == (sh // 2 if kind == "down" else sh)
+    assert plan.grid_w == (sw // 2 if kind == "down" else sw)
+    assert 1 <= plan.threads == plan.planes_per_tile * plan.nx * plan.ny <= fir_kernels.THREADS
+    assert plan.tile_h == plan.ny * plan.run_h and plan.tile_w == plan.nx * plan.run_w
+    assert plan.tiles == plan.tiles_p * plan.tiles_h * plan.tiles_w
+    assert plan.grid == min(plan.tiles, 4 * 132)
+    # every output (K1-bwd: every dy cell, i.e. every dx quad) exactly once, axis by axis
+    for length, tile, run, runs, tiles in (
+            (planes, plan.planes_per_tile, 1, plan.planes_per_tile, plan.tiles_p),
+            (plan.grid_h, plan.tile_h, plan.run_h, plan.ny, plan.tiles_h),
+            (plan.grid_w, plan.tile_w, plan.run_w, plan.nx, plan.tiles_w)):
+        idx = (np.arange(tiles)[:, None, None] * tile + np.arange(runs)[None, :, None] * run
+               + np.arange(run)[None, None, :]).ravel()
+        assert np.array_equal(np.bincount(idx[idx < length], minlength=length),
+                              np.ones(length, np.int64))
+    # the taps of every output lie in what its thread reads, and that in the window
+    rows, cols, needed = thread_reads(plan, kind)
+    assert rows.min() >= 0 and rows.max() < plan.win_h
+    assert cols.min() >= 0 and cols.max() < plan.win_w
+    assert np.isin(needed, cols).all()
+    s = plan.scale
+    # window origin of tile (., th, tw) is (s h0 - 1, s w0 - pad); thread (cy, cx)'s
+    # outputs o need source rows s o - 1 .. (down: 2o + 2, up: o + 1)
+    for o_first, origin, run, reads, pad in ((2 * np.arange(plan.ny), 1, plan.run_h, rows, 1),
+                                             (plan.run_w * np.arange(plan.nx), plan.pad,
+                                              plan.run_w, needed, plan.pad)):
+        o = o_first[:, None] + np.arange(run)                       # relative to the tile
+        lo, hi = s * o - 1 + origin, s * o + (2 if kind == "down" else 1) + origin
+        assert (lo.min(axis=1) >= reads.min(axis=1)).all()
+        assert (hi.max(axis=1) <= reads.max(axis=1)).all()
+    # vector copies: every chunk wholly inside or outside the plane, rows on 16 bytes
+    assert plan.win_w % plan.chunk == 0 and plan.cpr == plan.win_w // plan.chunk
+    assert plan.stage_bytes % 16 == 0
+    assert plan.row_stride >= plan.win_w
+    assert plan.stage_bytes >= plan.planes_per_tile * plan.win_h * plan.row_stride * itemsize
+    assert 2 * plan.stage_bytes <= 227 * 1024
+    if vec:
+        assert plan.chunk == plan.pad == 16 // itemsize
+        assert sw % plan.chunk == 0 and (s * plan.tile_w) % plan.chunk == 0
+        assert (plan.row_stride * itemsize) % 16 == 0
+        if kind == "down":   # swizzled rows (fir_tile.cuh:swizzle) pair up their chunks
+            slots = plan.row_stride // plan.chunk
+            assert slots % 2 == 0 and slots - plan.cpr in (0, 1)
+            c = np.arange(slots)
+            assert sorted(c ^ ((c >> 3) & 1)) == list(c)
+    else:
+        assert plan.chunk == plan.pad == 1 and plan.row_stride == plan.win_w
+    # the divisions of the copy loop (fir_tile.cuh:copy_window)
+    for d, magic, shift, n in ((plan.cpr, plan.cpr_magic, plan.cpr_shift,
+                                plan.planes_per_tile * plan.win_h * plan.cpr),
+                               (plan.win_h, plan.winh_magic, plan.winh_shift,
+                                plan.planes_per_tile * plan.win_h)):
+        i = np.unique(np.r_[np.arange(min(n, 4096)), n - 1 - np.arange(min(n, 64))])
+        i = i.astype(object)
+        assert all(((k * magic >> 32) + k) >> shift == k // d for k in i)
+
+
+def test_fast_div_magic_divides_up_to_2_31():
+    rng = np.random.RandomState(4)
+    for d in list(range(1, 300)) + [int(k) for k in rng.randint(300, 2**31 - 1, 50)]:
+        magic, shift = fir_kernels.fast_div_magic(d)
+        assert 0 < magic < 2**32
+        for n in [0, 1, d - 1, d, d + 1, 2**31 - 1] + [int(k) for k in rng.randint(0, 2**31, 50)]:
+            if n >= 0:
+                assert ((n * magic >> 32) + n) >> shift == n // d, (d, n)
+
+
+def test_fir_plan_packs_small_planes_and_tiles_large_ones():
+    """The D skip shapes at 16 x 3: large planes take 128-thread tiles of one
+    plane, planes with at most 16 outputs a row are packed several a tile."""
+    big = fir_kernels.fir_plan("down", 48 * 64, 256, 256, 2, True, resident=528)
+    assert (big.planes_per_tile, big.tile_h, big.tile_w, big.threads) == (1, 16, 128, 128)
+    for kind, shape, itemsize, per_tile in (("down", (48 * 512, 32, 32), 2, 8),
+                                            ("down", (16 * 768, 16, 16), 4, 16),
+                                            ("down", (16 * 512, 8, 8), 4, 64),
+                                            ("up", (16 * 512, 4, 4), 4, 32)):
+        plan = fir_kernels.fir_plan(kind, *shape, itemsize, True, resident=528)
+        assert plan.planes_per_tile == per_tile and plan.threads == fir_kernels.THREADS
+    with pytest.raises(ValueError, match="kind"):
+        fir_kernels.fir_plan("side", 1, 4, 4, 4, False, resident=1)
+
+
 def warp_inputs(device, dtype=torch.float32, seed=3):
     """An image [3, 5, 18, 20] and inverse maps: identity, an extreme map (a
     quarter scale, 45 degrees, past the border: the mirror and the clipped
@@ -181,6 +313,36 @@ def test_bwd_kernel_matches_plain_on_card(cuda, dtype, filt):
     torch.cuda.synchronize()
     assert downfirdn2d_x2_bwd.launches == before + 1
     assert_close(got, downfirdn2d_x2_bwd_plain(dy, f), dtype)
+
+
+EDGE_SHAPES = [(1, 1, 2, 2), (2, 3, 2, 2), (1, 2, 1024, 2), (1, 3, 20, 272), (1, 1, 64, 64),
+               (1, 70000, 4, 4), (2, 512, 8, 8), (2, 5, 18, 36)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", EDGE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("filt", ["sym", "asym"])
+def test_k1_and_k1_bwd_match_plain_at_edge_shapes(cuda, shape, dtype, filt):
+    """Both kernels at the tile plan's edge cases (whole-vector rows or not,
+    packed planes, partial tiles, more than 65,535 planes), and from a
+    misaligned view, which takes the element-wise copies."""
+    f = SYM if filt == "sym" else ASYM
+    g = torch.Generator(device=cuda).manual_seed(2)
+    n, c, h, w = shape
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    dy = torch.randn(n, c, h // 2, w // 2, generator=g, device=cuda).to(dtype)
+    k1, k1b = downfirdn2d_x2.launches, downfirdn2d_x2_bwd.launches
+    assert_close(downfirdn2d_x2(x, f), downfirdn2d_x2_plain(x, f), dtype)
+    assert_close(downfirdn2d_x2_bwd(dy, f), downfirdn2d_x2_bwd_plain(dy, f), dtype)
+    torch.cuda.synchronize()
+    assert (downfirdn2d_x2.launches - k1, downfirdn2d_x2_bwd.launches - k1b) == (1, 1)
+    xm = torch.empty(x.numel() + 1, device=cuda, dtype=dtype)[1:].view(shape)
+    xm.copy_(x)
+    dym = torch.empty(dy.numel() + 1, device=cuda, dtype=dtype)[1:].view(dy.shape)
+    dym.copy_(dy)
+    assert_close(downfirdn2d_x2(xm, f), downfirdn2d_x2_plain(x, f), dtype)
+    assert_close(downfirdn2d_x2_bwd(dym, f), downfirdn2d_x2_bwd_plain(dy, f), dtype)
 
 
 @pytest.mark.cuda
