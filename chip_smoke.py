@@ -37,12 +37,14 @@ holds them against the port's plain PyTorch paths:
               the CPU.
  10. warp:    K4 and K4-bwd against their plain versions at the two warp
               shapes of the ADA pipe at 16 videos x 3 frames (taken from the
-              pipe itself), float32 and bf16, with three sets of G_inv
-              (identity, bgc draws at p = 1, an extreme map); CUDA-event
-              times in turns, at the step's call with the nearest PyTorch
-              calls (F.grid_sample after F.affine_grid, and
-              aten.grid_sampler_2d_backward: not the same function, whose
-              border half pixel differs); autograd through K4 to second order.
+              pipe itself), float32 and bf16, with five sets of G_inv
+              (identity, bgc draws at p = 1, an extreme zoom-out, a 4x
+              zoom-in, per-axis scales 4 and 1/4); two K4-bwd calls at the
+              step's shape equal to the bit; CUDA-event times in turns, at
+              the step's call with the nearest PyTorch calls (F.grid_sample
+              after F.affine_grid, and aten.grid_sampler_2d_backward: not the
+              same function, whose border half pixel differs) and K4-bwd's
+              share of its bound; autograd through K4 to second order.
  11. ada:     the ADA training step (bgc, warp_upsample=2) at 16 x 3, 256^2,
               augment_p = 0.5: one step with R1, three without, one more
               with R1, as phase 8, with K1, K1-bwd, K4 and K4-bwd launch
@@ -574,12 +576,20 @@ def phase_warp(dev):
     c = 4 * math.cos(math.pi / 4)     # a quarter scale at 45 degrees, past the border
     extreme = torch.tensor([[[c, -c, 1.7], [c, c, -2.3], [0, 0, 1]],
                             [[4, 0, -3.1], [0, 4, 2.6], [0, 0, 1]]], device=dev)
+    z = 0.25 * math.cos(math.pi / 6), 0.25 * math.sin(math.pi / 6)   # 4x zoom-in at 30 degrees
+    zoom_in = torch.tensor([[[z[0], -z[1], 0.1], [z[1], z[0], -0.2], [0, 0, 1]]], device=dev)
+    r = math.cos(math.pi / 9), math.sin(math.pi / 9)     # per-axis scales 4 and 1/4 (ADA tails)
+    aniso = torch.tensor([[[4, 0, 0.3], [0, 0.25, -0.1], [0, 0, 1]],
+                          [[0.25 * r[0], -4 * r[1], -0.4], [0.25 * r[1], 4 * r[0], 0.9],
+                           [0, 0, 1]]], device=dev)
     g = torch.Generator(device=dev).manual_seed(7)
     worst = {"K4": 0.0, "K4-bwd": 0.0}
     path = {}
     for i, ((N, C, H, W), G_bgc, out_h, out_w, path_dtype) in enumerate(calls):
+        alternate = torch.arange(N, device=dev) % 2
         sets = {"identity": torch.eye(3, device=dev).repeat(N, 1, 1), "bgc": G_bgc,
-                "extreme": extreme[torch.arange(N, device=dev) % 2]}
+                "extreme": extreme[alternate], "zoom_in": zoom_in.repeat(N, 1, 1),
+                "aniso": aniso[alternate]}
         for dtype_name in ("float32", "bfloat16"):
             dtype, tol = getattr(torch, dtype_name), KERNEL_TOL[dtype_name]
             x = torch.randn(N, C, H, W, generator=g, device=dev).to(dtype)
@@ -598,6 +608,9 @@ def phase_warp(dev):
                           f"{name} vs plain {[N, C, H, W]} {dtype_name} {set_name}: max err {e}")
                     err[name] = max(err[name], e)
                     worst[name] = max(worst[name], e)
+            if i == 0:    # K4-bwd sums without atomics, in a fixed order: it repeats to the bit
+                check(torch.equal(bwd(G_bgc), bwd(G_bgc)),
+                      f"K4-bwd {[N, C, H, W]} {dtype_name}: two calls differ")
             # The nearest PyTorch calls, not the same function (border half pixel):
             # a yardstick at the step's call only; the port never calls them.
             theta = G_bgc[:, :2].to(dtype)
@@ -621,11 +634,16 @@ def phase_warp(dev):
                     nbytes = (x.numel() + dy.numel()) * x.element_size()
                     path[name] = (t[1], t[0], t[2], *bound_ms(nbytes, 8 * dy.numel()))
             moved = (x.numel() + dy.numel()) * x.element_size()
+            bound = bound_ms(moved, 8 * dy.numel())[0]
             print(f"[10 warp] {[N, C, H, W]} -> {[out_h, out_w]} {dtype_name}: K4 "
                   f"{times['K4'][0]:.4f} ms ({moved / times['K4'][0] / 1e6:.0f} GB/s) plain "
-                  f"{times['K4'][1]:.4f}; K4-bwd {times['K4-bwd'][0]:.4f} ms plain "
-                  f"{times['K4-bwd'][1]:.4f}; max_abs_err over identity, bgc, extreme: "
-                  f"K4 {err['K4']:.3g}, K4-bwd {err['K4-bwd']:.3g}", flush=True)
+                  f"{times['K4'][1]:.4f}; K4-bwd {times['K4-bwd'][0]:.4f} ms "
+                  f"({bound / times['K4-bwd'][0]:.1%} of the {bound:.4f} ms bound) plain "
+                  f"{times['K4-bwd'][1]:.4f}"
+                  + (f" nearest {path['K4-bwd'][2]:.4f}" if at_path else "")
+                  + f"; max_abs_err over {', '.join(sets)}: K4 {err['K4']:.3g}, K4-bwd "
+                  f"{err['K4-bwd']:.3g}" + ("; K4-bwd repeats to the bit" if i == 0 else ""),
+                  flush=True)
     # Autograd through K4 on the card: first order launches K4-bwd, second order K4.
     x = torch.randn(3, 5, 18, 20, generator=g, device=dev, requires_grad=True)
     G = extreme[torch.tensor([0, 1, 0], device=dev)]

@@ -22,7 +22,8 @@
 //   top = g00 (1 - wx) + g01 wx,  bot = g10 (1 - wx) + g11 wx,
 //   out = top (1 - wy) + bot wy
 //
-// with g_ij = x[y_i][x_j], in float32.
+// with g_ij = x[y_i][x_j], in float32. The halving multiplies by 0.5: the
+// same correctly rounded value as a division by 2, in one instruction.
 
 #pragma once
 
@@ -35,7 +36,7 @@ namespace warp_geom {
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+  return __bfloat162float(__ldg(p));
 }
 
 // grid_sample.py:_reflect_coords; fmodf is exact and the sign fix is jnp.mod's.
@@ -49,28 +50,41 @@ __device__ __forceinline__ float reflect(float px, int size) {
   return __fsub_rn(v, 0.5f);
 }
 
-// One output pixel's taps: element offsets within an H x W plane, weights,
-// and whether it is inside (always, in reflect mode).
+// One output pixel's taps: their columns x0, x1 and rows y0, y1, element
+// offsets within an H x W plane, weights, whether it is inside (always, in
+// reflect mode), and the raw sample position (px, py) before the mirror.
 struct Taps {
+  int x0, x1, y0, y1;
   int o00, o01, o10, o11;
   float wx, wy;
   bool inside;
+  float rx, ry;
 };
 
 __device__ __forceinline__ float grid_coord(int o, int out) {
   return __fsub_rn(__fdiv_rn(__fadd_rn(2.0f * (float)o, 1.0f), (float)out), 1.0f);
 }
 
-__device__ __forceinline__ Taps taps_at(const float* __restrict__ G, int ox, int oy, int H,
-                                        int W, int out_h, int out_w, bool zeros) {
-  const float gx = grid_coord(ox, out_w), gy = grid_coord(oy, out_h);
-  const float g00 = __ldg(G + 0), g01 = __ldg(G + 1), g02 = __ldg(G + 2);
-  const float g10 = __ldg(G + 3), g11 = __ldg(G + 4), g12 = __ldg(G + 5);
-  const float xin = __fadd_rn(__fadd_rn(__fmul_rn(g00, gx), __fmul_rn(g01, gy)), g02);
-  const float yin = __fadd_rn(__fadd_rn(__fmul_rn(g10, gx), __fmul_rn(g11, gy)), g12);
-  float px = __fdiv_rn(__fsub_rn(__fmul_rn(__fadd_rn(xin, 1.0f), (float)W), 1.0f), 2.0f);
-  float py = __fdiv_rn(__fsub_rn(__fmul_rn(__fadd_rn(yin, 1.0f), (float)H), 1.0f), 2.0f);
+// The linear part and translation of one image's G_inv, read once.
+struct Affine {
+  float g00, g01, g02, g10, g11, g12;
+};
+
+__device__ __forceinline__ Affine load_affine(const float* __restrict__ G) {
+  return {__ldg(G + 0), __ldg(G + 1), __ldg(G + 2), __ldg(G + 3), __ldg(G + 4), __ldg(G + 5)};
+}
+
+// The taps of the sample at grid coordinates (gx, gy) = (grid_coord(ox, out_w),
+// grid_coord(oy, out_h)).
+__device__ __forceinline__ Taps taps_from(const Affine& A, float gx, float gy, int H, int W,
+                                          bool zeros) {
+  const float xin = __fadd_rn(__fadd_rn(__fmul_rn(A.g00, gx), __fmul_rn(A.g01, gy)), A.g02);
+  const float yin = __fadd_rn(__fadd_rn(__fmul_rn(A.g10, gx), __fmul_rn(A.g11, gy)), A.g12);
+  float px = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(xin, 1.0f), (float)W), 1.0f), 0.5f);
+  float py = __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(yin, 1.0f), (float)H), 1.0f), 0.5f);
   Taps t;
+  t.rx = px;
+  t.ry = py;
   if (zeros) {
     t.inside = px > -1.0f && px < (float)W && py > -1.0f && py < (float)H;
   } else {
@@ -82,14 +96,20 @@ __device__ __forceinline__ Taps taps_at(const float* __restrict__ G, int ox, int
   t.wx = __fsub_rn(px, fx);
   t.wy = __fsub_rn(py, fy);
   // clip in float first: in zeros mode px may lie far outside the int range
-  const int x0 = (int)fminf(fmaxf(fx, 0.0f), (float)(W - 1));
-  const int y0 = (int)fminf(fmaxf(fy, 0.0f), (float)(H - 1));
-  const int x1 = min(x0 + 1, W - 1), y1 = min(y0 + 1, H - 1);
-  t.o00 = y0 * W + x0;
-  t.o01 = y0 * W + x1;
-  t.o10 = y1 * W + x0;
-  t.o11 = y1 * W + x1;
+  t.x0 = (int)fminf(fmaxf(fx, 0.0f), (float)(W - 1));
+  t.y0 = (int)fminf(fmaxf(fy, 0.0f), (float)(H - 1));
+  t.x1 = min(t.x0 + 1, W - 1);
+  t.y1 = min(t.y0 + 1, H - 1);
+  t.o00 = t.y0 * W + t.x0;
+  t.o01 = t.y0 * W + t.x1;
+  t.o10 = t.y1 * W + t.x0;
+  t.o11 = t.y1 * W + t.x1;
   return t;
+}
+
+__device__ __forceinline__ Taps taps_at(const float* __restrict__ G, int ox, int oy, int H,
+                                        int W, int out_h, int out_w, bool zeros) {
+  return taps_from(load_affine(G), grid_coord(ox, out_w), grid_coord(oy, out_h), H, W, zeros);
 }
 
 }  // namespace warp_geom

@@ -98,3 +98,15 @@ def on_cuda(x: torch.Tensor, name: str) -> bool:
 def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed with CUDA error {err}")
+
+
+def launch(name: str, fn, args: Sequence, device: int) -> None:
+    """Call the C entry point fn(*args, stream) on the current stream of CUDA
+    device `device`, read as a raw handle (no Stream object; a device context
+    only when `device` is not the current one); raise if it fails."""
+    if device == torch._C._cuda_getDevice():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
+    check_launch(name, err)

@@ -31,7 +31,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from .cuda_build import DTYPE_CODES, check_launch, entry_point, on_cuda
+from .cuda_build import DTYPE_CODES, check_launch, entry_point, launch, on_cuda
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
              ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p)
@@ -208,13 +208,7 @@ def _launch(wrapper, inp: torch.Tensor, out: torch.Tensor, f) -> None:
     device = inp.device.index
     args = (inp.data_ptr(), out.data_ptr(), taps, DTYPE_CODES[inp.dtype],
             _launch_plan(name, N * C, H, W, inp.dtype, vec, device))
-    fn = entry_point(name, _ARGTYPES)
-    if device == torch._C._cuda_getDevice():       # the raw stream: no Stream object
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
-    else:
-        with torch.cuda.device(device):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(device))
-    check_launch(name, err)
+    launch(name, entry_point(name, _ARGTYPES), args, device)
     wrapper.launches += 1
 
 

@@ -414,3 +414,33 @@ def test_grads_through_k4_launch_k4_bwd_then_k4(cuda):
     dy = torch.randn(3, 5, 13, 11, device=cuda).transpose(2, 3)
     gx, = torch.autograd.grad(grid_sample._AffineWarp.apply(x, G, 11, 13, "reflect"), x, dy)
     torch.testing.assert_close(gx, PT(dy.contiguous(), G, 18, 20), rtol=1e-5, atol=1e-5)
+
+
+def k4_bwd_maps(name):
+    """[3, 3, 3] inverse maps past warp_inputs': a 4x zoom-in at 30 degrees,
+    per-axis scales 4 and 1/4 (the ADA tails), and singular linear parts,
+    which K4-bwd's gather takes by scanning the whole output grid."""
+    c, s = np.cos(np.pi / 6) / 4, np.sin(np.pi / 6) / 4
+    maps = {"zoom_in": [[[c, -s, 0.1], [s, c, -0.2]], [[c, s, -0.7], [-s, c, 0.6]],
+                        [[0.25, 0, 0], [0, 0.25, 0]]],
+            "aniso": [[[4, 0, 0.3], [0, 0.25, -0.1]], [[0.25, 0, -0.2], [0, 4, 0.5]],
+                      [[0.24, -1.37, -0.4], [0.09, 3.76, 0.9]]],
+            "singular": [[[1, 2, 0.1], [0.5, 1, -0.2]], [[0, 0, 0.3], [0, 0, -0.4]],
+                         [[0, 1, 0], [0, 1, 0]]]}
+    G = torch.eye(3).repeat(3, 1, 1)
+    G[:, :2] = torch.tensor(maps[name], dtype=torch.float32)
+    return G
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["reflect", "zeros"])
+@pytest.mark.parametrize("maps", ["zoom_in", "aniso", "singular"])
+def test_k4_bwd_matches_plain_and_repeats_to_the_bit_on_card(cuda, maps, mode, dtype):
+    G = k4_bwd_maps(maps).to(cuda)
+    dy = torch.randn(3, 11, 11, 13, generator=torch.Generator(device=cuda).manual_seed(4),
+                     device=cuda).to(dtype)
+    dx = affine_warp_bwd(dy, G, 18, 20, mode)
+    assert dx.dtype == dtype
+    assert_close(dx, affine_grid_sample_bwd_plain(dy, G, 18, 20, mode), dtype)
+    assert torch.equal(dx, affine_warp_bwd(dy, G, 18, 20, mode))
