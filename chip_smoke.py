@@ -6,7 +6,10 @@ Drives the port's main paths at the FFS-256 width, "generate a clip, then
 score it", the training step without augment and the ADA training step, and
 holds them against the port's plain PyTorch paths:
 
-  1. device:  the card's name and power limit; TF32 off for cuDNN and matmul.
+  1. device:  the card's name and power limit; the TF32 settings as the
+              process finds them. Every phase but 8 and 11 runs with TF32
+              off for cuDNN and matmul (utils/misc.py:float32_precision);
+              8 and 11 rely on the training step's own default.
   2. build:   the CUDA kernels (K1 downfirdn2d_x2, K1-bwd downfirdn2d_x2_bwd,
               K4 affine_warp, K4-bwd affine_warp_bwd), one nvcc each for
               sm_90a, all started together.
@@ -31,7 +34,8 @@ holds them against the port's plain PyTorch paths:
   8. train:   the no-augment training step at 16 videos x 3 frames, 256^2:
               one step with R1, three without, one more with R1; every loss,
               stat and parameter finite, K1 and K1-bwd launch counts per
-              step; ms/step, peak memory, amortised frames/s.
+              step; ms/step, peak memory, amortised frames/s; TF32 off for
+              cuDNN and matmul inside every D call of the step.
   9. grads:   at phase 6's reduced width, the Gmain gradient of G and the
               Dr1 gradient of D (R1's double backward) on the card against
               the CPU.
@@ -39,16 +43,22 @@ holds them against the port's plain PyTorch paths:
               shapes of the ADA pipe at 16 videos x 3 frames (taken from the
               pipe itself), float32 and bf16, with five sets of G_inv
               (identity, bgc draws at p = 1, an extreme zoom-out, a 4x
-              zoom-in, per-axis scales 4 and 1/4); two K4-bwd calls at the
-              step's shape equal to the bit; CUDA-event times in turns, at
-              the step's call with the nearest PyTorch calls (F.grid_sample
-              after F.affine_grid, and aten.grid_sampler_2d_backward: not the
-              same function, whose border half pixel differs) and K4-bwd's
-              share of its bound; autograd through K4 to second order.
+              zoom-in, per-axis scales 4 and 1/4); K4 equal to the bit to
+              its reference design (affine_warp_per_pixel: every tap from
+              device memory), and the share of K4's tiles that stage their
+              box by the plan (ops/grid_sample.py:_warp_tile_boxes, computed
+              on the host, not measured on the card) for each set; two
+              K4-bwd calls at the step's shape equal to the bit; CUDA-event
+              times in turns of K4, its reference design, K4-bwd and the
+              plain versions, at the step's call with the nearest PyTorch
+              calls (F.grid_sample after F.affine_grid, and
+              aten.grid_sampler_2d_backward: not the same function, whose
+              border half pixel differs) and each one's share of its bound;
+              autograd through K4 to second order.
  11. ada:     the ADA training step (bgc, warp_upsample=2) at 16 x 3, 256^2,
               augment_p = 0.5: one step with R1, three without, one more
               with R1, as phase 8, with K1, K1-bwd, K4 and K4-bwd launch
-              counts per step.
+              counts per step and TF32 off inside the step.
  12. augpar:  at phase 6's reduced width, the bgc pipe's output, Gmain's
               gradient of G and Dr1's gradient of D through the pipe (R1
               through the warp's double backward) on the card against the
@@ -151,11 +161,9 @@ def phase_device():
     import torch
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     print(smi)
     print(f"[1 device] {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
-          f"torch={torch.__version__} cuda={torch.version.cuda} "
+          f"torch={torch.__version__} cuda={torch.version.cuda}; TF32 as the process finds it: "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}", flush=True)
     return smi
@@ -431,6 +439,10 @@ def phase_train(dev, smi, G, D, augment, no_aug=None):
              "real_c": torch.zeros(B, 0, device=dev), "real_t": t,
              "gen_c": torch.zeros(B, 3, 0, device=dev),
              "gen_t": torch.stack([t, t + 1, t + 2], dim=1)}
+    # the TF32 settings inside the step, read in every D call
+    tf32 = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    caller, seen = tuple(t.allow_tf32 for t in tf32), set()
+    hook = D.register_forward_hook(lambda *_: seen.add(tuple(t.allow_tf32 for t in tf32)))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
@@ -449,6 +461,9 @@ def phase_train(dev, smi, G, D, augment, no_aug=None):
         bad = [k for k, v in stats.items() if not bool(torch.isfinite(v).all())]
         check(not bad, f"{tag} non-finite stats {bad}")
     launches = tuple(k.launches for k in kernels)
+    hook.remove()
+    check(seen == {(False, False)}, f"{tag} (cudnn, matmul) allow_tf32 inside the step: {seen}")
+    check(tuple(t.allow_tf32 for t in tf32) == caller, f"{tag} the step left TF32 changed")
     for name, module in (("G", state.G), ("D", state.D), ("G_ema", state.G_ema)):
         bad = [n for n, p in module.named_parameters() if not bool(torch.isfinite(p).all())]
         check(not bad, f"{tag} non-finite {name} parameters {bad[:5]}")
@@ -470,7 +485,8 @@ def phase_train(dev, smi, G, D, augment, no_aug=None):
           f"{ms_step:.1f} ms/step, {fps:.1f} frames/s ({what}){beside}; peak {peak:.2f} GiB; "
           f"losses {', '.join(f'{k} {v.item():.4f}' for k, v in stats.items())}; "
           f"{names} launches per step {expected[False]} without R1, "
-          f"{expected[True]} with; on {smi}", flush=True)
+          f"{expected[True]} with; (cudnn, matmul) allow_tf32 inside the step {sorted(seen)}, "
+          f"the caller's {caller}; on {smi}", flush=True)
     return launches, (ms_main, ms_r1, ms_step, fps)
 
 
@@ -560,19 +576,42 @@ def warp_calls(dev):
     return calls
 
 
+def per_pixel_warp():
+    """K4's reference design, the C entry point affine_warp_per_pixel of
+    csrc/affine_warp.cu (every tap from device memory), as a function of
+    (x, G_inv, out_h, out_w); for comparisons only: it counts no launch."""
+    import torch
+    from stylegan_v_tpu_torch.ops import cuda_build, grid_sample
+
+    fn = cuda_build.entry_point("affine_warp", grid_sample._ARGTYPES, "affine_warp_per_pixel")
+
+    def warp(x, G_inv, out_h, out_w, mode="reflect"):
+        N, C, H, W = x.shape
+        y = torch.empty(N, C, out_h, out_w, dtype=x.dtype, device=x.device)
+        cuda_build.launch("affine_warp_per_pixel", fn,
+                          (x.data_ptr(), G_inv.data_ptr(), y.data_ptr(),
+                           cuda_build.DTYPE_CODES[x.dtype], grid_sample.MODES[mode], N, C, H, W,
+                           out_h, out_w), x.device.index)
+        return y
+    return warp
+
+
 def phase_warp(dev):
-    """K4 and K4-bwd against their plain versions at the pipe's shapes; returns
-    each one's worst error and its time, the plain version's and the nearest
-    PyTorch call's at the ADA step's call (the 536^2 canvas in the pipe's
-    bf16)."""
+    """K4 and K4-bwd against their plain versions at the pipe's shapes, K4
+    against its reference design to the bit; returns each one's worst error
+    and its time, the plain version's and the nearest PyTorch call's at the
+    ADA step's call (the 536^2 canvas in the pipe's bf16), and for K4 its
+    reference design's time there."""
     import math
     import torch
     import torch.nn.functional as F
     from stylegan_v_tpu_torch.ops import (affine_grid_sample, affine_grid_sample_bwd_plain,
                                           affine_grid_sample_plain, affine_warp,
                                           affine_warp_bwd)
+    from stylegan_v_tpu_torch.ops.grid_sample import _warp_tile_boxes
 
     calls = warp_calls(dev)
+    per_pixel = per_pixel_warp()
     c = 4 * math.cos(math.pi / 4)     # a quarter scale at 45 degrees, past the border
     extreme = torch.tensor([[[c, -c, 1.7], [c, c, -2.3], [0, 0, 1]],
                             [[4, 0, -3.1], [0, 4, 2.6], [0, 0, 1]]], device=dev)
@@ -599,20 +638,29 @@ def phase_warp(dev):
             fwd_plain = lambda G: affine_grid_sample_plain(x, G, out_h, out_w)  # noqa: E731
             bwd = lambda G: affine_warp_bwd(dy, G, H, W)                      # noqa: E731
             bwd_plain = lambda G: affine_grid_sample_bwd_plain(dy, G, H, W)   # noqa: E731
+            staged, equal_plain = {}, []
             for set_name, G in sets.items():
                 for name, kernel, plain in (("K4", fwd, fwd_plain), ("K4-bwd", bwd, bwd_plain)):
-                    got, want = kernel(G).float(), plain(G).float()
+                    got, want = kernel(G), plain(G)
                     torch.cuda.synchronize()
-                    e = (got - want).abs().max().item()
-                    check(torch.allclose(got, want, rtol=tol, atol=tol),
+                    e = (got.float() - want.float()).abs().max().item()
+                    check(torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
                           f"{name} vs plain {[N, C, H, W]} {dtype_name} {set_name}: max err {e}")
                     err[name] = max(err[name], e)
                     worst[name] = max(worst[name], e)
+                    if name == "K4":
+                        check(torch.equal(got, per_pixel(x, G, out_h, out_w)),
+                              f"K4 {[N, C, H, W]} {dtype_name} {set_name}: not equal to the bit "
+                              f"to its reference design")
+                        equal_plain.append(torch.equal(got, want))
+                plan = _warp_tile_boxes(G, H, W, out_h, out_w, channels=C,
+                                        itemsize=x.element_size())
+                staged[set_name] = float((plan.channels > 0).mean())
             if i == 0:    # K4-bwd sums without atomics, in a fixed order: it repeats to the bit
                 check(torch.equal(bwd(G_bgc), bwd(G_bgc)),
                       f"K4-bwd {[N, C, H, W]} {dtype_name}: two calls differ")
             # The nearest PyTorch calls, not the same function (border half pixel):
-            # a yardstick at the step's call only; the port never calls them.
+            # a yardstick only; the port never calls them.
             theta = G_bgc[:, :2].to(dtype)
             grid = F.affine_grid(theta, [N, C, out_h, out_w], align_corners=False)
             nearest = {
@@ -621,29 +669,37 @@ def phase_warp(dev):
                     mode="bilinear", padding_mode="reflection", align_corners=False),
                 "K4-bwd": lambda: torch.ops.aten.grid_sampler_2d_backward(
                     dy, x, grid, 0, 2, False, [True, False])}
+            at_path = i == 0 and dtype == path_dtype
+            moved = (x.numel() + dy.numel()) * x.element_size()
+            # 4 taps per output (K4), 4 per dy element (K4-bwd), 2 flops each
+            bound, by = bound_ms(moved, 8 * dy.numel())
             times = {}
             for name, kernel, plain in (("K4", fwd, fwd_plain), ("K4-bwd", bwd, bwd_plain)):
-                at_path = i == 0 and dtype == path_dtype
-                fns = [lambda: plain(G_bgc), lambda: kernel(G_bgc)]
-                fns += [nearest[name]] if at_path else []
-                for fn in fns:                                          # warm-up
+                fns = {"kernel": lambda: kernel(G_bgc), "plain": lambda: plain(G_bgc)}
+                if name == "K4":
+                    fns["per_pixel"] = lambda: per_pixel(x, G_bgc, out_h, out_w)
+                if at_path:
+                    fns["nearest"] = nearest[name]
+                for fn in fns.values():                                 # warm-up
                     fn()
-                t = in_turns(fns, 10)
-                times[name] = (t[1], t[0])
-                if at_path:   # K4: 4 taps per output; K4-bwd: 4 per dy element (2 flops each)
-                    nbytes = (x.numel() + dy.numel()) * x.element_size()
-                    path[name] = (t[1], t[0], t[2], *bound_ms(nbytes, 8 * dy.numel()))
-            moved = (x.numel() + dy.numel()) * x.element_size()
-            bound = bound_ms(moved, 8 * dy.numel())[0]
+                times[name] = dict(zip(fns, in_turns(list(fns.values()), 10)))
+            if at_path:
+                for name, t in times.items():
+                    path[name] = (t["kernel"], t["plain"], t["nearest"], bound, by)
+                path["K4"] += (times["K4"]["per_pixel"],)
+            k4, k4b = times["K4"], times["K4-bwd"]
             print(f"[10 warp] {[N, C, H, W]} -> {[out_h, out_w]} {dtype_name}: K4 "
-                  f"{times['K4'][0]:.4f} ms ({moved / times['K4'][0] / 1e6:.0f} GB/s) plain "
-                  f"{times['K4'][1]:.4f}; K4-bwd {times['K4-bwd'][0]:.4f} ms "
-                  f"({bound / times['K4-bwd'][0]:.1%} of the {bound:.4f} ms bound) plain "
-                  f"{times['K4-bwd'][1]:.4f}"
-                  + (f" nearest {path['K4-bwd'][2]:.4f}" if at_path else "")
+                  f"{k4['kernel']:.4f} ms ({bound / k4['kernel']:.1%} of the {bound:.4f} ms "
+                  f"bound) reference design {k4['per_pixel']:.4f} plain {k4['plain']:.4f}"
+                  + (f" nearest {k4['nearest']:.4f}" if at_path else "")
+                  + f"; K4-bwd {k4b['kernel']:.4f} ms ({bound / k4b['kernel']:.1%}) plain "
+                  f"{k4b['plain']:.4f}" + (f" nearest {k4b['nearest']:.4f}" if at_path else "")
                   + f"; max_abs_err over {', '.join(sets)}: K4 {err['K4']:.3g}, K4-bwd "
-                  f"{err['K4-bwd']:.3g}" + ("; K4-bwd repeats to the bit" if i == 0 else ""),
-                  flush=True)
+                  f"{err['K4-bwd']:.3g}; K4 equal to the bit to its reference design, to the "
+                  f"plain version {sum(equal_plain)} of {len(equal_plain)}; K4 tiles staged by the "
+                  f"plan (computed on the host, not measured) "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in staged.items())
+                  + ("; K4-bwd repeats to the bit" if i == 0 else ""), flush=True)
     # Autograd through K4 on the card: first order launches K4-bwd, second order K4.
     x = torch.randn(3, 5, 18, 20, generator=g, device=dev, requires_grad=True)
     G = extreme[torch.tensor([0, 1, 0], device=dev)]
@@ -765,7 +821,8 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, launches):
     """The kernel record: each kernel's launches in the ADA run (phase 11),
     worst error against its plain version, and its time, its plain version's
     and its library call's beside its bound: K1 and K1-bwd summed over one D
-    pass at 16 x 3 (phases 3, 7), K4 and K4-bwd at the step's warp (phase 10)."""
+    pass at 16 x 3 (phases 3, 7), K4 and K4-bwd at the step's warp (phase 10);
+    for K4 also its reference design's time there."""
     warp = "stylegan_v_tpu/ops/grid_sample.py:33 (XLA gather; no Pallas kernel)"
     conv = "depthwise, stride 2, padding 1, in the input's dtype"
     near = "not the same function (border half pixel)"
@@ -791,6 +848,8 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, launches):
                         "bound_by": times["bound_by"], "library_call": library,
                         "library_ms": times["library_ms"],
                         "share_of_bound": times["bound_ms"] / times["ms"]})
+    # K4's reference design (every tap from device memory), timed in the same run
+    records[2].update(reference_design_ms=k4[6])
     return records
 
 
@@ -801,24 +860,28 @@ def main() -> int:
         return 1
     from stylegan_v_tpu_torch.ops import (downfirdn2d_x2, downfirdn2d_x2_bwd,
                                           downfirdn2d_x2_bwd_plain, downfirdn2d_x2_plain)
+    from stylegan_v_tpu_torch.utils.misc import float32_precision
     dev = torch.device("cuda", 0)
     smi = phase_device()
     phase_build()
-    k1 = phase_kernel(dev, "[3 kernel]", "down", downfirdn2d_x2, downfirdn2d_x2_plain)
-    G, D = ffs256_models(dev)
-    phase_slice(dev, G, D)
-    phase_speed(dev, G, smi)
-    phase_parity(dev)
-    k1_bwd = phase_bwd(dev)
-    _, no_aug = phase_train(dev, smi, G, D, augment=False)
+    with float32_precision(False):
+        k1 = phase_kernel(dev, "[3 kernel]", "down", downfirdn2d_x2, downfirdn2d_x2_plain)
+        G, D = ffs256_models(dev)
+        phase_slice(dev, G, D)
+        phase_speed(dev, G, smi)
+        phase_parity(dev)
+        k1_bwd = phase_bwd(dev)
+    _, no_aug = phase_train(dev, smi, G, D, augment=False)     # the step's own default
     torch.cuda.empty_cache()
-    phase_grads(dev)
-    k4, k4_bwd = phase_warp(dev)
+    with float32_precision(False):
+        phase_grads(dev)
+        k4, k4_bwd = phase_warp(dev)
     torch.cuda.empty_cache()
     launches, _ = phase_train(dev, smi, G, D, augment=True, no_aug=no_aug)
     del G, D
     torch.cuda.empty_cache()
-    phase_aug_parity(dev)
+    with float32_precision(False):
+        phase_aug_parity(dev)
     records = kernel_records(k1, k1_bwd, k4, k4_bwd, launches)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

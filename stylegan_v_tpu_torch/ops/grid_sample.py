@@ -19,7 +19,9 @@ back into the image. On a CUDA tensor each launches its CUDA kernel
 (csrc/affine_warp.cu, csrc/affine_warp_bwd.cu; float32 or bf16, the output
 in the input's dtype) or raises; on a CPU tensor it runs its plain PyTorch
 version, which also takes float64. Each launch adds one to the wrapper's
-`launches`. K4-bwd's kernel is a gather without atomics, deterministic:
+`launches`. K4's kernel stages each output tile's input box in shared
+memory; `_warp_tile_boxes` computes the boxes in Python as the kernel does,
+for the tests. K4-bwd's kernel is a gather without atomics, deterministic:
 each thread sums over its input pixel's footprint, which `_warp_footprint`
 enumerates in Python as the kernel does, for the tests.
 
@@ -252,6 +254,102 @@ def _warp_footprint(G_inv, H: int, W: int, out_h: int, out_w: int, mode: str = "
                         image[iy * W + ix] = visits
         footprints.append(image)
     return footprints
+
+
+# K4's staged tiles: the constants of csrc/affine_warp.cu.
+K4_TILE_W, K4_TILE_H = 32, 16  # output columns and rows of a block's tile
+K4_SMEM = 48 * 1024            # bytes of shared memory a block stages into
+
+
+class TileBoxes(NamedTuple):
+    """K4's plan for each image n and output tile (ty, tx): the input box
+    [bx0, bx1] x [by0, by1] that the tile stages (int64 [N, tiles_y,
+    tiles_x, 4]), and the channels staged at once (int64 [N, tiles_y,
+    tiles_x]; 0 for a tile that takes the direct path)."""
+    box: np.ndarray
+    channels: np.ndarray
+
+
+def _reflect64(p: float, size: int, inv_p: float) -> float:
+    """reflect64: _reflect_coords in float64, reduced by a multiplication
+    with 1 / P (P = 2 size) instead of fmod."""
+    u = p + 0.5
+    v = u - math.floor(u * inv_p) * (2.0 * size)
+    return (size - abs(size - v)) - 0.5
+
+
+def _tile_span(ax: _Axis, size: int, ox0: int, ox1: int, oy0: int, oy1: int,
+               zeros: bool):
+    """tile_span: the box of one axis, [b0, b1], for the output columns
+    ox0..ox1 and rows oy0..oy1. The raw range over the tile's corners, widened
+    by the margin; with the mirror its image (the end points' mirrors, and a
+    border wherever a fold lies inside, of three candidates; the whole axis
+    for a range of a period or more), widened by the margin again; without
+    it, clipped to [-1, size]. Then the columns of its taps: a position in
+    [-0.5, 0) has floor -1, clipped to 0, and its second tap is pixel 1."""
+    ex0, ex1, ey0, ey1 = ax.u * ox0, ax.u * ox1, ax.v * oy0, ax.v * oy1
+    lo = ax.w + min(ex0, ex1) + min(ey0, ey1) - ax.margin
+    hi = ax.w + max(ex0, ex1) + max(ey0, ey1) + ax.margin
+    if zeros:
+        a, b = min(max(lo, -1.0), float(size)), min(max(hi, -1.0), float(size))
+    elif not hi - lo < 2.0 * size:
+        a, b = -0.5, size - 0.5
+    else:
+        ma, mb = _reflect64(lo, size, ax.inv_p), _reflect64(hi, size, ax.inv_p)
+        a, b = min(ma, mb), max(ma, mb)
+        k = math.floor((lo + 0.5) * (2.0 * ax.inv_p)) + 1.0   # the first fold past lo
+        for _ in range(3):
+            if k * size - 0.5 <= hi:
+                if k - 2.0 * math.floor(0.5 * k) == 0.0:
+                    a = -0.5
+                else:
+                    b = size - 0.5
+            k += 1.0
+        a, b = a - ax.margin, b + ax.margin
+    return (int(min(max(math.floor(a), 0.0), size - 1.0)),
+            int(min(max(math.floor(b), 0.0) + 1.0, size - 1.0)))
+
+
+def _tile_channels(box, channels: int, itemsize: int, smem: int) -> int:
+    """tile_channels: how many channels the tile stages at once. A row of the
+    box starts at the 16-byte chunk left of bx0 and holds an odd number of
+    chunks (its pitch), so that a warp's tilted reads spread over the banks.
+    All channels if they fit the budget; else as many as fit twice (double
+    buffering); 0 if one does not fit twice (the direct path)."""
+    bx0, bx1, by0, by1 = box
+    vec = 16 // itemsize
+    ax0 = bx0 - bx0 % vec
+    pitch = (((bx1 - ax0) // vec + 1) | 1) * vec
+    plane = (by1 - by0 + 1) * pitch * itemsize
+    return channels if channels * plane <= smem else smem // (2 * plane)
+
+
+def _warp_tile_boxes(G_inv, H: int, W: int, out_h: int, out_w: int, mode: str = "reflect",
+                     tile=(K4_TILE_W, K4_TILE_H), channels: int = 9, itemsize: int = 2,
+                     smem: int = K4_SMEM) -> TileBoxes:
+    """K4's plan for every output tile of every image (`TileBoxes`), as
+    csrc/affine_warp.cu computes it, line by line (float64, each operation
+    rounded on its own), for `channels` channels of `itemsize` bytes."""
+    if mode not in MODES:
+        raise ValueError(mode)
+    zeros = mode == "zeros"
+    tw, th = tile
+    nty, ntx = -(-out_h // th), -(-out_w // tw)
+    G = torch.as_tensor(G_inv).detach().cpu().float().numpy()
+    box = np.zeros((len(G), nty, ntx, 4), np.int64)
+    staged = np.zeros((len(G), nty, ntx), np.int64)
+    for n, g in enumerate(G):
+        ax = _warp_axis(g[0, 0], g[0, 1], g[0, 2], W, out_w, out_h)
+        ay = _warp_axis(g[1, 0], g[1, 1], g[1, 2], H, out_w, out_h)
+        for ty in range(nty):
+            oy0, oy1 = ty * th, min((ty + 1) * th, out_h) - 1
+            for tx in range(ntx):
+                ox0, ox1 = tx * tw, min((tx + 1) * tw, out_w) - 1
+                b = (_tile_span(ax, W, ox0, ox1, oy0, oy1, zeros)
+                     + _tile_span(ay, H, ox0, ox1, oy0, oy1, zeros))
+                box[n, ty, tx] = b
+                staged[n, ty, tx] = _tile_channels(b, channels, itemsize, smem)
+    return TileBoxes(box, staged)
 
 
 def _compute_dtype(x: torch.Tensor) -> torch.dtype:

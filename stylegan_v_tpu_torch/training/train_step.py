@@ -51,6 +51,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..models import Discriminator, Generator
+from ..utils.misc import float32_precision
 from .augment import GeneratorDraws
 from .loss import GANLoss, LossConfig, Stats
 
@@ -194,14 +195,16 @@ def _accumulate(params: List[torch.Tensor], rounds: int,
 
 def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
                     tcfg: TrainingConfig, augment_fn=None, d_lr_scales=None,
-                    state_sharding=None, mesh=None):
+                    state_sharding=None, mesh=None, allow_tf32: bool = False):
     """Returns train_step(state, batch, generator=None, do_gpl=False,
     do_dr1=False, draws=None) -> (state, stats) for a state around G and D.
 
     `draws` (module docstring) replaces every random draw of the step; without
     it they come from `generator`, a torch.Generator on the modules' device.
     `augment_fn` is the ADA pipe (training/augment.py:make_augment_pipe) or
-    None.
+    None. The step runs its float32 convolutions and matmuls without TF32
+    unless `allow_tf32` (the original's training option, off by default),
+    and gives the caller's settings back when it returns or raises.
     """
     if d_lr_scales:
         raise NotImplementedError("per-subtree D learning rates (MoCoGAN) are not "
@@ -222,6 +225,7 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
             f"batch {B} not divisible by batch_chip {tcfg.batch_chip}"
         return B // tcfg.batch_chip
 
+    @float32_precision(allow_tf32)
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None, do_gpl: bool = False,
                    do_dr1: bool = False, draws: Optional[Draws] = None):

@@ -5,9 +5,11 @@
   * parse_scaling  — up/down factor -> [x, y] (reference ops/upfirdn2d.py:22-30)
   * parse_padding  — padding -> [x0, x1, y0, y1] (reference ops/upfirdn2d.py:33-44)
   * normal_param   — a parameter drawn from an explicit torch.Generator
+  * float32_precision — TF32 allowed or not for float32 convs and matmuls, in a block
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, List, Optional, Sequence
 
 import torch
@@ -69,3 +71,28 @@ def normal_param(shape, generator: Optional[torch.Generator],
         return torch.nn.Parameter(torch.empty(shape, dtype=torch.float32))
     w = torch.randn(shape, generator=generator, dtype=torch.float32) * std
     return torch.nn.Parameter(w)
+
+
+@contextlib.contextmanager
+def float32_precision(allow_tf32: bool = False):
+    """Run the block with TF32 allowed or not for cuDNN's float32 convolutions
+    and for float32 matmuls, then restore the caller's settings, whether the
+    block returns or raises. Usable as a decorator.
+
+    PyTorch lets cuDNN run float32 convolutions in TF32 by default (10-bit
+    mantissas); the original's training loop turns it off unless asked
+    (its `allow_tf32` option). The two single attributes are set and read
+    back: `torch.backends.cudnn.flags(...)` would also reset `enabled`,
+    whose default there is False. Where torch has the `fp32_precision`
+    settings, these attributes drive them.
+    """
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    try:
+        cudnn.allow_tf32 = matmul.allow_tf32 = allow_tf32
+        if (cudnn.allow_tf32, matmul.allow_tf32) != (allow_tf32, allow_tf32):
+            raise RuntimeError(f"torch did not take allow_tf32={allow_tf32}: cudnn "
+                               f"{cudnn.allow_tf32}, matmul {matmul.allow_tf32}")
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved

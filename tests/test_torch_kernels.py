@@ -432,6 +432,68 @@ def k4_bwd_maps(name):
     return G
 
 
+def _rotation(scale, degrees, tx, ty):
+    c, s = scale * np.cos(np.radians(degrees)), scale * np.sin(np.radians(degrees))
+    return [[c, -s, tx], [s, c, ty]]
+
+
+# K4's paths at small shapes (x shape, out_h, out_w, the linear parts of two
+# inverse maps): several tiles that each stage every channel; zoom-outs of
+# about 2x that stage 11 channels in double-buffered chunks; zoom-outs of
+# about 4x whose boxes do not fit one channel twice (the direct path). Every
+# width is a whole number of 16-byte chunks in both dtypes, so an aligned x
+# takes the cp.async copy and a view one element in takes the element copy.
+K4_PATHS = {
+    "multi_tile": ((2, 5, 70, 96), 60, 80,
+                   [_rotation(1.1, 20, 0.1, -0.05), [[0.9, 0.2, 0.0], [-0.1, 1.05, 0.2]]]),
+    "chunked": ((2, 11, 96, 96), 64, 72,
+                [_rotation(1.6, 30, 0.2, -0.1), _rotation(1.6, -25, -0.3, 0.15)]),
+    "direct": ((2, 3, 128, 136), 40, 72,
+               [_rotation(4, 45, 0.3, -0.2), _rotation(4, -40, -0.5, 0.4)]),
+}
+
+
+def k4_path_case(name):
+    shape, out_h, out_w, maps = K4_PATHS[name]
+    G = torch.eye(3).repeat(2, 1, 1)
+    G[:, :2] = torch.tensor(maps, dtype=torch.float32)
+    return shape, out_h, out_w, G
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["reflect", "zeros"])
+@pytest.mark.parametrize("name", list(K4_PATHS))
+def test_k4_path_cases_take_the_path_they_name(name, mode, dtype):
+    """The plan (as the kernel computes it) sends the case's tiles down its
+    path: all staged at once, some in chunks, some direct."""
+    (_, C, H, W), out_h, out_w, G = k4_path_case(name)
+    ch = grid_sample._warp_tile_boxes(G, H, W, out_h, out_w, mode, channels=C,
+                                      itemsize=dtype.itemsize).channels
+    assert ch.size > 2
+    taken = {"multi_tile": (ch == C).all(), "chunked": ((ch > 0) & (ch < C)).any(),
+             "direct": (ch == 0).any()}
+    assert taken[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["reflect", "zeros"])
+@pytest.mark.parametrize("name", list(K4_PATHS))
+def test_k4_paths_equal_plain_to_the_bit_on_card(cuda, name, mode, dtype, aligned):
+    shape, out_h, out_w, G = k4_path_case(name)
+    G = G.to(cuda)
+    x = torch.randn(shape, generator=torch.Generator(device=cuda).manual_seed(5),
+                    device=cuda).to(dtype)
+    if not aligned:
+        x = torch.empty(x.numel() + 1, device=cuda, dtype=dtype)[1:].view(shape).copy_(x)
+    k4 = affine_warp.launches
+    y = affine_warp(x, G, out_h, out_w, mode)
+    torch.cuda.synchronize()
+    assert affine_warp.launches - k4 == 1
+    assert torch.equal(y, affine_grid_sample_plain(x, G, out_h, out_w, mode))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["reflect", "zeros"])

@@ -473,3 +473,34 @@ def test_unported_options_raise(what):
           "mesh": lambda: dict(mesh=object())}[what]
     with pytest.raises(NotImplementedError, match="P8|P9"):
         tts.make_train_step(G, D, lcfg, tcfg, **kw())
+
+
+@pytest.mark.parametrize("allow_tf32", [False, True])
+def test_step_runs_without_tf32_unless_asked_and_restores_the_callers_settings(allow_tf32):
+    """Inside the step (read by a forward hook on D) TF32 is off for cuDNN's
+    convolutions and for matmuls, or on with allow_tf32=True; after a step
+    that returns or raises, the caller's settings are back."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    _, tbatch = make_batch(3)
+    G, D = small_port_models()
+    tcfg = tts.TrainingConfig(**TRAIN)
+    state = tts.init_train_state(G, D, tts.OptimizerConfig(**OPT), tts.OptimizerConfig(**OPT),
+                                 tcfg)
+    step = tts.make_train_step(G, D, tloss_mod.LossConfig(**LOSS), tcfg, allow_tf32=allow_tf32)
+    seen = []
+    hook = D.register_forward_hook(
+        lambda *_: seen.append((cudnn.allow_tf32, matmul.allow_tf32)))
+    try:
+        for caller in ((True, False), (False, True)):
+            cudnn.allow_tf32, matmul.allow_tf32 = caller
+            seen.clear()
+            step(state, tbatch, generator=torch.Generator().manual_seed(5))
+            assert seen and set(seen) == {(allow_tf32, allow_tf32)}
+            assert (cudnn.allow_tf32, matmul.allow_tf32) == caller
+            with pytest.raises(ValueError, match="Generator"):
+                step(state, tbatch)
+            assert (cudnn.allow_tf32, matmul.allow_tf32) == caller
+    finally:
+        hook.remove()
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
