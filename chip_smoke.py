@@ -63,6 +63,19 @@ holds them against the port's plain PyTorch paths:
               gradient of G and Dr1's gradient of D through the pipe (R1
               through the warp's double backward) on the card against the
               CPU, with the same draws on both.
+ 13. loop:    the training loop fed by the zip loader, through the entry
+              point (stylegan_v_tpu_torch.train.main) on a seeded 256^2
+              dataset written here (16 videos x 32 frames of binary PPM in a
+              zip): the `auto` preset at batch 16, i.e. phase 11's FFS-256
+              step (bgc ADA, R1 every 16, mirror), 21 steps over 4 ticks with
+              snapshots 000000 and 000001, then `training.resume=latest` for
+              21 more; stats.jsonl schema and finiteness, the snapshot equal
+              to the bit to the state in memory and to a state restored from
+              it on the card, the resumed run's start, K1/K1-bwd/K4/K4-bwd
+              launches per run from phase 11's counts per step, TF32 off in
+              every D call; loader-fed ms/step, frames/s amortised over the
+              resumed run's ticks, data_fetch and peak memory beside phase
+              11's pre-staged numbers.
 
 Any failed check exits non-zero. The last two lines are the kernel record
 (each kernel's launches in phase 11, worst error, time, plain and library
@@ -409,7 +422,7 @@ WARP_BATCH = (16, 9, 256)      # the pipe's input at TRAIN_SHAPE: videos, 3 fram
 def phase_train(dev, smi, G, D, augment, no_aug=None):
     """Phase 8 (augment=False) or 11 (the bgc pipe, warp_upsample=2): five steps
     (R1, three without, R1) on G and D as they are; returns the launches of the
-    run's kernels and (ms without R1, ms with R1, amortised ms, frames/s)."""
+    run's kernels and (ms without R1, ms with R1, amortised ms, frames/s, peak GiB)."""
     import torch
     from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
                                           downfirdn2d_x2_bwd)
@@ -487,7 +500,7 @@ def phase_train(dev, smi, G, D, augment, no_aug=None):
           f"{names} launches per step {expected[False]} without R1, "
           f"{expected[True]} with; (cudnn, matmul) allow_tf32 inside the step {sorted(seen)}, "
           f"the caller's {caller}; on {smi}", flush=True)
-    return launches, (ms_main, ms_r1, ms_step, fps)
+    return launches, (ms_main, ms_r1, ms_step, fps, peak)
 
 
 def phase_grads(dev):
@@ -817,6 +830,234 @@ def phase_aug_parity(dev):
           f"CPU, tol {PARITY_TOL} x scale: " + "; ".join(msgs), flush=True)
 
 
+LOOP_DATA = (16, 32, 256)   # videos, frames a video, resolution of phase 13's dataset
+LOOP_RUNS = ((0, 21), (21, 42))   # the two runs' step indices: 1008 and 2016 frames at 48 a step
+
+
+def _reflect(x, lo, hi):
+    """scripts/make_moving_dataset.py:_reflect (a copy: that script imports Pillow)."""
+    import numpy as np
+    span = hi - lo
+    y = np.mod(x - lo, 2 * span)
+    return lo + np.where(y > span, 2 * span - y, y)
+
+
+def render_video(rng, res, frames):
+    """scripts/make_moving_dataset.py:render_video, a copy: [T, H, W, 3] uint8 of a
+    gradient background and 1-3 bouncing anti-aliased sprites."""
+    import numpy as np
+    yy, xx = np.mgrid[0:res, 0:res].astype(np.float32)
+    ang = rng.uniform(0, 2 * np.pi)
+    proj = (np.cos(ang) * xx + np.sin(ang) * yy)
+    proj = (proj - proj.min()) / max(float(np.ptp(proj)), 1e-6)
+    c0 = rng.uniform(0.05, 0.65, size=3).astype(np.float32)
+    c1 = rng.uniform(0.35, 0.95, size=3).astype(np.float32)
+    bg = c0 + proj[..., None] * (c1 - c0)
+    img = np.broadcast_to(bg, (frames, res, res, 3)).copy()
+    t = np.arange(frames, dtype=np.float32)
+    for _ in range(rng.randint(1, 4)):
+        shape = rng.choice(["disc", "square"])
+        color = rng.uniform(0.1, 1.0, size=3).astype(np.float32)
+        r = rng.uniform(0.10, 0.22) * res
+        speed = rng.uniform(0.8, 3.0) * res / 64.0
+        theta = rng.uniform(0, 2 * np.pi)
+        p0 = rng.uniform(r, res - 1 - r, size=2).astype(np.float32)
+        cx = _reflect(p0[0] + speed * np.cos(theta) * t, r, res - 1 - r)
+        cy = _reflect(p0[1] + speed * np.sin(theta) * t, r, res - 1 - r)
+        dx = xx[None] - cx[:, None, None]
+        dy = yy[None] - cy[:, None, None]
+        d = np.sqrt(dx * dx + dy * dy) if shape == "disc" else np.maximum(np.abs(dx), np.abs(dy))
+        alpha = np.clip(r + 0.5 - d, 0.0, 1.0)[..., None]
+        img = img * (1.0 - alpha) + color * alpha
+    return (np.clip(img, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+
+
+def write_ppm_zip(path, seed=0):
+    """LOOP_DATA's videos as <video>/<frame>.ppm (binary P6) in a stored zip, as
+    FFS is zipped; seeded as scripts/make_moving_dataset.py seeds its videos."""
+    import zipfile
+    import numpy as np
+    videos, frames, res = LOOP_DATA
+    header = f"P6\n{res} {res}\n255\n".encode()
+    with zipfile.ZipFile(path, "w", compression=zipfile.ZIP_STORED) as zf:
+        for v in range(videos):
+            vid = render_video(np.random.RandomState(seed * 1_000_003 + v), res, frames)
+            for f in range(frames):
+                zf.writestr(f"video{v:05d}/{f:06d}.ppm", header + vid[f].tobytes())
+    return path
+
+
+def _equal_trees(a, b, where=""):
+    """Every tensor of a nest of dicts and lists equal to the bit; returns the count."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        check(isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b),
+              f"[13 loop] {where} differs from the saved state")
+        return 1
+    if isinstance(a, dict):
+        check(isinstance(b, dict) and set(a) == set(b), f"[13 loop] {where} keys differ")
+        return sum(_equal_trees(a[k], b[k], f"{where}.{k}") for k in a)
+    if isinstance(a, (list, tuple)):
+        check(len(a) == len(b), f"[13 loop] {where} lengths differ")
+        return sum(_equal_trees(x, y, f"{where}[{i}]") for i, (x, y) in enumerate(zip(a, b)))
+    check(a == b, f"[13 loop] {where}: {a} != {b}")
+    return 0
+
+
+def check_snapshot(dev, run, state):
+    """Snapshot 000001, written at the end of the first run (the second
+    overwrites it), equals the state that run ended with, and a state restored
+    from it on the card; returns the number of tensors compared."""
+    import os
+    from stylegan_v_tpu_torch.io.checkpoint import (load_snapshot, restore_train_state,
+                                                    snapshot_payload)
+    from stylegan_v_tpu_torch.models import Discriminator, Generator
+    from stylegan_v_tpu_torch.training import init_train_state
+    from stylegan_v_tpu_torch.training.train_step import OptimizerConfig, TrainingConfig
+
+    payload, meta = load_snapshot(os.path.join(run, "network-snapshot-000001.pt"))
+    check(meta["cur_nimg"] == 1008, f"[13 loop] snapshot 000001 meta {meta['cur_nimg']}")
+    n = _equal_trees(snapshot_payload(state), payload, "snapshot 000001")
+    fresh = init_train_state(Generator(state.G.cfg).to(dev), Discriminator(state.D.cfg).to(dev),
+                             OptimizerConfig(), OptimizerConfig(), TrainingConfig())
+    restore_train_state(fresh, payload)     # lr and betas stay fresh's: compare the state
+    _equal_trees(*({k: v["state"] if k.startswith("opt_") else v for k, v in p.items()}
+                   for p in (snapshot_payload(fresh), payload)),
+                 "the state restored from 000001")
+    return n
+
+
+def phase_loop(dev, smi, prestaged):
+    """Phase 13: the loader-fed loop through the entry point, twice (21 steps,
+    then 21 more resumed from `latest`), with its checks; `prestaged` is phase
+    11's (ms without R1, ms with R1, amortised ms, frames/s, peak GiB)."""
+    import contextlib
+    import importlib.util
+    import io
+    import math
+    import os
+    import tempfile
+    import torch
+    from stylegan_v_tpu_torch import train as entry
+    from stylegan_v_tpu_torch.models import Discriminator
+    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
+                                          downfirdn2d_x2_bwd)
+
+    # the loop's host packages: Pillow for the .jpg grids, cv2 for the .mp4, PyYAML
+    # for the configs (the card had all three when probed)
+    missing = [m for m in ("PIL", "cv2", "yaml") if importlib.util.find_spec(m) is None]
+    check(not missing, f"[13 loop] the loop's host packages are missing: {missing}")
+    kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+    tf32 = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    seen = set()
+
+    def d_hook(module, *_):
+        if isinstance(module, Discriminator):
+            seen.add(tuple(t.allow_tf32 for t in tf32))
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        zip_path = write_ppm_zip(os.path.join(tmp, "moving256.zip"))
+        t_data = time.perf_counter() - t0
+        run = os.path.join(tmp, "run")
+        args = [f"dataset.path={zip_path}", "training.batch_size=16", "training.kimg=1",
+                "training.kimg_per_tick=0.25", "training.snap=2", "training.metrics=[]",
+                f"project_release_dir={run}"]
+        hook = torch.nn.modules.module.register_module_forward_hook(d_hook)
+        results, counts, peaks, out = [], [], [], io.StringIO()
+        try:
+            for extra in ([], ["training.resume=latest", "training.kimg=2"]):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for k in kernels:
+                    k.launches = 0
+                with contextlib.redirect_stdout(out):       # the loop's log, in log.txt too
+                    results.append(entry.main(args + extra))
+                torch.cuda.synchronize()
+                counts.append(tuple(k.launches for k in kernels))
+                peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+                if not extra:
+                    n_saved = check_snapshot(dev, run, results[0]["state"])
+                    # the resumed run's peak memory is its own: drop this run's state
+                    results[0]["step"] = results[0].pop("state").step
+        finally:
+            hook.remove()
+        files = set(os.listdir(run))
+        rows = [json.loads(line) for line in open(os.path.join(run, "stats.jsonl"))]
+
+        # the runs: their ends, the resumed start, the launches per run
+        first, second = results
+        check((first["cur_nimg"], first["step"]) == (1008, 21),
+              f"[13 loop] first run ended at {first['cur_nimg']} frames, step {first['step']}")
+        check((second["start_nimg"], second["start_step"]) == (1008, 21),
+              f"[13 loop] resumed at {second['start_nimg']} frames, step {second['start_step']}")
+        check((second["cur_nimg"], second["state"].step) == (2016, 42),
+              f"[13 loop] resumed run ended at {second['cur_nimg']}, step {second['state'].step}")
+        for (lo, hi), got in zip(LOOP_RUNS, counts):
+            want = tuple(sum(ADA_LAUNCHES_PER_STEP[i % 16 == 0][j] for i in range(lo, hi))
+                         for j in range(4))
+            check(got == want, f"[13 loop] steps {lo}-{hi - 1} launched K1, K1-bwd, K4, K4-bwd "
+                               f"{got} times, expected {want} (R1 at every 16th step index)")
+        check(seen == {(False, False)}, f"[13 loop] (cudnn, matmul) allow_tf32 in D: {seen}")
+
+        # the artifacts
+        want_files = {"log.txt", "stats.jsonl", "experiment_config.yaml", "reals.jpg",
+                      "fakes_init.jpg"} | {f"network-snapshot-{k:06d}.{ext}" for k in (0, 1, 2)
+                                           for ext in ("pt", "meta.json")}
+        want_files |= {f"fakes{n:06d}.{ext}" for n in (576, 1008, 1584, 2016)
+                       for ext in ("jpg", "mp4")}
+        check(want_files <= files, f"[13 loop] missing artifacts {sorted(want_files - files)}")
+
+        # stats.jsonl: the JAX loop's schema, every stat finite, augment_p in [0, 1]
+        check(len(rows) == 8, f"[13 loop] {len(rows)} stats rows, expected 4 ticks a run")
+        for row in rows:
+            check(isinstance(row.get("timestamp"), float), "[13 loop] a row without timestamp")
+            stats = {k: v for k, v in row.items() if k != "timestamp"}
+            check({"Loss/G/loss", "Loss/scores/real", "Progress/augment_p",
+                   "Timing/data_fetch"} <= set(stats), f"[13 loop] stats keys {sorted(stats)}")
+            for k, v in stats.items():
+                check(set(v) == {"mean", "std", "num"} and v["num"] > 0
+                      and math.isfinite(v["mean"]) and math.isfinite(v["std"]),
+                      f"[13 loop] stat {k}: {v}")
+            p = stats["Progress/augment_p"]["mean"]
+            check(0.0 <= p <= 1.0, f"[13 loop] augment_p {p}")
+
+        del results, first, second
+    torch.cuda.empty_cache()
+
+    # loader-fed numbers from the resumed (warm) run's four ticks: the Timing
+    # stats are host seconds between dispatches (training/loop.py), which the
+    # launch queue's back-pressure holds to the device's pace
+    warm = rows[4:]
+
+    def mean_ms(key):
+        num = sum(r[key]["num"] for r in warm if key in r)
+        return sum(r[key]["mean"] * r[key]["num"] for r in warm if key in r) / num * 1e3, num
+
+    ms_main, n_main = mean_ms("Timing/Gmain_Dmain")
+    ms_r1, n_r1 = mean_ms("Timing/Gmain_Dmain_Dr1")
+    fetch, _ = mean_ms("Timing/data_fetch")
+    steps = sum(r["Timing/data_fetch"]["num"] for r in warm[1:])
+    fps = steps * 48 / (warm[-1]["timestamp"] - warm[0]["timestamp"])
+    ticks = [line for line in out.getvalue().splitlines() if line.startswith("tick ")]
+    print("\n".join(f"[13 loop] {line}" for line in ticks))
+    pre = prestaged                 # phase 11's numbers
+    print(f"[13 loop] FFS-256 loop fed by the zip loader ({LOOP_DATA[0]} videos x {LOOP_DATA[1]} "
+          f"PPM frames at {LOOP_DATA[2]}^2, written in {t_data:.1f} s), `python -m "
+          f"stylegan_v_tpu_torch.train` auto preset, batch 16x3, bgc ADA, R1 every 16: "
+          f"{LOOP_RUNS[0][1]} steps, then {LOOP_RUNS[1][1] - LOOP_RUNS[1][0]} resumed from "
+          f"latest at step 21 / 1008 frames; snapshot 000001 equal to the bit to the state "
+          f"in memory and to its restore on the card ({n_saved} tensors); launches K1, K1-bwd, "
+          f"K4, K4-bwd per run {counts[0]} and {counts[1]}; (cudnn, matmul) allow_tf32 in D "
+          f"{sorted(seen)}. Loader-fed (resumed run): {ms_main:.1f} ms/step without R1 (mean "
+          f"Timing/Gmain_Dmain over {n_main} steps), {ms_r1:.1f} ms with R1 ({n_r1} step), "
+          f"{fps:.1f} frames/s amortised over ticks 2-4 ({steps} steps, their R1 and a "
+          f"snapshot included), data_fetch {fetch:.2f} ms/step, peak {peaks[1]:.2f} GiB (first "
+          f"run {peaks[0]:.2f}); pre-staged (phase 11, same process): {pre[0]:.1f} ms without "
+          f"R1, {pre[1]:.1f} ms with R1, {pre[3]:.1f} frames/s amortised at R1 every 16, "
+          f"data_fetch 0, peak {pre[4]:.2f} GiB; on {smi}", flush=True)
+
+
 def kernel_records(k1, k1_bwd, k4, k4_bwd, launches):
     """The kernel record: each kernel's launches in the ADA run (phase 11),
     worst error against its plain version, and its time, its plain version's
@@ -877,11 +1118,12 @@ def main() -> int:
         phase_grads(dev)
         k4, k4_bwd = phase_warp(dev)
     torch.cuda.empty_cache()
-    launches, _ = phase_train(dev, smi, G, D, augment=True, no_aug=no_aug)
+    launches, prestaged = phase_train(dev, smi, G, D, augment=True, no_aug=no_aug)
     del G, D
     torch.cuda.empty_cache()
     with float32_precision(False):
         phase_aug_parity(dev)
+    phase_loop(dev, smi, prestaged)                 # the loop's own TF32 default
     records = kernel_records(k1, k1_bwd, k4, k4_bwd, launches)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,6 @@
 """Weight bridge: the JAX package's flax variable trees -> the port's state_dicts,
-and its training state -> the port's (`jax_to_torch_train_state`).
+and its training state -> the port's (`jax_to_torch_train_state`), Adam's
+moments included (`jax_to_torch_adam`).
 
 The inverse of stylegan_v_tpu/io/legacy.py:convert_generator_state and
 convert_discriminator_state. Input is the flax variable tree as nested dicts
@@ -18,7 +19,7 @@ Layout conversions (flax -> port):
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -75,17 +76,45 @@ def jax_to_torch_discriminator(variables: Mapping[str, Any]) -> Dict[str, torch.
     return _state_dict(out)
 
 
-def jax_to_torch_train_state(state) -> Dict[str, Any]:
+def _adam_moments(opt_state):
+    """optax.adam's ScaleByAdamState(count, mu, nu) inside its chain state."""
+    for part in (opt_state if isinstance(opt_state, (tuple, list)) else (opt_state,)):
+        if all(hasattr(part, k) for k in ("count", "mu", "nu")):
+            return part
+    raise ValueError(f"no Adam moments (count, mu, nu) in {type(opt_state).__name__}")
+
+
+def jax_to_torch_adam(opt_state, module: torch.nn.Module, convert) -> Dict[int, Dict[str, Any]]:
+    """optax Adam state -> torch.optim.Adam's per-parameter `state`.
+
+    optax's count, mu and nu become torch's step, exp_avg and exp_avg_sq,
+    keyed by the index of each parameter in `module.parameters()`. `convert`
+    is jax_to_torch_generator or jax_to_torch_discriminator, so each moment
+    takes its parameter's layout change (the D epilogue fc's row permutation
+    included)."""
+    adam = _adam_moments(opt_state)
+    mu, nu = convert({"params": adam.mu}), convert({"params": adam.nu})
+    names = [n for n, _ in module.named_parameters()]
+    if set(names) != set(mu):
+        raise KeyError(f"Adam moments and parameters differ: {sorted(set(names) ^ set(mu))}")
+    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+    return {i: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+            for i, n in enumerate(names)}
+
+
+def jax_to_torch_train_state(state, G: Optional[torch.nn.Module] = None,
+                             D: Optional[torch.nn.Module] = None) -> Dict[str, Any]:
     """The JAX package's TrainState -> the pieces of the port's TrainState.
 
     params_G and params_Gema are Generator state_dicts (their w_avg buffer
     taken from extra_G and extra_Gema), params_D a Discriminator state_dict;
     w_avg is G's buffer on its own; pl_mean, augment_p and ada_sign_acc are
-    floats, step and cur_nimg ints. Adam's moments are not carried: they
-    start at zero on both sides.
+    floats, step and cur_nimg ints. With the port's G and D (for their
+    parameter order), opt_G and opt_D carry Adam's moments as
+    torch.optim.Adam's per-parameter `state` (jax_to_torch_adam).
     """
     params_G = jax_to_torch_generator({"params": state.params_G, **state.extra_G})
-    return {
+    pieces = {
         "params_G": params_G,
         "params_D": jax_to_torch_discriminator({"params": state.params_D}),
         "params_Gema": jax_to_torch_generator({"params": state.params_Gema,
@@ -97,4 +126,8 @@ def jax_to_torch_train_state(state) -> Dict[str, Any]:
         "step": int(np.asarray(state.step)),
         "cur_nimg": int(np.asarray(state.cur_nimg)),
     }
-
+    if G is not None:
+        pieces["opt_G"] = jax_to_torch_adam(state.opt_G, G, jax_to_torch_generator)
+    if D is not None:
+        pieces["opt_D"] = jax_to_torch_adam(state.opt_D, D, jax_to_torch_discriminator)
+    return pieces

@@ -1,0 +1,327 @@
+"""The training orchestrator.
+
+The port's counterpart of stylegan_v_tpu/training/loop.py (reference
+src/training/training_loop.py:97-544), on one device: the host loop feeds
+the step from the zip loader, keeps tick-level telemetry, writes snapshots
+(images, videos, the whole state) and resumes.
+
+Tick cadence, snapshot naming, stats.jsonl schema, the Timing/data_fetch and
+Timing/<variant> keys, the tick line and the visualization panels (reals /
+fakes_init / fakesNNNNNN grids + sample videos with the
+same-motion-different-content decomposition) mirror the JAX loop.
+
+Randomness: G and D are drawn from a torch.Generator seeded with the setup's
+seed; each step draws from a torch.Generator on the device seeded from
+(seed, step index) alone (`step_seed`, the counterpart of
+`jax.random.fold_in(rng, step_idx)`), so a resumed run draws what an
+unbroken one would. The loop reads no device value on the host per step:
+cur_nimg is a host mirror, and augment_p is read once a tick.
+
+Options the port does not have yet raise NotImplementedError before the
+first step, naming their ROADMAP item (`check_ported`).
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+import time
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from ..data import DeviceLoader, TrainingDataLoader, VideoFramesFolderDataset
+from ..io.checkpoint import (find_latest_snapshot, load_snapshot, restore_train_state,
+                             save_snapshot)
+from ..models import Discriminator, Generator
+from ..models.motion import MotionMappingNetwork
+from ..train_setup import TrainSetup
+from ..utils.logger import Logger
+from ..utils.misc import float32_precision, format_time
+from ..utils.summary import print_activation_summary, print_module_summary
+from ..utils.training_stats import (Collector, DeviceStatsAccumulator, StatsJsonlWriter,
+                                    TensorboardWriter)
+from .augment import make_augment_pipe
+from .train_step import init_train_state, make_train_step
+from .video_io import generate_videos, save_image_grid, save_video_frames_as_mp4, videos_as_grids
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device to train on: `device` as given, or cuda:0 when None. A
+    CUDA device that is not there raises; nothing falls back to the CPU."""
+    device = torch.device("cuda", 0) if device is None else torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: training runs on the card; pass "
+                           "device=torch.device('cpu') (--device cpu) to run on the CPU")
+    return device
+
+
+def check_ported(setup: TrainSetup) -> None:
+    """Raise NotImplementedError for an option the port does not have yet."""
+    if setup.metrics:
+        raise NotImplementedError(
+            f"in-training metrics {list(setup.metrics)} are not ported yet (ROADMAP P7); "
+            "pass training.metrics=[]")
+    if setup.disc_source == "mocogan":
+        raise NotImplementedError("the MoCoGAN discriminator is not ported yet (ROADMAP P9)")
+    if setup.resume and str(setup.resume).endswith(".pkl"):
+        raise NotImplementedError("resume from a reference .pkl (io/legacy) is not ported "
+                                  "yet (ROADMAP P9)")
+    if setup.num_chips != 1 or setup.train_cfg.zero1:
+        raise NotImplementedError(f"training on {setup.num_chips} chips, or with zero1, is "
+                                  "not ported yet (ROADMAP P8)")
+    if torch.distributed.is_available() and torch.distributed.is_initialized() \
+            and torch.distributed.get_world_size() > 1:
+        raise NotImplementedError("training in more than one process is not ported yet "
+                                  "(ROADMAP P8)")
+
+
+def step_seed(seed: int, step_idx: int) -> int:
+    """The seed of step `step_idx`'s draws, from (seed, step_idx) alone."""
+    return int(np.random.SeedSequence([seed, step_idx]).generate_state(1, np.uint64)[0] >> 1)
+
+
+def setup_snapshot_image_grid(dataset, grid_seed: int = 0, max_videos: int = 16,
+                              row_len: int = 4):
+    """Pick grid videos + their conditioning (reference training_loop.py:35-76);
+    a copy of the JAX loop's.
+
+    Unconditional datasets: seeded random subset. Conditional datasets: the
+    grid is LABEL-GROUPED — consecutive `row_len` slots show videos of one
+    label, cycling through labels in sorted order."""
+    rnd = np.random.RandomState(grid_seed)
+    n = min(max_videos, len(dataset))
+    if not dataset.has_labels:
+        idx = rnd.choice(len(dataset), size=n, replace=False)
+    else:
+        groups: Dict[tuple, list] = {}
+        for i in range(len(dataset)):
+            key = tuple(np.asarray(dataset.get_label(i)).flatten().tolist())
+            groups.setdefault(key, []).append(i)
+        keys = sorted(groups)
+        for g in groups.values():
+            rnd.shuffle(g)
+        idx, k = [], 0
+        while len(idx) < n and any(groups.values()):
+            g = groups[keys[k % len(keys)]]
+            idx.extend(g[:row_len])
+            del g[:row_len]
+            k += 1
+        idx = np.asarray(idx[:n])
+    items = [dataset[int(i)] for i in idx]
+    images = np.stack([it["image"][0] for it in items])       # first frames
+    labels = np.stack([it["label"] for it in items]).astype(np.float32)
+    return images, labels
+
+
+def training_loop(setup: TrainSetup, device=None,
+                  abort_fn: Optional[Callable[[], bool]] = None,
+                  progress_fn: Optional[Callable[[int, int], None]] = None,
+                  log: Callable[[str], None] = print) -> Dict:
+    """Run training to total_kimg on `device` (cuda:0 when None); returns a
+    summary dict: cur_nimg, ticks, seconds, the step and cur_nimg the run
+    started from, and the final TrainState. The whole run, the panels'
+    synthesis included, keeps TF32 off unless setup.allow_tf32."""
+    check_ported(setup)
+    device = resolve_device(device)
+    os.makedirs(setup.run_dir, exist_ok=True)
+    start_time = time.time()
+    logger = Logger(os.path.join(setup.run_dir, "log.txt"), "a").install()
+    try:
+        with float32_precision(setup.allow_tf32):
+            result = _train(setup, device, abort_fn, progress_fn, log, start_time)
+    finally:
+        logger.close()     # gives sys.stdout back even when a step raises
+    log(f"Training complete: {result['cur_nimg'] // 1000} kimg in "
+        f"{format_time(time.time() - start_time)}")
+    return result
+
+
+def _train(setup: TrainSetup, device: torch.device, abort_fn, progress_fn, log,
+           start_time: float) -> Dict:
+    run_dir = setup.run_dir
+
+    # ---- dataset (reference training_loop.py:141-151) --------------------
+    log("Loading training set...")
+    dataset = VideoFramesFolderDataset(**setup.dataset_kwargs)
+    log(f"  videos: {len(dataset)}  resolution: {dataset.resolution}  "
+        f"labels: {dataset.label_dim if dataset.has_labels else 0}")
+
+    # ---- models + state (reference training_loop.py:160-183) ------------
+    log("Constructing networks...")
+    gen = torch.Generator().manual_seed(setup.seed)
+    G = Generator(setup.gen_cfg, generator=gen).to(device)
+    D = Discriminator(setup.disc_cfg, generator=gen).to(device)
+    state = init_train_state(G, D, setup.opt_g, setup.opt_d, setup.train_cfg,
+                             augment_p=setup.augment_p)
+    n_gp = sum(p.numel() for p in G.parameters())
+    n_dp = sum(p.numel() for p in D.parameters())
+    log(f"  G params: {n_gp/1e6:.2f}M   D params: {n_dp/1e6:.2f}M")
+    print_module_summary(G, "Generator", max_rows=0, log=log)
+    print_module_summary(D, "Discriminator", max_rows=0, log=log)
+    # per-module output shapes from a dummy forward of one video (the
+    # reference's print_module_summary pass, misc.py:193-272)
+    F = setup.sampling_cfg.num_frames_per_video
+    c0 = torch.zeros(1, setup.gen_cfg.c_dim, device=device) if setup.gen_cfg.c_dim > 0 else None
+    print_activation_summary(G, torch.zeros(1, setup.gen_cfg.z_dim, device=device), c0,
+                             torch.zeros(1, F, device=device), noise_mode="const",
+                             generator=torch.Generator(device=device).manual_seed(0),
+                             title="Generator", log=log)
+
+    # ---- resume (reference train.py:283-317, training_loop.py:167-183) ---
+    resume_nimg = 0
+    if setup.resume:
+        path = (find_latest_snapshot(run_dir) if setup.resume == "latest"
+                else setup.resume)
+        if path:
+            log(f"Resuming from {path}")
+            payload, meta = load_snapshot(path)
+            restore_train_state(state, payload)
+            resume_nimg = int(meta.get("cur_nimg", state.cur_nimg))
+        elif setup.resume != "latest":
+            raise FileNotFoundError(setup.resume)
+
+    # ---- augmentation + train step ---------------------------------------
+    augment_fn = (make_augment_pipe(dataclasses.replace(setup.augment_cfg, data_shards=1))
+                  if setup.augment_cfg is not None else None)
+    step_fn = make_train_step(G, D, setup.loss_cfg, setup.train_cfg, augment_fn=augment_fn,
+                              allow_tf32=setup.allow_tf32)
+
+    # ---- visualization state (reference training_loop.py:272-299) --------
+    # Before the loader starts: its worker draws from the dataset's RNG too.
+    grid_reals, grid_labels = setup_snapshot_image_grid(dataset, setup.seed)
+    save_image_grid(grid_reals.astype(np.float32) / 127.5 - 1,
+                    os.path.join(run_dir, "reals.jpg"))
+    vis_n = min(9, setup.train_cfg.batch_size)
+    vis_z = torch.randn((vis_n, setup.gen_cfg.z_dim),
+                        generator=torch.Generator().manual_seed(setup.seed + 1))
+    vis_c = (grid_labels[:vis_n] if setup.gen_cfg.c_dim > 0 else None)
+    vis_T = min(16, setup.sampling_cfg.max_num_frames)
+    vis_ts = np.tile(np.arange(vis_T, dtype=np.float32)[None], (vis_n, 1))
+
+    # fakes_init: untrained-G_ema grid before the first step (reference
+    # training_loop.py:283)
+    init_vids = generate_videos(state.G_ema, vis_z, vis_c, vis_ts, noise_mode="const")
+    save_image_grid(init_vids[:, 0] * 2 - 1, os.path.join(run_dir, "fakes_init.jpg"))
+
+    # ---- loader + sinks --------------------------------------------------
+    loader = TrainingDataLoader(
+        dataset, batch_size=setup.train_cfg.batch_size,
+        gen_sampling=setup.sampling_cfg, use_fractional_t=setup.use_fractional_t,
+        seed=setup.seed, num_workers=setup.num_workers)
+    batches = DeviceLoader(loader, device)
+    collector = Collector()
+    dstats = DeviceStatsAccumulator()
+    jsonl = StatsJsonlWriter(run_dir)
+    tb = TensorboardWriter(run_dir)
+    step_gen = torch.Generator(device=device)
+
+    # ---- main loop (reference training_loop.py:330-544) ------------------
+    total_steps = max(1, setup.total_kimg * 1000 //
+                      (setup.train_cfg.batch_size
+                       * setup.sampling_cfg.num_frames_per_video))
+    gpl_int = setup.train_cfg.G_reg_interval
+    dr1_int = setup.train_cfg.D_reg_interval
+    tick_interval_nimg = setup.kimg_per_tick * 1000
+    next_tick_nimg = resume_nimg
+    cur_tick = 0
+    tick_start = time.time()
+    step_idx = int(state.step)
+    # host-side nimg mirror: the step advances cur_nimg by exactly
+    # nimg_per_step, so the loop never asks the state for it
+    nimg_per_step = (setup.train_cfg.batch_size
+                     * setup.sampling_cfg.num_frames_per_video)
+    cur_nimg = int(state.cur_nimg)
+    base_nimg, base_step = cur_nimg, step_idx
+
+    log(f"Training for {setup.total_kimg} kimg ({total_steps} steps)...")
+    try:
+        while True:
+            t_step = time.time()
+            batch = next(batches)
+            t_data = time.time()
+            do_gpl = gpl_int is not None and step_idx % gpl_int == 0
+            do_dr1 = dr1_int is not None and step_idx % dr1_int == 0
+            step_gen.manual_seed(step_seed(setup.seed, step_idx))
+            state, stats = step_fn(state, batch, generator=step_gen,
+                                   do_gpl=do_gpl, do_dr1=do_dr1)
+            dstats.update(stats)         # device-resident accumulation, no sync
+            t_disp = time.time()
+            # per-variant wall time between dispatches (the JAX loop's
+            # Timing/<variant>): once the launch queue back-pressures, its
+            # mean converges to the variant's device step time.
+            variant = ("Gmain_Dmain" + ("_Gpl" if do_gpl else "")
+                       + ("_Dr1" if do_dr1 else ""))
+            collector.report("Timing/data_fetch", t_data - t_step)
+            collector.report(f"Timing/{variant}", t_disp - t_data)
+            step_idx += 1
+            cur_nimg = base_nimg + (step_idx - base_step) * nimg_per_step
+
+            done = cur_nimg >= setup.total_kimg * 1000
+            if (not done) and cur_nimg < next_tick_nimg + tick_interval_nimg:
+                continue
+
+            # ---- per-tick maintenance (reference training_loop.py:417-544) ---
+            cur_tick += 1
+            next_tick_nimg = cur_nimg
+            dstats.drain_into(collector)   # the tick's ONE stats host sync
+            tick_time = time.time() - tick_start
+            fields = [
+                f"tick {cur_tick:<5d}",
+                f"kimg {cur_nimg / 1e3:<8.1f}",
+                f"time {format_time(time.time() - start_time):<12s}",
+                f"sec/tick {tick_time:<7.1f}",
+                f"sec/kimg {tick_time / max(tick_interval_nimg / 1e3, 1e-8):<7.2f}",
+                f"augment {float(state.augment_p):.3f}",
+                f"Gloss {collector.mean('Loss/G/loss'):.3f}",
+                f"Dreal {collector.mean('Loss/scores/real'):.3f}",
+            ]
+            log(" ".join(fields))
+            jsonl.write({k: v for k, v in collector.as_dict().items()})
+            tb.add_scalars(collector, cur_nimg)
+            collector.reset()
+            tick_start = time.time()
+
+            # snapshots
+            if setup.snap_ticks and (cur_tick % setup.snap_ticks == 0 or done):
+                log("Saving snapshots...")
+                save_panels(setup, state.G_ema, vis_z, vis_c, vis_ts, cur_nimg)
+                save_snapshot(run_dir, state, cur_nimg,
+                              configs={"G": setup.gen_cfg, "D": setup.disc_cfg})
+
+            if progress_fn is not None:
+                progress_fn(cur_nimg // 1000, setup.total_kimg)
+            if abort_fn is not None and abort_fn():
+                log("Aborting...")
+                done = True
+            if done:
+                break
+    finally:
+        batches.close()
+        jsonl.close()
+    return dict(cur_nimg=cur_nimg, ticks=cur_tick, seconds=time.time() - start_time,
+                start_step=base_step, start_nimg=base_nimg, state=state)
+
+
+def save_panels(setup: TrainSetup, G_ema, vis_z, vis_c, vis_ts, cur_nimg: int) -> None:
+    """The snapshot's fakes grid and sample video from G_ema, with the
+    same-motion panel when G has motion (reference training_loop.py:443-470)."""
+    run_dir = setup.run_dir
+    vids = generate_videos(G_ema, vis_z, vis_c, vis_ts, noise_mode="const")
+    save_image_grid(vids[:, 0] * 2 - 1, os.path.join(run_dir, f"fakes{cur_nimg:06d}.jpg"))
+    panel = videos_as_grids(vids)
+    if setup.gen_cfg.has_motion:
+        # moco-decomposition panel (reference training_loop.py:448-462):
+        # [different-motion grid | white pad | same-motion grid] — ONE motion
+        # trajectory repeated across all videos exposes content/motion
+        # entanglement at a glance during training.
+        L = MotionMappingNetwork.required_traj_len(setup.gen_cfg, float(vis_ts.max()))
+        mz = torch.randn((1, L, setup.gen_cfg.motion.z_dim),
+                         generator=torch.Generator().manual_seed(setup.seed + 2))
+        mz = mz.repeat(len(vis_ts), 1, 1)
+        same = videos_as_grids(generate_videos(G_ema, vis_z, vis_c, vis_ts, motion_z=mz,
+                                               noise_mode="const"))
+        pad = np.ones_like(panel[:, :, :min(64, panel.shape[2])])
+        panel = np.concatenate([panel, pad, same], axis=2)
+    save_video_frames_as_mp4(panel, setup.sampling_cfg.fps,
+                             os.path.join(run_dir, f"fakes{cur_nimg:06d}.mp4"))

@@ -2,6 +2,7 @@
 
   * EasyDict       — dict with attribute access (reference dnnlib/util.py:40)
   * assert_shape   — shape check with None wildcards (reference torch_utils/misc.py:80)
+  * format_time    — human readable elapsed time (reference dnnlib/util.py:142)
   * parse_scaling  — up/down factor -> [x, y] (reference ops/upfirdn2d.py:22-30)
   * parse_padding  — padding -> [x0, x1, y0, y1] (reference ops/upfirdn2d.py:33-44)
   * normal_param   — a parameter drawn from an explicit torch.Generator
@@ -38,6 +39,18 @@ def assert_shape(x: torch.Tensor, ref_shape: Sequence[Optional[int]]) -> None:
     for idx, (size, ref_size) in enumerate(zip(x.shape, ref_shape)):
         if ref_size is not None and int(size) != int(ref_size):
             raise AssertionError(f"Wrong size for dimension {idx}: got {size}, expected {ref_size}")
+
+
+def format_time(seconds: float) -> str:
+    """Human readable elapsed time; mirrors reference dnnlib/util.py:142-153."""
+    s = int(round(seconds))
+    if s < 60:
+        return f"{s}s"
+    if s < 60 * 60:
+        return f"{s // 60}m {s % 60:02d}s"
+    if s < 24 * 60 * 60:
+        return f"{s // (60 * 60)}h {(s // 60) % 60:02d}m {s % 60:02d}s"
+    return f"{s // (24 * 60 * 60)}d {(s // (60 * 60)) % 24:02d}h {(s // 60) % 60:02d}m"
 
 
 def parse_scaling(scaling) -> List[int]:

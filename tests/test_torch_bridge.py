@@ -129,9 +129,18 @@ def test_port_never_imports_jax():
         "for n in names: importlib.import_module(n)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax',"
         " 'stylegan_v_tpu')]\n"
-        "new = {'stylegan_v_tpu_torch.training.loss', 'stylegan_v_tpu_torch.training.train_step'}\n"
+        "new = {'stylegan_v_tpu_torch.training.loss', 'stylegan_v_tpu_torch.training.train_step',"
+        " 'stylegan_v_tpu_torch.data.dataset', 'stylegan_v_tpu_torch.data.loader',"
+        " 'stylegan_v_tpu_torch.data.sampling', 'stylegan_v_tpu_torch.native.fastjpeg',"
+        " 'stylegan_v_tpu_torch.utils.config', 'stylegan_v_tpu_torch.utils.logger',"
+        " 'stylegan_v_tpu_torch.utils.summary', 'stylegan_v_tpu_torch.utils.training_stats',"
+        " 'stylegan_v_tpu_torch.training.video_io', 'stylegan_v_tpu_torch.training.loop',"
+        " 'stylegan_v_tpu_torch.io.checkpoint', 'stylegan_v_tpu_torch.train_setup',"
+        " 'stylegan_v_tpu_torch.train'}\n"
         "assert new <= set(names) and len(names) >= 15, names\n"
         "assert not bad, bad\n"
+        "lazy = [m for m in ('yaml', 'PIL', 'cv2', 'tensorboardX') if m in sys.modules]\n"
+        "assert not lazy, lazy\n"
         "print('ok', len(names))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
