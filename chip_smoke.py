@@ -76,6 +76,23 @@ holds them against the port's plain PyTorch paths:
               every D call; loader-fed ms/step, frames/s amortised over the
               resumed run's ticks, data_fetch and peak memory beside phase
               11's pre-staged numbers.
+ 14. metrics: the metric stack (stylegan_v_tpu_torch/metrics) on phase 13's
+              G_ema and dataset, with TF32 off, the I3D, Inception and C3D
+              under seeded random weights registered under the reference's
+              detector names: (a) each detector on the card against the same
+              module on the CPU from uint8 at 256^2 (I3D [2, 16] frames
+              resized to 224^2, Inception 2 images to 299^2, C3D 1 clip of 16
+              frames to 112^2); (b) calc_metric("fvd2048_16f") with 32 real
+              and 64 generated clips, finite, and again from the real-stats
+              cache, equal to 1e-6 relative; (c) FID, KID, IS and ISv at small
+              counts, finite; (d) fvd2048_128f's generator side, 4 clips of
+              128 frames; (e) generator-side FVD extraction of 256 clips timed
+              (clips/s, synthesis and detector split by CUDA events, peak
+              memory); (g) no K1, K1-bwd, K4 or K4-bwd launch in (b)-(e); (f)
+              the loop through the entry point with
+              training.metrics=[fvd2048_16f] and the same overrides for 21
+              steps: two snapshots, two finite metric-fvd2048_16f.jsonl rows
+              named after them.
 
 Any failed check exits non-zero. The last two lines are the kernel record
 (each kernel's launches in phase 11, worst error, time, plain and library
@@ -89,6 +106,7 @@ import copy
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 # Kernel vs plain: float32 sums in another order; bf16 rounds once from a float32 sum.
@@ -927,16 +945,17 @@ def check_snapshot(dev, run, state):
     return n
 
 
-def phase_loop(dev, smi, prestaged):
+def phase_loop(dev, smi, prestaged, tmp):
     """Phase 13: the loader-fed loop through the entry point, twice (21 steps,
     then 21 more resumed from `latest`), with its checks; `prestaged` is phase
-    11's (ms without R1, ms with R1, amortised ms, frames/s, peak GiB)."""
+    11's (ms without R1, ms with R1, amortised ms, frames/s, peak GiB). The
+    dataset goes in the directory `tmp`; returns its path and the resumed
+    run's G_ema, which phase 14 scores."""
     import contextlib
     import importlib.util
     import io
     import math
     import os
-    import tempfile
     import torch
     from stylegan_v_tpu_torch import train as entry
     from stylegan_v_tpu_torch.models import Discriminator
@@ -956,73 +975,73 @@ def phase_loop(dev, smi, prestaged):
             seen.add(tuple(t.allow_tf32 for t in tf32))
 
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        zip_path = write_ppm_zip(os.path.join(tmp, "moving256.zip"))
-        t_data = time.perf_counter() - t0
-        run = os.path.join(tmp, "run")
-        args = [f"dataset.path={zip_path}", "training.batch_size=16", "training.kimg=1",
-                "training.kimg_per_tick=0.25", "training.snap=2", "training.metrics=[]",
-                f"project_release_dir={run}"]
-        hook = torch.nn.modules.module.register_module_forward_hook(d_hook)
-        results, counts, peaks, out = [], [], [], io.StringIO()
-        try:
-            for extra in ([], ["training.resume=latest", "training.kimg=2"]):
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-                for k in kernels:
-                    k.launches = 0
-                with contextlib.redirect_stdout(out):       # the loop's log, in log.txt too
-                    results.append(entry.main(args + extra))
-                torch.cuda.synchronize()
-                counts.append(tuple(k.launches for k in kernels))
-                peaks.append(torch.cuda.max_memory_allocated() / 2**30)
-                if not extra:
-                    n_saved = check_snapshot(dev, run, results[0]["state"])
-                    # the resumed run's peak memory is its own: drop this run's state
-                    results[0]["step"] = results[0].pop("state").step
-        finally:
-            hook.remove()
-        files = set(os.listdir(run))
-        rows = [json.loads(line) for line in open(os.path.join(run, "stats.jsonl"))]
+    zip_path = write_ppm_zip(os.path.join(tmp, "moving256.zip"))
+    t_data = time.perf_counter() - t0
+    run = os.path.join(tmp, "run")
+    args = [f"dataset.path={zip_path}", "training.batch_size=16", "training.kimg=1",
+            "training.kimg_per_tick=0.25", "training.snap=2", "training.metrics=[]",
+            f"project_release_dir={run}"]
+    hook = torch.nn.modules.module.register_module_forward_hook(d_hook)
+    results, counts, peaks, out = [], [], [], io.StringIO()
+    try:
+        for extra in ([], ["training.resume=latest", "training.kimg=2"]):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels:
+                k.launches = 0
+            with contextlib.redirect_stdout(out):       # the loop's log, in log.txt too
+                results.append(entry.main(args + extra))
+            torch.cuda.synchronize()
+            counts.append(tuple(k.launches for k in kernels))
+            peaks.append(torch.cuda.max_memory_allocated() / 2**30)
+            if not extra:
+                n_saved = check_snapshot(dev, run, results[0]["state"])
+                # the resumed run's peak memory is its own: drop this run's state
+                results[0]["step"] = results[0].pop("state").step
+    finally:
+        hook.remove()
+    files = set(os.listdir(run))
+    rows = [json.loads(line) for line in open(os.path.join(run, "stats.jsonl"))]
 
-        # the runs: their ends, the resumed start, the launches per run
-        first, second = results
-        check((first["cur_nimg"], first["step"]) == (1008, 21),
-              f"[13 loop] first run ended at {first['cur_nimg']} frames, step {first['step']}")
-        check((second["start_nimg"], second["start_step"]) == (1008, 21),
-              f"[13 loop] resumed at {second['start_nimg']} frames, step {second['start_step']}")
-        check((second["cur_nimg"], second["state"].step) == (2016, 42),
-              f"[13 loop] resumed run ended at {second['cur_nimg']}, step {second['state'].step}")
-        for (lo, hi), got in zip(LOOP_RUNS, counts):
-            want = tuple(sum(ADA_LAUNCHES_PER_STEP[i % 16 == 0][j] for i in range(lo, hi))
-                         for j in range(4))
-            check(got == want, f"[13 loop] steps {lo}-{hi - 1} launched K1, K1-bwd, K4, K4-bwd "
-                               f"{got} times, expected {want} (R1 at every 16th step index)")
-        check(seen == {(False, False)}, f"[13 loop] (cudnn, matmul) allow_tf32 in D: {seen}")
+    # the runs: their ends, the resumed start, the launches per run
+    first, second = results
+    check((first["cur_nimg"], first["step"]) == (1008, 21),
+          f"[13 loop] first run ended at {first['cur_nimg']} frames, step {first['step']}")
+    check((second["start_nimg"], second["start_step"]) == (1008, 21),
+          f"[13 loop] resumed at {second['start_nimg']} frames, step {second['start_step']}")
+    check((second["cur_nimg"], second["state"].step) == (2016, 42),
+          f"[13 loop] resumed run ended at {second['cur_nimg']}, step {second['state'].step}")
+    for (lo, hi), got in zip(LOOP_RUNS, counts):
+        want = tuple(sum(ADA_LAUNCHES_PER_STEP[i % 16 == 0][j] for i in range(lo, hi))
+                     for j in range(4))
+        check(got == want, f"[13 loop] steps {lo}-{hi - 1} launched K1, K1-bwd, K4, K4-bwd "
+                           f"{got} times, expected {want} (R1 at every 16th step index)")
+    check(seen == {(False, False)}, f"[13 loop] (cudnn, matmul) allow_tf32 in D: {seen}")
 
-        # the artifacts
-        want_files = {"log.txt", "stats.jsonl", "experiment_config.yaml", "reals.jpg",
-                      "fakes_init.jpg"} | {f"network-snapshot-{k:06d}.{ext}" for k in (0, 1, 2)
-                                           for ext in ("pt", "meta.json")}
-        want_files |= {f"fakes{n:06d}.{ext}" for n in (576, 1008, 1584, 2016)
-                       for ext in ("jpg", "mp4")}
-        check(want_files <= files, f"[13 loop] missing artifacts {sorted(want_files - files)}")
+    # the artifacts
+    want_files = {"log.txt", "stats.jsonl", "experiment_config.yaml", "reals.jpg",
+                  "fakes_init.jpg"} | {f"network-snapshot-{k:06d}.{ext}" for k in (0, 1, 2)
+                                       for ext in ("pt", "meta.json")}
+    want_files |= {f"fakes{n:06d}.{ext}" for n in (576, 1008, 1584, 2016)
+                   for ext in ("jpg", "mp4")}
+    check(want_files <= files, f"[13 loop] missing artifacts {sorted(want_files - files)}")
 
-        # stats.jsonl: the JAX loop's schema, every stat finite, augment_p in [0, 1]
-        check(len(rows) == 8, f"[13 loop] {len(rows)} stats rows, expected 4 ticks a run")
-        for row in rows:
-            check(isinstance(row.get("timestamp"), float), "[13 loop] a row without timestamp")
-            stats = {k: v for k, v in row.items() if k != "timestamp"}
-            check({"Loss/G/loss", "Loss/scores/real", "Progress/augment_p",
-                   "Timing/data_fetch"} <= set(stats), f"[13 loop] stats keys {sorted(stats)}")
-            for k, v in stats.items():
-                check(set(v) == {"mean", "std", "num"} and v["num"] > 0
-                      and math.isfinite(v["mean"]) and math.isfinite(v["std"]),
-                      f"[13 loop] stat {k}: {v}")
-            p = stats["Progress/augment_p"]["mean"]
-            check(0.0 <= p <= 1.0, f"[13 loop] augment_p {p}")
+    # stats.jsonl: the JAX loop's schema, every stat finite, augment_p in [0, 1]
+    check(len(rows) == 8, f"[13 loop] {len(rows)} stats rows, expected 4 ticks a run")
+    for row in rows:
+        check(isinstance(row.get("timestamp"), float), "[13 loop] a row without timestamp")
+        stats = {k: v for k, v in row.items() if k != "timestamp"}
+        check({"Loss/G/loss", "Loss/scores/real", "Progress/augment_p",
+               "Timing/data_fetch"} <= set(stats), f"[13 loop] stats keys {sorted(stats)}")
+        for k, v in stats.items():
+            check(set(v) == {"mean", "std", "num"} and v["num"] > 0
+                  and math.isfinite(v["mean"]) and math.isfinite(v["std"]),
+                  f"[13 loop] stat {k}: {v}")
+        p = stats["Progress/augment_p"]["mean"]
+        check(0.0 <= p <= 1.0, f"[13 loop] augment_p {p}")
 
-        del results, first, second
+    G_ema = second["state"].G_ema
+    del results, first, second
     torch.cuda.empty_cache()
 
     # loader-fed numbers from the resumed (warm) run's four ticks: the Timing
@@ -1056,6 +1075,244 @@ def phase_loop(dev, smi, prestaged):
           f"run {peaks[0]:.2f}); pre-staged (phase 11, same process): {pre[0]:.1f} ms without "
           f"R1, {pre[1]:.1f} ms with R1, {pre[3]:.1f} frames/s amortised at R1 every 16, "
           f"data_fetch 0, peak {pre[4]:.2f} GiB; on {smi}", flush=True)
+    return zip_path, G_ema
+
+
+METRIC_ITEMS = (32, 64)     # max_real_override, num_gen_override of phase 14's FVDs
+FVD_TIMED_CLIPS = 256       # generator-side FVD extraction timed in phase 14 (16-frame clips)
+FVD_KW = dict(rescale=True, resize=True, return_features=True)   # the reference's I3D kwargs
+
+
+def random_detectors():
+    """Phase 14's I3D, Inception and C3D with seeded random weights, on the CPU
+    (the reference's detector files are not in the repository)."""
+    import torch
+    from stylegan_v_tpu_torch.metrics.detectors import C3D, InceptionI3d, InceptionV3, random_init_
+    gen = torch.Generator().manual_seed(14)
+    return [random_init_(cls(), gen).eval() for cls in (InceptionI3d, InceptionV3, C3D)]
+
+
+def conv_flops(model, shape) -> int:
+    """The operations (2 x multiply-adds) of a module's convolutions on an input
+    of `shape`, counted from the shapes by a forward pass on the meta device."""
+    import torch
+    total = [0]
+
+    def count(m, _, out):
+        if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d)):
+            total[0] += 2 * out.numel() * m.weight[0].numel()
+
+    meta = copy.deepcopy(model).to("meta")
+    for m in meta.modules():
+        m.register_forward_hook(count)
+    with torch.no_grad():
+        meta(torch.empty(shape, device="meta"))
+    return total[0]
+
+
+def phase_detectors(dev, models):
+    """Phase 14 (a): each detector's features on the card against the same
+    module on the CPU, from uint8 frames at 256^2 through its own rescale and
+    resize. Returns the card's copies of the modules."""
+    import copy
+    import numpy as np
+    import torch
+    from stylegan_v_tpu_torch.metrics import detectors as det
+
+    rng = np.random.RandomState(14)
+    cases = (("I3D", det.i3d_features_fn, (2, 16, 256, 256, 3), FVD_KW),
+             ("Inception", det.inception_features_fn, (2, 256, 256, 3),
+              dict(return_features=True)),
+             ("C3D", det.c3d_features_fn, (1, 16, 256, 256, 3), {}))
+    card_models, msgs = [], []
+    for (name, fn, shape, kw), model in zip(cases, models):
+        x = rng.randint(0, 256, shape).astype(np.uint8)
+        want = fn(copy.deepcopy(model), device="cpu", **kw)(x)
+        card_models.append(copy.deepcopy(model).to(dev))
+        got = fn(card_models[-1], **kw)(torch.from_numpy(x).to(dev))
+        scale, err = float(np.abs(want).max()), float(np.abs(got - want).max())
+        check(got.shape == want.shape and bool(np.isfinite(got).all()) and scale > 0
+              and err <= PARITY_TOL * scale,
+              f"[14 metrics] {name} card vs CPU: shape {got.shape}, max abs err {err:.3g}, "
+              f"scale {scale:.3g}")
+        msgs.append(f"{name} {list(shape)} -> {list(got.shape)}: max abs err {err:.3g} "
+                    f"(scale {scale:.3g})")
+    print(f"[14 metrics] (a) detectors with seeded random weights, card against CPU, tol "
+          f"{PARITY_TOL} x scale: " + "; ".join(msgs), flush=True)
+    return card_models
+
+
+def phase_metrics(dev, smi, G_ema, zip_path, tmp, models):
+    """Phase 14: the metric stack on phase 13's FFS-256 G_ema and dataset, with
+    random-weight detectors registered under the reference's names: (a) the
+    detectors card vs CPU; (b) calc_metric("fvd2048_16f") twice, the second
+    from the real-stats cache; (c) FID, KID, IS and ISv at small counts; (d)
+    the generator side of fvd2048_128f; (e) the generator-side FVD extraction
+    timed, synthesis and detector split; (g) no K1, K1-bwd, K4 or K4-bwd launch
+    in (b)-(e); (f) the loop through the entry point with
+    training.metrics=[fvd2048_16f], two snapshots, two rows."""
+    import contextlib
+    import io
+    import math
+    import os
+    import numpy as np
+    import torch
+    from stylegan_v_tpu_torch import train as entry
+    from stylegan_v_tpu_torch.metrics import detectors as det
+    from stylegan_v_tpu_torch.metrics import metric_main, metric_utils
+    from stylegan_v_tpu_torch.metrics.frechet_inception_distance import compute_fid
+    from stylegan_v_tpu_torch.metrics.inception_score import compute_is, compute_isv
+    from stylegan_v_tpu_torch.metrics.kernel_inception_distance import compute_kid
+    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
+                                          downfirdn2d_x2_bwd)
+
+    t_phase = time.perf_counter()
+    i3d, inception, c3d = phase_detectors(dev, models)
+    fns = {"i3d": (det.i3d_features_fn, i3d), "inception": (det.inception_features_fn, inception),
+           "c3d_ucf101": (det.c3d_features_fn, c3d)}
+    for name, (fn, model) in fns.items():
+        metric_utils.register_detector(name, lambda fn=fn, model=model, **kw: fn(model, **kw),
+                                       cache_tag=f"chip-smoke-random-{name}-s14")
+    kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+    for k in kernels:
+        k.launches = 0
+    cache = os.path.join(tmp, "metric-stats")
+    common = dict(G=G_ema, dataset_kwargs=dict(path=zip_path, xflip=True), device=dev,
+                  cache_dir=cache)
+    real, gen = METRIC_ITEMS
+
+    # (b) FVD through the registry, twice: the second call reads the real stats' cache
+    fvd, secs = [], []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        r = metric_main.calc_metric("fvd2048_16f", max_real_override=real,
+                                    num_gen_override=gen, **common)
+        secs.append(time.perf_counter() - t0)
+        fvd.append(r.results["fvd2048_16f"])
+        if len(fvd) == 1:
+            cached = os.listdir(cache)
+    check(len(cached) == 1 and os.listdir(cache) == cached,
+          f"[14 metrics] real-stats cache {cached} then {os.listdir(cache)}")
+    check(math.isfinite(fvd[0]) and abs(fvd[1] - fvd[0]) <= 1e-6 * abs(fvd[0]),
+          f"[14 metrics] fvd2048_16f {fvd[0]!r} then {fvd[1]!r} from the cache")
+    print(f"[14 metrics] (b) calc_metric('fvd2048_16f') on phase 13's G_ema, I3D at 224^2, "
+          f"{real} real clips ({LOOP_DATA[0]} videos, mirrored) and {gen} generated: FVD "
+          f"{fvd[0]!r} in {secs[0]:.2f} s, then {fvd[1]!r} in {secs[1]:.2f} s from the real-stats cache "
+          f"(relative difference {abs(fvd[1] - fvd[0]) / abs(fvd[0]):.3g})", flush=True)
+
+    # (c) FID, KID, IS (Inception) and ISv (C3D) at small counts
+    opts = metric_utils.MetricOptions(**common)
+    np.random.seed(14)                     # KID's subsets come from the global np.random
+    small = dict(fid=compute_fid(opts, max_real=32, num_gen=32),
+                 kid=compute_kid(opts, max_real=32, num_gen=32, num_subsets=10,
+                                 max_subset_size=32),
+                 is_=compute_is(opts, num_gen=32, num_splits=2),
+                 isv=compute_isv(opts, num_gen=8, num_splits=2))
+    check(all(math.isfinite(v) for v in (small["fid"], small["kid"], *small["is_"],
+                                         *small["isv"])),
+          f"[14 metrics] FID, KID, IS, ISv {small}")
+    check(small["is_"][0] >= 1.0 and small["isv"][0] >= 1.0, f"[14 metrics] IS, ISv {small}")
+    print(f"[14 metrics] (c) FID {small['fid']!r} (32 real frames, 32 generated), KID "
+          f"{small['kid']!r}, IS {small['is_']} (32 frames, 2 splits), ISv {small['isv']} "
+          f"(8 clips of 16 frames, C3D at 112^2)", flush=True)
+
+    # (d) the generator side of fvd2048_128f: 4 clips of 128 frames
+    t0 = time.perf_counter()
+    st = metric_utils.compute_feature_stats_for_generator(
+        opts, "i3d", FVD_KW, capture_mean_cov=True, max_items=4, temporal_detector=True,
+        num_video_frames=128, batch_size=128)
+    mu, sigma = st.get_mean_cov()
+    check(st.num_items == 4 and mu.shape == (1024,) and bool(np.isfinite(sigma).all()),
+          f"[14 metrics] 128-frame stats: {st.num_items} items, mean {mu.shape}")
+    print(f"[14 metrics] (d) fvd2048_128f's generator side: 4 clips of 128 frames in "
+          f"{time.perf_counter() - t0:.2f} s, features finite, |mean| {np.abs(mu).max():.4g}",
+          flush=True)
+
+    # (e) generator-side FVD extraction, timed: synthesis and detector by CUDA events
+    spans = {"synthesis": [], "detector": []}
+
+    def open_span(kind):
+        spans[kind].append([torch.cuda.Event(enable_timing=True),
+                            torch.cuda.Event(enable_timing=True)])
+        spans[kind][-1][0].record()
+
+    def timed_i3d(**kw):
+        features = det.i3d_features_fn(i3d, **kw)
+
+        def timed(x):
+            open_span("detector")
+            out = features(x)
+            spans["detector"][-1][1].record()
+            return out
+        timed.on_device = True
+        return timed
+
+    metric_utils.register_detector("i3d", timed_i3d, cache_tag="chip-smoke-random-i3d-s14")
+    hooks = [G_ema.register_forward_pre_hook(lambda *_: open_span("synthesis")),
+             G_ema.register_forward_hook(lambda *_: spans["synthesis"][-1][1].record())]
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        st = metric_utils.compute_feature_stats_for_generator(
+            opts, "i3d", FVD_KW, capture_mean_cov=True, max_items=FVD_TIMED_CLIPS,
+            temporal_detector=True, num_video_frames=16, batch_size=128)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for h in hooks:
+            h.remove()
+        metric_utils.register_detector("i3d", lambda **kw: det.i3d_features_fn(i3d, **kw),
+                                       cache_tag="chip-smoke-random-i3d-s14")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = {k: sum(a.elapsed_time(b) for a, b in v) for k, v in spans.items()}
+    check(st.num_items == FVD_TIMED_CLIPS and bool(np.isfinite(st.get_mean_cov()[1]).all()),
+          f"[14 metrics] timed extraction: {st.num_items} clips")
+    launches = tuple(k.launches for k in kernels)
+    flops = conv_flops(i3d, (1, 3, 16, 224, 224)) * FVD_TIMED_CLIPS
+    print(f"[14 metrics] (e) generator-side FVD extraction, {FVD_TIMED_CLIPS} clips x 16 frames "
+          f"at 256^2 in {len(spans['synthesis'])} batches of 8 clips: "
+          f"{FVD_TIMED_CLIPS / wall:.2f} clips/s ({wall:.3f} s host clock); synthesis "
+          f"{ms['synthesis']:.1f} ms ({FVD_TIMED_CLIPS * 16e3 / ms['synthesis']:.1f} frames/s), "
+          f"detector (I3D at 224^2 and the features to the host) {ms['detector']:.1f} ms (CUDA "
+          f"events; its convolutions {flops / 1e12:.2f} TFLOP, {flops / ms['detector'] / 1e9:.1f} "
+          f"TFLOP/s, {flops / ms['detector'] / 1e9 / (F32_FLOPS_PER_S / 1e12):.2f} of the "
+          f"float32 peak), the rest {wall * 1e3 - sum(ms.values()):.1f} ms; peak {peak:.2f} GiB; "
+          f"on {smi}", flush=True)
+
+    # (g) the metric path launches none of the port's kernels
+    check(launches == (0, 0, 0, 0), f"[14 metrics] K1, K1-bwd, K4, K4-bwd launched {launches} "
+                                     "times on the metric path, expected none")
+    print(f"[14 metrics] (g) K1, K1-bwd, K4, K4-bwd launches during (b)-(e): {launches}",
+          flush=True)
+
+    # (f) the loop through the entry point, scoring fvd2048_16f at each of two snapshots
+    run = os.path.join(tmp, "run_metrics")
+    args = [f"dataset.path={zip_path}", "training.batch_size=16", "training.kimg=1",
+            "training.kimg_per_tick=0.5", "training.snap=1", "training.metrics=[fvd2048_16f]",
+            f"training.metric_kwargs.max_real_override={real}",
+            f"training.metric_kwargs.num_gen_override={gen}",
+            f"training.metric_kwargs.cache_dir={cache}", f"project_release_dir={run}"]
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        entry.main(args)
+    t_loop = time.perf_counter() - t0
+    logged = [line for line in out.getvalue().splitlines() if "fvd2048_16f" in line
+              or "metric evaluation failed" in line]
+    path = os.path.join(run, "metric-fvd2048_16f.jsonl")
+    rows = [json.loads(line) for line in open(path)] if os.path.exists(path) else []
+    snaps = [r.get("snapshot") for r in rows]
+    check(snaps == ["network-snapshot-000000", "network-snapshot-000001"]
+          and all(math.isfinite(r["results"]["fvd2048_16f"]) for r in rows)
+          and all(os.path.exists(os.path.join(run, f"{n}.pt")) for n in snaps),
+          f"[14 metrics] the loop's metric rows {rows}; its log: {logged}")
+    print(f"[14 metrics] (f) `python -m stylegan_v_tpu_torch.train ... training.metrics="
+          f"[fvd2048_16f]` (overrides {real} / {gen}), 21 steps, snapshots at "
+          f"{[r['snapshot_nimg'] for r in rows]} frames: rows "
+          f"{[(r['snapshot'], r['results']['fvd2048_16f']) for r in rows]} in {t_loop:.1f} s",
+          flush=True)
+    print(f"[14 metrics] phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def kernel_records(k1, k1_bwd, k4, k4_bwd, launches):
@@ -1123,7 +1380,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     with float32_precision(False):
         phase_aug_parity(dev)
-    phase_loop(dev, smi, prestaged)                 # the loop's own TF32 default
+    detectors = random_detectors()
+    with tempfile.TemporaryDirectory() as tmp:
+        zip_path, G_ema = phase_loop(dev, smi, prestaged, tmp)   # the loop's own TF32 default
+        with float32_precision(False):
+            phase_metrics(dev, smi, G_ema, zip_path, tmp, detectors)
     records = kernel_records(k1, k1_bwd, k4, k4_bwd, launches)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

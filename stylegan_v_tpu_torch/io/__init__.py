@@ -1,7 +1,10 @@
 from .bridge import (  # noqa: F401
     jax_to_torch_adam,
+    jax_to_torch_c3d,
     jax_to_torch_discriminator,
     jax_to_torch_generator,
+    jax_to_torch_i3d,
+    jax_to_torch_inception,
     jax_to_torch_train_state,
 )
 from .checkpoint import (  # noqa: F401

@@ -1,6 +1,8 @@
 """Weight bridge: the JAX package's flax variable trees -> the port's state_dicts,
 and its training state -> the port's (`jax_to_torch_train_state`), Adam's
-moments included (`jax_to_torch_adam`).
+moments included (`jax_to_torch_adam`); the metric detectors' variables ->
+the port's detector modules (`jax_to_torch_i3d`, `jax_to_torch_inception`,
+`jax_to_torch_c3d`, the inverses of the JAX package's `convert_*_state_dict`).
 
 The inverse of stylegan_v_tpu/io/legacy.py:convert_generator_state and
 convert_discriminator_state. Input is the flax variable tree as nested dicts
@@ -131,3 +133,64 @@ def jax_to_torch_train_state(state, G: Optional[torch.nn.Module] = None,
     if D is not None:
         pieces["opt_D"] = jax_to_torch_adam(state.opt_D, D, jax_to_torch_discriminator)
     return pieces
+
+
+# ------------------------------------------------------------------ detectors
+
+_UNIT_NAMES = {"bn_w": "bn.weight", "bn_b": "bn.bias", "bn_mean": "bn.running_mean",
+               "bn_var": "bn.running_var"}
+
+
+def _detector_units(variables: Mapping[str, Any], conv: str, conv_layout: Tuple[int, ...]
+                    ) -> Dict[str, np.ndarray]:
+    """The conv + batch-norm units of a flax detector, `params` and
+    `batch_stats`, under the port's names: <path>.<conv>.weight/bias and
+    <path>.bn.weight/bias/running_mean/running_var."""
+    out = {}
+    names = dict(_UNIT_NAMES, conv_w=f"{conv}.weight", conv_b=f"{conv}.bias")
+    for col in ("params", "batch_stats"):
+        for path, arr in _leaves(variables.get(col, {})):
+            if path[-1] not in names:
+                continue
+            if path[-1] == "conv_w":
+                arr = arr.transpose(conv_layout)
+            out[".".join(path[:-1] + (names[path[-1]],))] = arr
+    return out
+
+
+def jax_to_torch_i3d(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax InceptionI3d variables {'params', 'batch_stats'} -> InceptionI3d
+    state_dict (pytorch_i3d names; conv DHWIO -> OIDHW)."""
+    return _state_dict(_detector_units(variables, "conv3d", (4, 3, 0, 1, 2)))
+
+
+def jax_to_torch_inception(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax InceptionV3 variables {'params', 'batch_stats'} -> InceptionV3
+    state_dict (conv HWIO -> OIHW; the head fc_w [2048, K] -> output.weight)."""
+    out = _detector_units(variables, "conv", (3, 2, 0, 1))
+    params = variables["params"]
+    if "fc_w" in params:
+        out["output.weight"] = np.asarray(params["fc_w"], np.float32).T
+        out["output.bias"] = np.asarray(params["fc_b"], np.float32)
+    return _state_dict(out)
+
+
+def jax_to_torch_c3d(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax C3D variables {'params', 'preprocess'?} -> C3D state_dict: conv
+    kernels [kt, kh, kw, I, O] -> [O, I, kt, kh, kw], dense [in, out] ->
+    [out, in], and the mean cube [16, 112, 112, 3] -> the `mean` buffer
+    [3, 16, 112, 112] (the per-channel fallback where there is none)."""
+    from ..metrics.detectors.c3d import UCF101_MEAN_RGB
+    out = {}
+    for path, arr in _leaves(variables["params"]):
+        layer, leaf = path[-2], path[-1]
+        if leaf == "kernel":
+            arr = arr.transpose(4, 3, 0, 1, 2) if arr.ndim == 5 else arr.T
+        out[f"{layer}.{'weight' if leaf == 'kernel' else 'bias'}"] = arr
+    pre = variables.get("preprocess")
+    if pre is not None:
+        out["mean"] = np.asarray(pre["mean_cube"], np.float32).transpose(3, 0, 1, 2)
+    else:
+        out["mean"] = np.broadcast_to(np.asarray(UCF101_MEAN_RGB, np.float32)[:, None, None, None],
+                                      (3, 16, 112, 112))
+    return _state_dict(out)

@@ -1,7 +1,7 @@
 """Training entry point of the port.
 
     python -m stylegan_v_tpu_torch.train dataset=ffs dataset.path=/data/ffs_256.zip \\
-        training.batch_size=16 training.metrics=[] exp_suffix=myrun
+        training.batch_size=16 exp_suffix=myrun
 
     python -m stylegan_v_tpu_torch.train --cfg-path runs/exp/experiment_config.yaml
 
@@ -10,9 +10,12 @@ configs/ groups with dotted overrides (or reads a frozen config), freezes the
 resolved config to <run_dir>/experiment_config.yaml (what makes
 resume=latest work), probes the dataset's resolution and labels, resolves
 the setup and runs the training loop on `--device` (default cuda; there is
-no fallback to the CPU: pass --device cpu for a CPU run). In-training
-metrics are not ported yet, and configs/training/base.yaml lists four, so
-pass training.metrics=[].
+no fallback to the CPU: pass --device cpu for a CPU run). After each
+snapshot the loop scores `training.metrics` (configs/training/base.yaml lists
+four FVD and FID metrics) with the detectors found in $SGV_DETECTOR_DIR or
+./detectors; `training.metric_kwargs.<key>=<value>` passes keyword arguments
+to calc_metric (max_real_override, num_gen_override, cache_dir, ...), and
+training.metrics=[] turns them off.
 """
 from __future__ import annotations
 

@@ -76,7 +76,8 @@ class TrainSetup:
     video_discr_num_t_paddings: int = 0
     allow_tf32: bool = False                 # TF32 in the step's float32 convs and matmuls
     # extra kwargs forwarded to metric_main.calc_metric for in-training
-    # metrics (e.g. max_real_override/num_gen_override for demo-scale FVD)
+    # metrics (e.g. max_real_override/num_gen_override for demo-scale FVD);
+    # the port also reads them from training.metric_kwargs
     metric_kwargs: Optional[Dict[str, Any]] = None
 
 
@@ -276,4 +277,5 @@ def setup_training(cfg: EasyDict, dataset_resolution: int, dataset_c_dim: int,
         video_discr_lr_multiplier=float(disc.get("video_discr_lr_multiplier", 0.1)),
         video_discr_num_t_paddings=int(disc.get("video_discr_num_t_paddings", 0)),
         allow_tf32=bool(t.get("allow_tf32", False)),
+        metric_kwargs=(dict(t["metric_kwargs"]) if t.get("metric_kwargs") else None),
     )

@@ -17,6 +17,11 @@ seed; each step draws from a torch.Generator on the device seeded from
 unbroken one would. The loop reads no device value on the host per step:
 cur_nimg is a host mirror, and augment_p is read once a tick.
 
+After each snapshot the loop scores G_ema with `setup.metrics` (calc_metric
+with `setup.metric_kwargs`, on the loop's device) and appends one
+metric-<name>.jsonl row per metric; a metric that fails is logged with its
+traceback and training goes on, as in the JAX loop.
+
 Options the port does not have yet raise NotImplementedError before the
 first step, naming their ROADMAP item (`check_ported`).
 """
@@ -33,6 +38,7 @@ import torch
 from ..data import DeviceLoader, TrainingDataLoader, VideoFramesFolderDataset
 from ..io.checkpoint import (find_latest_snapshot, load_snapshot, restore_train_state,
                              save_snapshot)
+from ..metrics import metric_main
 from ..models import Discriminator, Generator
 from ..models.motion import MotionMappingNetwork
 from ..train_setup import TrainSetup
@@ -58,10 +64,9 @@ def resolve_device(device=None) -> torch.device:
 
 def check_ported(setup: TrainSetup) -> None:
     """Raise NotImplementedError for an option the port does not have yet."""
-    if setup.metrics:
-        raise NotImplementedError(
-            f"in-training metrics {list(setup.metrics)} are not ported yet (ROADMAP P7); "
-            "pass training.metrics=[]")
+    if setup.metrics and (setup.metric_kwargs or {}).get("num_replicas", 1) != 1:
+        raise NotImplementedError("in-training metrics over more than one replica are not "
+                                  "ported yet (ROADMAP P8)")
     if setup.disc_source == "mocogan":
         raise NotImplementedError("the MoCoGAN discriminator is not ported yet (ROADMAP P9)")
     if setup.resume and str(setup.resume).endswith(".pkl"):
@@ -288,6 +293,8 @@ def _train(setup: TrainSetup, device: torch.device, abort_fn, progress_fn, log,
                 save_panels(setup, state.G_ema, vis_z, vis_c, vis_ts, cur_nimg)
                 save_snapshot(run_dir, state, cur_nimg,
                               configs={"G": setup.gen_cfg, "D": setup.disc_cfg})
+                if setup.metrics:
+                    run_metrics(setup, state.G_ema, device, cur_nimg, log)
 
             if progress_fn is not None:
                 progress_fn(cur_nimg // 1000, setup.total_kimg)
@@ -301,6 +308,24 @@ def _train(setup: TrainSetup, device: torch.device, abort_fn, progress_fn, log,
         jsonl.close()
     return dict(cur_nimg=cur_nimg, ticks=cur_tick, seconds=time.time() - start_time,
                 start_step=base_step, start_nimg=base_nimg, state=state)
+
+
+def run_metrics(setup: TrainSetup, G_ema, device: torch.device, cur_nimg: int, log) -> None:
+    """setup.metrics on G_ema, one metric-<name>.jsonl row each (reference
+    training_loop.py:503-518). Metrics are best-effort, as in the JAX loop: a
+    failure is logged with its traceback and training goes on."""
+    kwargs = dict(setup.metric_kwargs or {})
+    kwargs.setdefault("device", device)
+    try:
+        for metric in setup.metrics:
+            r = metric_main.calc_metric(metric=metric, G=G_ema,
+                                        dataset_kwargs=setup.dataset_kwargs, **kwargs)
+            metric_main.report_metric(r, run_dir=setup.run_dir, snapshot_nimg=cur_nimg)
+            log(f"  {metric}: {r['results']}")
+    except Exception as e:                     # metrics are best-effort
+        import traceback
+        log(f"  metric evaluation failed: {e!r}")
+        log(traceback.format_exc(limit=3))
 
 
 def save_panels(setup: TrainSetup, G_ema, vis_z, vis_c, vis_ts, cur_nimg: int) -> None:

@@ -136,8 +136,18 @@ def test_port_never_imports_jax():
         " 'stylegan_v_tpu_torch.utils.summary', 'stylegan_v_tpu_torch.utils.training_stats',"
         " 'stylegan_v_tpu_torch.training.video_io', 'stylegan_v_tpu_torch.training.loop',"
         " 'stylegan_v_tpu_torch.io.checkpoint', 'stylegan_v_tpu_torch.train_setup',"
-        " 'stylegan_v_tpu_torch.train'}\n"
-        "assert new <= set(names) and len(names) >= 15, names\n"
+        " 'stylegan_v_tpu_torch.train', 'stylegan_v_tpu_torch.metrics.metric_main',"
+        " 'stylegan_v_tpu_torch.metrics.metric_utils',"
+        " 'stylegan_v_tpu_torch.metrics.frechet_inception_distance',"
+        " 'stylegan_v_tpu_torch.metrics.frechet_video_distance',"
+        " 'stylegan_v_tpu_torch.metrics.kernel_inception_distance',"
+        " 'stylegan_v_tpu_torch.metrics.inception_score',"
+        " 'stylegan_v_tpu_torch.metrics.detectors.resize',"
+        " 'stylegan_v_tpu_torch.metrics.detectors.common',"
+        " 'stylegan_v_tpu_torch.metrics.detectors.i3d',"
+        " 'stylegan_v_tpu_torch.metrics.detectors.inception_v3',"
+        " 'stylegan_v_tpu_torch.metrics.detectors.c3d'}\n"
+        "assert new <= set(names) and len(names) >= 26, names\n"
         "assert not bad, bad\n"
         "lazy = [m for m in ('yaml', 'PIL', 'cv2', 'tensorboardX') if m in sys.modules]\n"
         "assert not lazy, lazy\n"

@@ -11,9 +11,10 @@
   * the loop at tests/test_loop_e2e.py:tiny_setup's sizes writes the
     artifacts and stats.jsonl schema that test_loop_artifacts_and_resume
     asserts, ticks and snapshots on the JAX loop's schedule, resumes from
-    `latest` to the bit, repeats itself with one seed, raises before a step
-    for every option it does not have yet, and raises without CUDA unless
-    asked for the CPU.
+    `latest` to the bit, repeats itself with one seed, scores its metrics
+    after each snapshot into rows with the JAX loop's fields (a failed metric
+    is logged and training goes on), raises before a step for every option
+    it does not have yet, and raises without CUDA unless asked for the CPU.
 """
 import dataclasses
 import importlib.util
@@ -28,6 +29,7 @@ import jax
 import torch
 
 from stylegan_v_tpu import train_setup as jsetup
+from stylegan_v_tpu.metrics import metric_main as jmm
 from stylegan_v_tpu.io import checkpoint as jckpt
 from stylegan_v_tpu.models import Discriminator as JDiscriminator
 from stylegan_v_tpu.models import Generator as JGenerator
@@ -39,6 +41,7 @@ from stylegan_v_tpu_torch import train as ttrain
 from stylegan_v_tpu_torch import train_setup as tsetup
 from stylegan_v_tpu_torch.io import checkpoint as tckpt
 from stylegan_v_tpu_torch.io.bridge import jax_to_torch_generator, jax_to_torch_train_state
+from stylegan_v_tpu_torch.metrics import metric_utils as tmu
 from stylegan_v_tpu_torch.models import Discriminator, Generator
 from stylegan_v_tpu_torch.models.config import SamplingConfig
 from stylegan_v_tpu_torch.models.motion import MotionMappingNetwork
@@ -447,9 +450,52 @@ def test_step_seed_depends_on_seed_and_step_only():
     assert len(seeds) == 300 and all(0 <= s < 2 ** 63 for s in seeds)
 
 
+def test_loop_scores_its_metrics_after_each_snapshot(first_run, tmp_path, monkeypatch):
+    """training.metrics=[fvd2048_16f] with a small detector registered as 'i3d'
+    and the item overrides of training.metric_kwargs: one
+    metric-fvd2048_16f.jsonl row per snapshot, with the fields of the JAX
+    loop's rows (its metric_main.report_metric)."""
+    _, ds, _, _ = first_run
+    monkeypatch.setitem(tmu._custom_detectors, "i3d",
+                        lambda **_: tmu._stub_detector("i3d"))
+    run = tmp_path / "run"
+    setup = tiny_setup(ds, str(run), metrics=["fvd2048_16f"],
+                       metric_kwargs=dict(max_real_override=4, num_gen_override=3,
+                                          cache_dir=str(tmp_path / "cache")))
+    tloop.training_loop(setup, device=torch.device("cpu"), log=lambda *_: None)
+    rows = [json.loads(line) for line in open(run / "metric-fvd2048_16f.jsonl")]
+    _, snaps = expected_schedule(0, 0.05, 0.02, 2)
+    assert [r["snapshot_nimg"] for r in rows] == snaps
+    assert all(np.isfinite(r["results"]["fvd2048_16f"]) for r in rows)
+    jmm.report_metric(dict(metric="fvd2048_16f", results={"fvd2048_16f": 1.0},
+                           total_time=1.0, num_runs=1),
+                      run_dir=str(tmp_path / "jax"), snapshot_nimg=snaps[0])
+    want = json.loads(open(tmp_path / "jax" / "metric-fvd2048_16f.jsonl").read())
+    assert [set(r) for r in rows] == [set(want)] * len(snaps)
+    assert [r["snapshot"] for r in rows] == [want["snapshot"]] * len(snaps)
+    assert len(os.listdir(tmp_path / "cache")) == 1        # the real stats, once
+
+
+def test_a_failed_metric_is_logged_and_training_goes_on(first_run, tmp_path, monkeypatch):
+    _, ds, _, _ = first_run
+
+    def broken(**_):
+        raise OSError("detector file unreadable")
+
+    monkeypatch.setitem(tmu._custom_detectors, "i3d", broken)
+    lines = []
+    setup = tiny_setup(ds, str(tmp_path / "run"), metrics=["fvd2048_16f"],
+                       metric_kwargs=dict(cache=False))
+    tloop.run_metrics(setup, small_state()[0].G_ema, torch.device("cpu"), 48, lines.append)
+    assert "metric evaluation failed: OSError('detector file unreadable')" in lines[0]
+    assert "Traceback" in lines[1]
+    assert not os.path.exists(tmp_path / "run" / "metric-fvd2048_16f.jsonl")
+
+
 @pytest.mark.parametrize("option", ["metrics", "mocogan", "pkl", "chips", "zero1"])
 def test_unported_options_raise_before_a_step(tmp_path, option):
-    kw = {"metrics": dict(metrics=["fvd2048_16f"]), "mocogan": dict(disc_source="mocogan"),
+    kw = {"metrics": dict(metrics=["fvd2048_16f"], metric_kwargs=dict(num_replicas=2)),
+          "mocogan": dict(disc_source="mocogan"),
           "pkl": dict(resume="network-snapshot.pkl"), "chips": dict(num_chips=2),
           "zero1": dict(train_cfg=tts.TrainingConfig(batch_size=4, zero1=True))}[option]
     run = str(tmp_path / "run")
