@@ -93,6 +93,24 @@ holds them against the port's plain PyTorch paths:
               training.metrics=[fvd2048_16f] and the same overrides for 21
               steps: two snapshots, two finite metric-fvd2048_16f.jsonl rows
               named after them.
+ 15. ranks:   two ranks sharing the card over gloo (nccl refuses two ranks
+              on one device), spawned: (a) phase 11's FFS-256 ADA step at
+              16 x 3 global, 8 videos a rank, four steps (R1 first and
+              last), with deterministic kernels; step 1's all-reduced Gmain
+              and Dmain gradients against the one-process step on the same
+              global batch and draws, every loss, stat and parameter finite,
+              augment_p equal on both ranks, check_replica_consistency
+              passing; (b) each rank's K1, K1-bwd, K4, K4-bwd launches per
+              step against phase 11's; (c) ZeRO-1 on the first two steps,
+              equal to (a)'s state after them to the bit, and the optimizer
+              bytes per rank; (d) the
+              loop through the entry point's spawn path (`num_gpus=2
+              --device cuda:0 --dist-backend gloo`) from phase 13's zip: 21
+              steps and a snapshot, then resume=latest, a snapshot and
+              fvd2048_16f over two replicas; (e) nccl at world size 1
+              through the entry point under torchrun's environment; (f)
+              ms/step of the two ranks (they share one card: not a scaling
+              number), the all-reduce's ms and peak memory per rank.
 
 Any failed check exits non-zero. The last two lines are the kernel record
 (each kernel's launches in phase 11, worst error, time, plain and library
@@ -1315,6 +1333,420 @@ def phase_metrics(dev, smi, G_ema, zip_path, tmp, models):
     print(f"[14 metrics] phase 14 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
+PAR_RANKS = 2                  # phase 15: two ranks on cuda:0 over gloo
+# Step 1's gradients, two ranks against one process: with deterministic
+# kernels the one-process step repeats itself, but with G's and D's weights
+# scaled by (1 + 1e-7 N(0, 1)) its gradients move by a few percent of their L2
+# norm (bf16 layers and leaky-ReLU kinks), and the two ranks' by as much. So
+# the two ranks' gradients must lie within PAR_FLOOR_FACTOR times that floor,
+# measured in the same run; a wrong row, draw or reduction moves them by
+# their whole norm.
+PAR_FLOOR_FACTOR = 3.0
+
+
+def _par_step(dev, world, zero1=False):
+    """Phase 11's FFS-256 ADA step (bgc, warp_upsample=2, augment_p 0.5, TF32
+    off) on fresh seeded weights, as one rank of `world`."""
+    from stylegan_v_tpu_torch.training import (AUGPIPE_SPECS, AugmentConfig, LossConfig,
+                                               OptimizerConfig, TrainingConfig,
+                                               init_train_state, make_augment_pipe,
+                                               make_train_step)
+    G, D = ffs256_models(dev)
+    B, F, res = TRAIN_SHAPE
+    tcfg = TrainingConfig(batch_size=B, ada_target=0.6, zero1=zero1)
+    lcfg = LossConfig(r1_gamma=0.0002 * res ** 2 / B, pl_weight=0.0, video_consistent_aug=True)
+    opt = OptimizerConfig(0.0025)
+    aug = make_augment_pipe(AugmentConfig(**AUGPIPE_SPECS["bgc"], warp_upsample=2))
+    state = init_train_state(G, D, opt, opt, tcfg, augment_p=ADA_P, world=world)
+    return state, make_train_step(G, D, lcfg, tcfg, augment_fn=aug, world=world)
+
+
+def _par_batch(dev):
+    """Phase 11's global batch of 16 videos x 3 frames at 256^2, seeded."""
+    import torch
+    B, F, res = TRAIN_SHAPE
+    g = torch.Generator(device=dev).manual_seed(4)
+    t = torch.randint(0, 128, (B, F), generator=g, device=dev).float().sort(dim=1).values
+    t = t + torch.arange(F, device=dev) * 0.1
+    return {"real_img": torch.randint(0, 255, (B, F, 3, res, res), generator=g, device=dev,
+                                      dtype=torch.uint8),
+            "real_c": torch.zeros(B, 0, device=dev), "real_t": t,
+            "gen_c": torch.zeros(B, 3, 0, device=dev),
+            "gen_t": torch.stack([t, t + 1, t + 2], dim=1)}
+
+
+PAR_PLAN = (True, False, False, True)    # R1 first; steps 3 and 4 timed warm
+PAR_SEEDS = (11, 12, 13, 14)             # each step's draws: a generator seeded alike everywhere
+
+
+def grad_errors(got, want):
+    """Per network: the largest absolute difference, the reference's largest
+    magnitude (its scale) and the difference's L2 norm over the reference's."""
+    import torch
+    out = {}
+    for name in ("G", "D"):
+        diff = torch.cat([(a - b).reshape(-1) for a, b in zip(got[name], want[name])])
+        ref = torch.cat([b.reshape(-1) for b in want[name]])
+        out[name] = (float(diff.abs().max()), float(ref.abs().max()),
+                     float(diff.norm() / ref.norm()))
+    return out
+
+
+class deterministic:
+    """cuDNN's deterministic algorithms and PyTorch's deterministic kernels
+    (warn only where an op has none), restored on exit."""
+
+    def __enter__(self):
+        import torch
+        self.saved = (torch.backends.cudnn.deterministic,
+                      torch.are_deterministic_algorithms_enabled(),
+                      torch.is_deterministic_algorithms_warn_only_enabled())
+        torch.backends.cudnn.deterministic = True
+        torch.use_deterministic_algorithms(True, warn_only=True)
+
+    def __exit__(self, *exc):
+        import torch
+        torch.backends.cudnn.deterministic = self.saved[0]
+        torch.use_deterministic_algorithms(self.saved[1], warn_only=self.saved[2])
+
+
+def _capture_grads(state):
+    """Records each network's gradients at its optimizer's first step: Gmain's
+    and Dmain's (the step's first G and D updates)."""
+    grads = {}
+    for name, opt, module in (("G", state.opt_G, state.G), ("D", state.opt_D, state.D)):
+        def first(*a, _opt_step=opt.step, _name=name, _module=module, **k):
+            if _name not in grads:
+                grads[_name] = [p.grad.detach().float().cpu().clone()
+                                for p in _module.parameters()]
+            return _opt_step(*a, **k)
+        opt.step = first
+    return grads
+
+
+def _par_reference_step(dev, perturb: bool = False):
+    """Step 1 in one process on the global batch (deterministic kernels):
+    Gmain's and Dmain's gradients and the stats; with `perturb`, from G's and
+    D's weights scaled by (1 + 1e-7 N(0, 1))."""
+    import torch
+    state, step = _par_step(dev, None)
+    if perturb:
+        g = torch.Generator(device=dev).manual_seed(99)
+        with torch.no_grad():
+            for p in list(state.G.parameters()) + list(state.D.parameters()):
+                p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=g, device=dev))
+    grads = _capture_grads(state)
+    with deterministic():
+        _, stats = step(state, _par_batch(dev),
+                        generator=torch.Generator(device=dev).manual_seed(PAR_SEEDS[0]),
+                        do_dr1=PAR_PLAN[0])
+    return grads, {k: float(v) for k, v in stats.items()}
+
+
+def par_reference(dev, tmp):
+    """Phase 15 (a)'s yardstick: the one-process step on the global batch,
+    step 1's Gmain and Dmain gradients and stats, saved for the ranks, and
+    the noise floor of those gradients (module constant PAR_FLOOR_FACTOR)."""
+    import os
+    import torch
+    grads, stats = _par_reference_step(dev)
+    floor = grad_errors(_par_reference_step(dev, perturb=True)[0], grads)
+    torch.save({"G": grads["G"], "D": grads["D"], "stats": stats},
+               os.path.join(tmp, "par_reference.pt"))
+    return floor, stats
+
+
+def par_rank(rank, world_size, init_method, tmp, device):
+    """Phase 15 (a)-(c) on one rank (spawned): the two-rank step against the
+    one-process gradients, launches per step, timings, the consistency
+    check, then ZeRO-1 on the same steps. Writes its findings as JSON."""
+    import json as _json
+    import os
+    import torch
+    import torch.distributed as dist
+    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
+                                          downfirdn2d_x2_bwd)
+    from stylegan_v_tpu_torch.parallel import distributed as tdist
+    from stylegan_v_tpu_torch.parallel.zero import opt_state_bytes_per_device
+    from stylegan_v_tpu_torch.utils.summary import (check_replica_consistency,
+                                                    train_state_tree, tree_content_hash)
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")   # cuBLAS repeats too
+    dev = torch.device(device)
+    world = tdist.init_distributed("gloo", rank, world_size, init_method, dev, timeout_s=300)
+    # deterministic kernels: ZeRO-1's run repeats (a)'s to the bit
+    det = deterministic()
+    det.__enter__()
+    try:
+        kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+        batch = _par_batch(dev)
+        B = TRAIN_SHAPE[0]
+        plan = None
+        out = {"rank": rank}
+        digests = {}
+        for zero1 in (False, True):
+            state, step = _par_step(dev, world, zero1)
+            step1_stats = None
+            if plan is None:
+                plan = tdist.row_plan(B, 1, tdist.mbstd_group(state.D, B), world.size, world.rank)
+                local = {k: v[torch.as_tensor(plan.batch, device=dev)]
+                         for k, v in batch.items()}
+            grads = _capture_grads(state)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            launches, ms = [], []
+            # ZeRO-1 runs the first two steps, and is held to (a)'s state after them
+            for i, (do_dr1, seed) in enumerate(zip(PAR_PLAN[:2] if zero1 else PAR_PLAN,
+                                                   PAR_SEEDS)):
+                for k in kernels:
+                    k.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, stats = step(state, local, do_dr1=do_dr1,
+                                    generator=torch.Generator(device=dev).manual_seed(seed))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                launches.append([k.launches for k in kernels])
+                step1_stats = step1_stats or {k: float(v) for k, v in stats.items()}
+                bad = [k for k, v in stats.items() if not bool(torch.isfinite(v).all())]
+                check(not bad, f"[15 ranks] rank {rank}: non-finite stats {bad}")
+                if i == 1:
+                    digests[zero1] = tree_content_hash({"G": state.G.state_dict(),
+                                                        "D": state.D.state_dict(),
+                                                        "G_ema": state.G_ema.state_dict()})
+            tag = "zero1" if zero1 else "plain"
+            bad = [n for m in (state.G, state.D, state.G_ema)
+                   for n, p in m.named_parameters() if not bool(torch.isfinite(p).all())]
+            check(not bad, f"[15 ranks] rank {rank} ({tag}): non-finite parameters {bad[:5]}")
+            check_replica_consistency(train_state_tree(state), world)
+            p_all = [None] * world.size
+            dist.all_gather_object(p_all, float(state.augment_p))
+            out[tag] = {"ms": ms, "launches": launches, "augment_p": p_all,
+                        "step1_stats": step1_stats,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "opt_bytes": opt_state_bytes_per_device(state),
+                        "losses": {k: float(v) for k, v in stats.items()}}
+            if not zero1:
+                out["grad_err"] = grad_errors(
+                    grads, torch.load(os.path.join(tmp, "par_reference.pt")))
+                # the all-reduce of a step: each phase's flat gradient buffer
+                flat = {n: [p.detach().clone() for p in m.parameters()]
+                        for n, m in (("G", state.G), ("D", state.D))}
+                ar = {}
+                for n, ts in flat.items():
+                    tdist.all_reduce_mean_(ts, world)        # warm
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(3):
+                        tdist.all_reduce_mean_(ts, world)
+                    torch.cuda.synchronize()
+                    ar[n] = (time.perf_counter() - t0) / 3 * 1e3
+                out["allreduce_ms"] = ar
+                out["allreduce_bytes"] = {n: 4 * sum(t.numel() for t in ts)
+                                          for n, ts in flat.items()}
+            del state, step, grads
+            torch.cuda.empty_cache()
+        out["zero1_equal"] = digests[False] == digests[True]
+        with open(os.path.join(tmp, f"par_rank{rank}.json"), "w") as f:
+            _json.dump(out, f)
+    finally:
+        det.__exit__()
+        tdist.destroy_distributed()
+
+
+def phase_parallel(dev, smi, zip_path, tmp):
+    """Phase 15 (below) and its time."""
+    t_phase = time.perf_counter()
+    par_steps(dev, smi, tmp)
+    par_loop(dev, zip_path, tmp)
+    par_nccl(dev, zip_path, tmp)
+    print(f"[15 ranks] phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+def par_steps(dev, smi, tmp):
+    """Phase 15 (a)-(c) and their part of (f): two ranks sharing the card over
+    gloo (nccl refuses two ranks on one device): (a) the FFS-256 ADA step at
+    16 x 3 global, 8 videos a rank, four steps (R1 first and last) with
+    deterministic kernels; step 1's all-reduced Gmain and Dmain gradients
+    against the one-process step's within PAR_FLOOR_FACTOR times their noise
+    floor, everything finite, augment_p equal on both ranks, the ranks'
+    state consistent; (b) each rank's K1 / K1-bwd / K4 / K4-bwd launches per
+    step against phase 11's; (c) ZeRO-1 on the first two steps, equal to
+    (a)'s state after them to the bit; (f) the two-rank times (the ranks share one card: not a scaling
+    number), the all-reduce's ms, peak memory per rank."""
+    import json as _json
+    import os
+    import torch
+    from stylegan_v_tpu_torch.parallel import distributed as tdist
+
+    floor, ref_stats = par_reference(dev, tmp)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tdist.launch(par_rank, PAR_RANKS, args=(tmp, str(dev)))
+    t_ranks = time.perf_counter() - t0
+    ranks = [_json.load(open(os.path.join(tmp, f"par_rank{r}.json"))) for r in range(PAR_RANKS)]
+    for r in ranks:
+        for name, (err, scale, l2) in r["grad_err"].items():
+            check(l2 <= PAR_FLOOR_FACTOR * floor[name][2],
+                  f"[15 ranks] rank {r['rank']}: step 1's {name} gradient differs from the "
+                  f"one-process step by {l2:.3g} of its L2 norm > {PAR_FLOOR_FACTOR} x the "
+                  f"floor {floor[name][2]:.3g} (largest element {err:.3g}, scale {scale:.3g})")
+        for tag in ("plain", "zero1"):
+            p = r[tag]["augment_p"]
+            check(len(set(p)) == 1, f"[15 ranks] augment_p differs across ranks: {p}")
+            for do_dr1, got in zip(PAR_PLAN, r[tag]["launches"]):
+                check(tuple(got) == ADA_LAUNCHES_PER_STEP[do_dr1],
+                      f"[15 ranks] rank {r['rank']} ({tag}) launched K1, K1-bwd, K4, K4-bwd "
+                      f"{got} in a step with R1={do_dr1}, expected "
+                      f"{ADA_LAUNCHES_PER_STEP[do_dr1]}")
+        check(r["zero1_equal"], f"[15 ranks] rank {r['rank']}: ZeRO-1's parameters differ "
+                                "from plain Adam's")
+    r0 = ranks[0]
+    print(f"[15 ranks] (a) two ranks on {dev} over gloo, FFS-256 ADA step 16x3 global (8 "
+          f"videos a rank): step 1's Gmain / Dmain gradients against the one-process step: "
+          + ", ".join(f"rank {r['rank']} " + ", ".join(
+              f"{n} {l2:.3g} of its L2 norm, largest element {e:.3g} (scale {s:.3g})"
+              for n, (e, s, l2) in r["grad_err"].items()) for r in ranks)
+          + "; the floor (one process, weights x (1 + 1e-7 N)): " + ", ".join(
+              f"{n} {l2:.3g} of its L2 norm, largest element {e:.3g}"
+              for n, (e, s, l2) in floor.items())
+          + f" (bound {PAR_FLOOR_FACTOR} x the floor); step 1's stats, largest difference "
+          f"from the one-process step's: "
+          + ", ".join(f"{k} {abs(v - ref_stats[k]):.3g}"
+                      for k, v in r0['plain']['step1_stats'].items())
+          + f"; augment_p {r0['plain']['augment_p']}; losses on rank 0 after the steps "
+          f"{r0['plain']['losses']}; consistency check passed", flush=True)
+    print(f"[15 ranks] (b) K1, K1-bwd, K4, K4-bwd launches per step on each rank (R1 "
+          f"{list(PAR_PLAN)}): " + "; ".join(f"rank {r['rank']} {r['plain']['launches']}"
+                                             for r in ranks), flush=True)
+    print(f"[15 ranks] (c) ZeRO-1 after two steps equal to (a) after two to the bit; "
+          f"optimizer state per rank "
+          + ", ".join(f"rank {r['rank']} {r['zero1']['opt_bytes'] / 2**20:.1f} MiB (plain Adam "
+                      f"{r['plain']['opt_bytes'] / 2**20:.1f} MiB)" for r in ranks), flush=True)
+    for r in ranks:
+        ms = r["plain"]["ms"]
+        ar = r["allreduce_ms"]
+        print(f"[15 ranks] (f) rank {r['rank']}: {ms[2]:.1f} ms/step without R1, {ms[3]:.1f} "
+              f"with R1 (first steps {ms[0]:.1f}, {ms[1]:.1f}; ZeRO-1's two steps "
+              f"{r['zero1']['ms'][0]:.1f}, {r['zero1']['ms'][1]:.1f}); two ranks share one "
+              f"card, so this is not a "
+              f"scaling number; all-reduce of the flat gradients {ar['G']:.2f} ms for G "
+              f"({r['allreduce_bytes']['G'] / 2**20:.1f} MiB), {ar['D']:.2f} ms for D "
+              f"({r['allreduce_bytes']['D'] / 2**20:.1f} MiB): "
+              f"{ar['G'] + ar['D']:.2f} ms a step without R1, {ar['G'] + 2 * ar['D']:.2f} "
+              f"with; peak {r['plain']['peak_gib']:.2f} GiB (ZeRO-1 "
+              f"{r['zero1']['peak_gib']:.2f}); on {smi}", flush=True)
+    print(f"[15 ranks] (a)-(c) took {t_ranks:.1f} s with the spawn", flush=True)
+
+
+def par_loop(dev, zip_path, tmp):
+    """Phase 15 (d): the loop through the entry point's spawn path, two ranks
+    on `dev` over gloo, from phase 13's zip: 21 steps and a snapshot, then a
+    resumed step, a snapshot and fvd2048_16f over two replicas (the stub
+    detector: the ranks are fresh processes), only rank 0 writing."""
+    import contextlib
+    import io
+    import json as _json
+    import math
+    import os
+    from stylegan_v_tpu_torch import train as entry
+
+    run = os.path.join(tmp, "run_ranks")
+    cache = os.path.join(tmp, "cache_ranks")
+    real, gen = METRIC_ITEMS
+    base = [f"dataset.path={zip_path}", "num_gpus=2", "training.batch_size=16",
+            "training.kimg=1", "training.kimg_per_tick=0.5", "training.snap=2",
+            f"project_release_dir={run}"]
+    options = ["--device", str(dev), "--dist-backend", "gloo"]
+    runs = (["training.metrics=[]"],
+            ["training.resume=latest", "training.metrics=[fvd2048_16f]",
+             f"training.metric_kwargs.max_real_override={real}",
+             f"training.metric_kwargs.num_gen_override={gen}",
+             f"training.metric_kwargs.cache_dir={cache}"])
+    t0 = time.perf_counter()
+    os.environ["SGV_STUB_DETECTORS"] = "1"          # the spawned ranks' I3D: the stub
+    # the ranks write their log to log.txt; their stdout (inherited) goes to a file
+    sys.stdout.flush()
+    t_runs = []
+    saved = os.dup(1)
+    try:
+        with open(os.path.join(tmp, "ranks_stdout.txt"), "w") as f:
+            os.dup2(f.fileno(), 1)
+            for extra in runs:
+                out = io.StringIO()
+                t_run = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    entry.main(base + extra + options)
+                t_runs.append(time.perf_counter() - t_run)
+    finally:
+        os.dup2(saved, 1)
+        os.close(saved)
+        del os.environ["SGV_STUB_DETECTORS"]
+    t_loop = time.perf_counter() - t0
+    log = open(os.path.join(run, "log.txt")).read()
+    rows = [_json.loads(line) for line in open(os.path.join(run, "metric-fvd2048_16f.jsonl"))]
+    stats_rows = [line for line in open(os.path.join(run, "stats.jsonl"))]
+    snaps = sorted(n for n in os.listdir(run) if n.endswith(".pt"))
+    ticks = [line for line in log.splitlines() if line.startswith("tick ")]
+    check(snaps == ["network-snapshot-000001.pt"] and "Resuming from" in log
+          and len(rows) == 1 and math.isfinite(rows[0]["results"]["fvd2048_16f"])
+          and len(stats_rows) == len(ticks) == 3,
+          f"[15 ranks] the two-rank loop: snapshots {snaps}, metric rows {rows}, "
+          f"{len(stats_rows)} stats rows for {len(ticks)} ticks")
+    print(f"[15 ranks] (d) `python -m stylegan_v_tpu_torch.train num_gpus=2 --device {dev} "
+          f"--dist-backend gloo` from phase 13's zip: 21 steps and a snapshot, then "
+          f"resume=latest: one step, a snapshot and fvd2048_16f over two replicas "
+          f"({real} / {gen}, stub I3D) {rows[0]['results']['fvd2048_16f']:.4f}; one stats row "
+          f"a tick ({len(stats_rows)}), rank 0 alone writing; in {t_loop:.1f} s (the runs "
+          f"{t_runs[0]:.1f} and {t_runs[1]:.1f} s, with their spawns); the log's ticks: "
+          f"{[' '.join(t.split()[:8]) for t in ticks]}", flush=True)
+
+
+def par_nccl(dev, zip_path, tmp):
+    """Phase 15 (e): nccl at world size 1 through the entry point, under
+    torchrun's environment, then an all_reduce on an nccl group."""
+    import contextlib
+    import io
+    import os
+    import torch
+    import torch.distributed as dist
+    from stylegan_v_tpu_torch import train as entry
+    from stylegan_v_tpu_torch.parallel import distributed as tdist
+
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(tdist.free_port())}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0 = time.perf_counter()
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            # kimg 0.048 is one step of 48 frames (the setup takes int(kimg))
+            result = entry.main([f"dataset.path={zip_path}", "training.batch_size=16",
+                                 "training.kimg=0.048", "training.metrics=[]",
+                                 f"project_release_dir={os.path.join(tmp, 'run_nccl')}"])
+        os.environ["MASTER_PORT"] = str(tdist.free_port())
+        world = tdist.init_distributed("nccl", 0, 1, "env://", dev)
+        try:
+            x = torch.full((4,), 3.0, device=dev)
+            dist.all_reduce(x)
+            torch.cuda.synchronize()
+            backend = dist.get_backend()
+        finally:
+            tdist.destroy_distributed()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(result["state"].step == 1 and world.backend == backend == "nccl"
+          and bool((x == 3.0).all()), f"[15 ranks] nccl at world size 1: {backend}, {x}")
+    print(f"[15 ranks] (e) nccl at world size 1 through the entry point (torchrun's "
+          f"environment): one step, then an all_reduce on the nccl group, in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def kernel_records(k1, k1_bwd, k4, k4_bwd, launches):
     """The kernel record: each kernel's launches in the ADA run (phase 11),
     worst error against its plain version, and its time, its plain version's
@@ -1385,6 +1817,9 @@ def main() -> int:
         zip_path, G_ema = phase_loop(dev, smi, prestaged, tmp)   # the loop's own TF32 default
         with float32_precision(False):
             phase_metrics(dev, smi, G_ema, zip_path, tmp, detectors)
+        del G_ema, detectors
+        torch.cuda.empty_cache()
+        phase_parallel(dev, smi, zip_path, tmp)       # the steps' own TF32 default
     records = kernel_records(k1, k1_bwd, k4, k4_bwd, launches)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

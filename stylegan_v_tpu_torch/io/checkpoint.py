@@ -15,9 +15,16 @@ training_loop.py:167-183): resume='latest' scans run_dir for the newest
 snapshot; `restore_train_state` puts the whole state back (counters, Adam's
 moments, ADA's p); `copy_params` is the name- and shape-matched partial copy
 for transfer learning.
+
+Over several ranks, rank 0 alone writes a snapshot, after
+parallel/zero.py:consolidate_optimizers_ has gathered ZeRO-1's moments there
+(every rank calls it); every rank reads it on resume, and ZeRO-1 keeps its
+share of the moments. A snapshot's optimizer state has the same layout with
+or without ZeRO-1.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -128,12 +135,26 @@ def load_snapshot(path: str, map_location="cpu") -> Tuple[Dict[str, Any], Dict]:
     return payload, meta
 
 
+def _packed_param_groups(opt: torch.optim.Optimizer):
+    """opt's param_groups as its state_dict() packs them (parameters by
+    index); ZeRO-1's state_dict() needs a consolidation first, this does not."""
+    groups, start = [], 0
+    for g in opt.param_groups:
+        packed = {k: v for k, v in g.items() if k != "params"}
+        packed["params"] = list(range(start, start + len(g["params"])))
+        start += len(g["params"])
+        groups.append(packed)
+    return groups
+
+
 def load_adam_state(opt: torch.optim.Optimizer, per_param: Mapping[int, Any]) -> None:
     """Adam's per-parameter state (step, exp_avg, exp_avg_sq by parameter
-    index) into `opt`; lr and betas stay the ones the optimizer was built
-    with, from the run's config, as optax's do."""
-    opt.load_state_dict({"state": dict(per_param),
-                         "param_groups": opt.state_dict()["param_groups"]})
+    index) into `opt`, plain Adam or ZeRO-1 (which keeps this rank's share);
+    lr and betas stay the ones the optimizer was built with, from the run's
+    config, as optax's do. The optimizer gets copies: it updates its moments
+    in place, and `per_param` stays as it was."""
+    opt.load_state_dict({"state": copy.deepcopy(dict(per_param)),
+                         "param_groups": _packed_param_groups(opt)})
 
 
 def restore_train_state(state, payload: Mapping[str, Any]):

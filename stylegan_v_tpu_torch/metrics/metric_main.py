@@ -1,5 +1,5 @@
 """Metric registry and dispatcher (reference src/metrics/metric_main.py).
-Counterpart of stylegan_v_tpu/metrics/metric_main.py, single process.
+Counterpart of stylegan_v_tpu/metrics/metric_main.py.
 
 The registered metrics are the reference's (metric_main.py:96-152):
 fid50k_full, kid50k_full, is50k, fvd2048_16f, fvd2048_128f,
@@ -19,7 +19,7 @@ from . import frechet_inception_distance as fid_lib
 from . import frechet_video_distance as fvd_lib
 from . import inception_score as is_lib
 from . import kernel_inception_distance as kid_lib
-from .metric_utils import MetricOptions, check_single_process, metric_device
+from .metric_utils import MetricOptions, metric_device
 
 _metric_dict: Dict[str, Callable] = {}
 
@@ -40,12 +40,21 @@ def list_valid_metrics() -> List[str]:
 
 def calc_metric(metric: str, num_runs: int = 1, **kwargs) -> EasyDict:
     """Run a metric, averaged over num_runs (reference metric_main.py:43-66),
-    in this process on MetricOptions.device (cuda:0 when not given; no card
-    raises). More than one replica or process raises NotImplementedError
-    (ROADMAP P8)."""
+    on MetricOptions.device (cuda:0 when not given; no card raises).
+
+    In a process group of several processes every process takes part: each
+    is one replica (num_replicas and replica default to the group's size and
+    this rank), the feature stats are merged across processes inside
+    metric_utils, and the results are broadcast from process 0, so every
+    process returns the same numbers (reference metric_main.py:52-59)."""
     assert is_valid_metric(metric), f"unknown metric {metric}"
+    from ..parallel.distributed import world
+    w = world()
+    if w.size > 1:
+        kwargs.setdefault("num_replicas", w.size)
+        kwargs.setdefault("replica", w.rank)
+        kwargs.setdefault("rank", w.rank)
     opts = MetricOptions(**kwargs)
-    check_single_process(opts)
     metric_device(opts)
 
     start = time.time()
@@ -60,6 +69,11 @@ def calc_metric(metric: str, num_runs: int = 1, **kwargs) -> EasyDict:
         results[key] = sum(vals) / len(vals)
         if num_runs > 1:
             results[key + "_std"] = float(np.std(vals))
+    if w.size > 1:
+        import torch.distributed as dist
+        box = [results]
+        dist.broadcast_object_list(box, src=0)
+        results = box[0]
 
     return EasyDict(
         results=EasyDict(results),

@@ -2,9 +2,10 @@
 extraction for a dataset and for a generator, and the dataset-stats cache.
 
 Counterpart of stylegan_v_tpu/metrics/metric_utils.py (reference
-src/metrics/metric_utils.py), single process:
+src/metrics/metric_utils.py):
   * `FeatureStats` accumulates the raw mean and covariance in float64 on the
     host (a copy, `merge` and `replica_max_items` included);
+    `merge_across_processes` merges the ranks' partial stats;
   * dataset feature stats are cached on disk under a hash of every argument
     (`_cache_tag`, a copy), in ~/.cache/stylegan_v_tpu_torch/metric-stats
     unless `cache_dir` says otherwise;
@@ -22,8 +23,15 @@ other file runs as TorchScript on the device. A metric runs on
 `MetricOptions.device`, cuda:0 when None: without a card it raises, and
 nothing falls back to the CPU.
 
-More than one replica or process (the JAX package's cross-process merge) is
-ROADMAP P8 and raises NotImplementedError.
+Replicas (stylegan_v_tpu/metrics/metric_utils.py:464-590): with
+`num_replicas` R, replica r reads the dataset items r, r+R, ... and makes
+its share of the generated items (`replica_max_items`) from seeds
+seed + r (labels) and seed*1000 + r (z and motion codes). When R equals the
+number of processes in the default process group, each process is one
+replica: the partial stats are merged across processes (gathered on the
+host), every process returns the full stats, and only replica 0 writes the
+dataset-stats cache. In one process, R > 1 gives replica r's partial stats,
+cached under a key of their own.
 """
 from __future__ import annotations
 
@@ -81,14 +89,11 @@ def metric_device(opts: MetricOptions) -> torch.device:
     return device
 
 
-def check_single_process(opts: MetricOptions) -> None:
-    """Raise NotImplementedError for more than one replica or process."""
-    if opts.num_replicas != 1 or (torch.distributed.is_available()
-                                  and torch.distributed.is_initialized()
-                                  and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            f"metrics over {opts.num_replicas} replicas, or in more than one process, are not "
-            "ported yet (ROADMAP P8)")
+def _multi_process(opts: MetricOptions) -> bool:
+    """True when each process of the default process group is one replica."""
+    from ..parallel.distributed import world
+    n = world().size
+    return n > 1 and opts.num_replicas == n
 
 
 class FeatureStats:
@@ -161,7 +166,7 @@ class FeatureStats:
         obj.__dict__.update(s)
         return obj
 
-    # Replica merging, for P8: each replica accumulates its strided subset
+    # Replica merging: each replica accumulates its strided subset
     # (truncated with replica_max_items, which reproduces the global cutoff);
     # moments add, captured features interleave round-robin in dataset order.
 
@@ -201,6 +206,38 @@ class FeatureStats:
             else:
                 out.all_features = []
         return out
+
+    def merge_across_processes(self) -> "FeatureStats":
+        """Gather every process's partial stats (as host objects: float64
+        moments travel losslessly) and merge them in process order, so every
+        process returns the same full stats (the JAX package's
+        merge_across_processes, one all_gather_object here). A process whose
+        share is empty takes the feature count from the others."""
+        from ..parallel.distributed import world
+        w = world()
+        if w.size == 1:
+            return self
+        parts = [None] * w.size
+        torch.distributed.all_gather_object(parts, {
+            "num_items": self.num_items, "num_features": self.num_features,
+            "raw_mean": self.raw_mean, "raw_cov": self.raw_cov,
+            "all_features": self.get_all() if self.capture_all and self.num_items else None})
+        nf = max((p["num_features"] or -1) for p in parts)
+        if nf < 0:
+            return self                      # no process appended anything
+        stats = []
+        for p in parts:
+            s = FeatureStats(capture_all=self.capture_all,
+                             capture_mean_cov=self.capture_mean_cov)
+            s.set_num_features(nf)
+            s.num_items = p["num_items"]
+            if self.capture_mean_cov and p["raw_mean"] is not None:
+                s.raw_mean, s.raw_cov = p["raw_mean"], p["raw_cov"]
+            if self.capture_all:
+                s.all_features = ([p["all_features"]] if p["all_features"] is not None
+                                  else [])
+            stats.append(s)
+        return FeatureStats.merge(stats)
 
 
 # ----------------------------- detector registry -----------------------------
@@ -395,11 +432,15 @@ def compute_feature_stats_for_dataset(
         batch_size: int = 64, data_loader_kwargs=None, max_items=None,
         temporal_detector: bool = False, use_image_dataset: bool = False,
         feature_stats_cls=FeatureStats, **stats_kwargs) -> FeatureStats:
-    """(reference metric_utils.py:189-257)."""
-    check_single_process(opts)
+    """(reference metric_utils.py:189-257). With replicas, this replica's
+    strided share of the items (module docstring)."""
     dataset_kwargs = dict(opts.dataset_kwargs)
     if temporal_detector:
         dataset_kwargs.pop("sampling", None)
+    multi_process = _multi_process(opts)
+    # one process's share of several replicas is cached under its own key;
+    # merged stats are the full stats, cached under the serial key
+    partial_stats = opts.num_replicas > 1 and not multi_process
 
     cache_file = None
     if opts.cache:
@@ -411,20 +452,39 @@ def compute_feature_stats_for_dataset(
                      # preprocessing kwargs change the features (e.g. I3D
                      # rescale/resize) — they must invalidate the cache
                      detector_kwargs=repr(sorted(detector_kwargs.items())))
+        if partial_stats:
+            extra.update(num_replicas=opts.num_replicas, replica=opts.replica)
         tag = _cache_tag(opts, dataset_kwargs, detector_name, stats_kwargs, extra)
         cache_file = os.path.join(cache_dir, tag + ".pkl")
-        if os.path.isfile(cache_file):
+        hit = os.path.isfile(cache_file)
+        if multi_process:
+            # every process takes process 0's decision, and all raise together
+            # where the file is not visible to all of them (a lone raise would
+            # leave the others waiting in the next collective)
+            flags = [None] * opts.num_replicas
+            torch.distributed.all_gather_object(flags, hit)
+            hit = bool(flags[0])
+            if hit and not all(flags):
+                missing = [r for r, f in enumerate(flags) if not f]
+                raise RuntimeError(f"metric stats cache hit on process 0 but {cache_file} is "
+                                   f"not visible on process(es) {missing}: the cache dir "
+                                   f"must be shared by all processes (cache_dir)")
+        if hit:
             return feature_stats_cls.load(cache_file)
 
     dataset = _make_dataset(dataset_kwargs, use_image_dataset)
     num_items = len(dataset) if max_items is None else min(len(dataset), max_items)
-    stats = feature_stats_cls(max_items=num_items, **stats_kwargs)
+    local_items = FeatureStats.replica_max_items(num_items, opts.num_replicas, opts.replica)
+    stats = feature_stats_cls(max_items=local_items, **stats_kwargs)
     detector = get_detector(detector_name, opts, **detector_kwargs)
+    # round-robin item split (reference metric_utils.py:230)
+    item_subset = [(i * opts.num_replicas + opts.replica) % num_items
+                   for i in range((num_items - 1) // opts.num_replicas + 1)]
 
-    _vlog(f"real[{detector_name}]: {num_items} items, batch {batch_size}")
+    _vlog(f"real[{detector_name}]: {len(item_subset)} items, batch {batch_size}")
     batch = []
     nb = 0
-    for item in _iter_items_threaded(dataset, list(range(num_items))):
+    for item in _iter_items_threaded(dataset, item_subset):
         img = item["image"]
         if not temporal_detector and img.ndim == 4:
             img = img[0]              # first frame for image detectors
@@ -442,7 +502,9 @@ def compute_feature_stats_for_dataset(
     _vlog(f"real[{detector_name}]: done ({stats.num_items} items)")
     dataset.close()
 
-    if cache_file is not None:
+    if multi_process:
+        stats = stats.merge_across_processes()
+    if cache_file is not None and (not multi_process or opts.replica == 0):
         stats.save(cache_file)
     return stats
 
@@ -462,13 +524,14 @@ def compute_feature_stats_for_generator(
     [B, z_dim] and then, when G has motion, for motion_z [B, L, motion.z_dim];
     by default a torch.Generator on the device seeded with seed*1000 + replica.
     Labels come from np.random.RandomState(seed + replica), as in the JAX
-    package. A detector with `on_device` takes the uint8 frames where G made
-    them; any other gets them on the host."""
+    package. With replicas this replica makes its share of `max_items`
+    (replica_max_items), merged across processes when each is a replica. A
+    detector with `on_device` takes the uint8 frames where G made them; any
+    other gets them on the host."""
     from ..models.motion import MotionMappingNetwork
     from ..training.augment import GeneratorDraws
     from ..utils.misc import float32_precision
 
-    check_single_process(opts)
     device = metric_device(opts)
     G = opts.G
     cfg = G.cfg
@@ -477,6 +540,8 @@ def compute_feature_stats_for_generator(
         raise ValueError(f"G is on {g_device}, the metric runs on {device}")
     dataset = _make_dataset(dict(opts.dataset_kwargs), use_image_dataset=False)
 
+    if max_items is not None and opts.num_replicas > 1:
+        max_items = FeatureStats.replica_max_items(max_items, opts.num_replicas, opts.replica)
     stats = feature_stats_cls(max_items=max_items, **stats_kwargs)
     detector = get_detector(detector_name, opts, **detector_kwargs)
     on_device = getattr(detector, "on_device", False)
@@ -522,6 +587,8 @@ def compute_feature_stats_for_generator(
         G.train(was_training)
     _vlog(f"gen[{detector_name}]: done ({stats.num_items} items)")
     dataset.close()
+    if _multi_process(opts):
+        stats = stats.merge_across_processes()
     return stats
 
 

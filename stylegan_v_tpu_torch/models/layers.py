@@ -133,7 +133,10 @@ class MappingNetwork(nn.Module):
 
     def forward(self, z: Optional[torch.Tensor], c: Optional[torch.Tensor],
                 truncation_psi: float = 1.0, truncation_cutoff: Optional[int] = None,
-                update_w_avg: bool = False) -> torch.Tensor:
+                update_w_avg: bool = False, batch_mean=None) -> torch.Tensor:
+        """w for z and c. With update_w_avg, w_avg moves toward the batch's mean
+        w; `batch_mean`, when given, takes that mean over this rank's rows to
+        the global batch's (parallel/distributed.py:World.mean_over_ranks)."""
         x = None
         if self.z_dim > 0:
             assert_shape(z, [None, self.z_dim])
@@ -148,7 +151,10 @@ class MappingNetwork(nn.Module):
 
         if update_w_avg and self.num_ws is not None and self.w_avg_beta is not None:
             # w_avg <- lerp(mean(x), w_avg, beta) (reference layers.py:87-89)
-            self.w_avg.copy_(x.detach().mean(dim=0).lerp(self.w_avg, self.w_avg_beta))
+            mean = x.detach().mean(dim=0)
+            if batch_mean is not None:
+                mean = batch_mean(mean)
+            self.w_avg.copy_(mean.lerp(self.w_avg, self.w_avg_beta))
 
         if self.num_ws is not None:
             x = x[:, None, :].repeat(1, self.num_ws, 1)

@@ -4,7 +4,9 @@ Each source is compiled at first use with nvcc for sm_90a into a shared
 library with a plain C interface, under `_build/` beside this package's
 `csrc/`, and loaded with ctypes. A library's name carries a hash of its
 source and flags, so an edited source is rebuilt; every source that is not
-built yet builds at once, one nvcc each, all started together.
+built yet builds at once, one nvcc each, all started together. The build
+holds a file lock in `_build/`, so ranks started together on one host build
+each library once, and the others wait for it and load it.
 
 Nothing here runs when a module is imported: the CPU tests import every
 module on a machine without nvcc.
@@ -47,8 +49,19 @@ def _library_path(name: str) -> Path:
 
 
 def build_libraries() -> List[Path]:
-    """Compile every csrc source whose library is not built yet, all at once."""
+    """Compile every csrc source whose library is not built yet, all at once,
+    under the build directory's lock."""
+    import fcntl
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _build_unlocked()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _build_unlocked() -> List[Path]:
     started = []
     for name in SOURCES:
         lib = _library_path(name)

@@ -16,6 +16,21 @@ four FVD and FID metrics) with the detectors found in $SGV_DETECTOR_DIR or
 ./detectors; `training.metric_kwargs.<key>=<value>` passes keyword arguments
 to calc_metric (max_real_override, num_gen_override, cache_dir, ...), and
 training.metrics=[] turns them off.
+
+Several devices (ROADMAP P8), one process each:
+
+    python -m stylegan_v_tpu_torch.train num_gpus=2 ...      # spawns 2 ranks
+    torchrun --nproc_per_node=2 -m stylegan_v_tpu_torch.train num_gpus=2 ...
+
+`num_gpus=W` (configs/config.yaml) spawns W processes here, as the
+reference's train.py did, or, under torchrun (RANK, WORLD_SIZE and
+LOCAL_RANK in the environment), joins the ranks torchrun started. Rank r
+trains on cuda:<local rank> (fewer cards than ranks raises), or every rank
+on the one card `--device cuda:N` names, or on the CPU with `--device cpu`.
+The backend is nccl on CUDA and gloo on the CPU; `--dist-backend gloo` runs
+the ranks on CUDA over gloo, which is the only way for two ranks to share a
+card (nccl refuses that). A rank that raises ends the others, and the run
+exits non-zero. The CUDA kernels are built once before the ranks start.
 """
 from __future__ import annotations
 
@@ -34,6 +49,8 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
     ap.add_argument("--cfg-path", default=None,
                     help="frozen experiment_config.yaml (skips composition)")
     ap.add_argument("--device", default="cuda", help="cuda (the default), cuda:N or cpu")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="the ranks' backend: nccl on CUDA and gloo on the CPU by default")
     args = ap.parse_args(argv)
 
     import torch
@@ -82,7 +99,48 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
               f"kimg: {setup.total_kimg}  r1_gamma: {setup.loss_cfg.r1_gamma}")
         return None
 
-    return training_loop(setup, device=device)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:          # under torchrun
+        return _run_rank(int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]), "env://",
+                         setup, str(device), args.dist_backend,
+                         int(os.environ.get("LOCAL_RANK", 0)))
+    W = setup.num_chips
+    if W == 1:
+        return training_loop(setup, device=device)
+    if device.type == "cuda":
+        if device.index is None and torch.cuda.device_count() < W:
+            raise RuntimeError(f"num_gpus={W} but {torch.cuda.device_count()} CUDA "
+                               f"device(s): pass --device cuda:N and --dist-backend gloo "
+                               f"to run the ranks on one card")
+        if device.index is not None and (args.dist_backend or "nccl") == "nccl":
+            raise ValueError(f"{W} ranks on one card ({device}) need --dist-backend gloo: "
+                             "nccl refuses two ranks on one device")
+        from .ops.cuda_build import build_libraries
+        build_libraries()                 # once, before the ranks start
+    from .parallel.distributed import launch
+    launch(_run_rank, W, args=(setup, str(device), args.dist_backend))
+    return None
+
+
+def _run_rank(rank: int, world_size: int, init_method: str, setup, device: str,
+              backend: Optional[str], local_rank: Optional[int] = None) -> Optional[Dict]:
+    """One rank: join the process group, train on this rank's device, leave."""
+    import torch
+
+    from .parallel.distributed import destroy_distributed, init_distributed
+    from .training.loop import training_loop
+
+    local_rank = rank if local_rank is None else local_rank
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", local_rank)
+    if dev.type == "cpu" and "OMP_NUM_THREADS" not in os.environ:
+        # the host's cores shared by the ranks, not each rank's threads on all
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world_size))
+    world = init_distributed(backend, rank, world_size, init_method, dev)
+    try:
+        return training_loop(setup, device=dev, world=world)
+    finally:
+        destroy_distributed()
 
 
 if __name__ == "__main__":

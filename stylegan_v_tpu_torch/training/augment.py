@@ -108,7 +108,10 @@ class AugmentConfig:
     # float32 on CPU (the JAX package's policy: bf16 on an accelerator);
     # "float32" / "bfloat16" force it.
     geom_dtype: str = "auto"
-    # data-parallel shard count of the batch (multi-GPU is not ported: 1).
+    # data-parallel shard count of the batch. Accepted and ignored: in the
+    # JAX package it only sets how many chunks the shear/gather warp runs in
+    # (stylegan_v_tpu/training/augment.py:302-312) and never changes a value;
+    # the port's pipe runs each rank's rows unchunked.
     data_shards: int = 1
 
 
@@ -301,9 +304,6 @@ def make_augment_pipe(cfg: AugmentConfig):
     if cfg.warp_mode == "shear":
         raise NotImplementedError("the shear warp executor is not ported: ROADMAP ports it "
                                   "only if K4 measures slower than it on the card")
-    if cfg.data_shards != 1:
-        raise NotImplementedError("a sharded augment batch (data_shards != 1) is not ported "
-                                  "yet (ROADMAP P8)")
     if cfg.warp_upsample not in (1, 2):
         raise ValueError(f"warp_upsample must be 1 or 2, got {cfg.warp_upsample}")
     Hz_geom = setup_filter(_SYM6)                     # orthogonal lowpass, 12 taps

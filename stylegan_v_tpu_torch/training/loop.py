@@ -1,9 +1,20 @@
 """The training orchestrator.
 
 The port's counterpart of stylegan_v_tpu/training/loop.py (reference
-src/training/training_loop.py:97-544), on one device: the host loop feeds
-the step from the zip loader, keeps tick-level telemetry, writes snapshots
-(images, videos, the whole state) and resumes.
+src/training/training_loop.py:97-544): the host loop feeds the step from the
+zip loader, keeps tick-level telemetry, writes snapshots (images, videos,
+the whole state) and resumes.
+
+Over W ranks (one process each, `world`; `setup.num_chips` must equal W),
+every rank runs this loop on its device: its loader reads the rank-strided
+share of the index stream, B/W videos a step, which the step takes as the
+rank's rows of the global batch (training/train_step.py). G, D, G_ema and
+the scalars are broadcast from rank 0 after init and after resume. Every
+rank reduces the tick's stats across the ranks, checks that the ranks hold
+the same state before each snapshot (utils/summary.py:
+check_replica_consistency), gathers ZeRO-1's moments for it and scores the
+metrics as one replica; rank 0 alone logs, writes stats.jsonl, TensorBoard,
+grids, videos, snapshots and metric rows.
 
 Tick cadence, snapshot naming, stats.jsonl schema, the Timing/data_fetch and
 Timing/<variant> keys, the tick line and the visualization panels (reals /
@@ -22,8 +33,9 @@ with `setup.metric_kwargs`, on the loop's device) and appends one
 metric-<name>.jsonl row per metric; a metric that fails is logged with its
 traceback and training goes on, as in the JAX loop.
 
-Options the port does not have yet raise NotImplementedError before the
-first step, naming their ROADMAP item (`check_ported`).
+Options the port does not have yet (MoCoGAN, .pkl resume) raise
+NotImplementedError before the first step, naming their ROADMAP item
+(`check_ported`).
 """
 from __future__ import annotations
 
@@ -41,10 +53,14 @@ from ..io.checkpoint import (find_latest_snapshot, load_snapshot, restore_train_
 from ..metrics import metric_main
 from ..models import Discriminator, Generator
 from ..models.motion import MotionMappingNetwork
+from ..parallel.distributed import World, broadcast_module_, broadcast_tensors_
+from ..parallel.distributed import world as current_world
+from ..parallel.zero import consolidate_optimizers_, opt_state_bytes_per_device
 from ..train_setup import TrainSetup
 from ..utils.logger import Logger
 from ..utils.misc import float32_precision, format_time
-from ..utils.summary import print_activation_summary, print_module_summary
+from ..utils.summary import (check_replica_consistency, print_activation_summary,
+                             print_module_summary, train_state_tree)
 from ..utils.training_stats import (Collector, DeviceStatsAccumulator, StatsJsonlWriter,
                                     TensorboardWriter)
 from .augment import make_augment_pipe
@@ -64,21 +80,20 @@ def resolve_device(device=None) -> torch.device:
 
 def check_ported(setup: TrainSetup) -> None:
     """Raise NotImplementedError for an option the port does not have yet."""
-    if setup.metrics and (setup.metric_kwargs or {}).get("num_replicas", 1) != 1:
-        raise NotImplementedError("in-training metrics over more than one replica are not "
-                                  "ported yet (ROADMAP P8)")
     if setup.disc_source == "mocogan":
         raise NotImplementedError("the MoCoGAN discriminator is not ported yet (ROADMAP P9)")
     if setup.resume and str(setup.resume).endswith(".pkl"):
         raise NotImplementedError("resume from a reference .pkl (io/legacy) is not ported "
                                   "yet (ROADMAP P9)")
-    if setup.num_chips != 1 or setup.train_cfg.zero1:
-        raise NotImplementedError(f"training on {setup.num_chips} chips, or with zero1, is "
-                                  "not ported yet (ROADMAP P8)")
-    if torch.distributed.is_available() and torch.distributed.is_initialized() \
-            and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError("training in more than one process is not ported yet "
-                                  "(ROADMAP P8)")
+
+
+def check_world(setup: TrainSetup, world: World) -> None:
+    """The setup's chip count must be the number of ranks."""
+    if setup.num_chips != world.size:
+        raise ValueError(f"the setup trains on {setup.num_chips} chips (num_gpus) but "
+                         f"{world.size} process(es) run it: start it through the entry "
+                         f"point with num_gpus={setup.num_chips}, or under torchrun "
+                         f"with {setup.num_chips} processes")
 
 
 def step_seed(seed: int, step_idx: int) -> int:
@@ -122,29 +137,41 @@ def setup_snapshot_image_grid(dataset, grid_seed: int = 0, max_videos: int = 16,
 def training_loop(setup: TrainSetup, device=None,
                   abort_fn: Optional[Callable[[], bool]] = None,
                   progress_fn: Optional[Callable[[int, int], None]] = None,
-                  log: Callable[[str], None] = print) -> Dict:
-    """Run training to total_kimg on `device` (cuda:0 when None); returns a
-    summary dict: cur_nimg, ticks, seconds, the step and cur_nimg the run
-    started from, and the final TrainState. The whole run, the panels'
-    synthesis included, keeps TF32 off unless setup.allow_tf32."""
+                  log: Callable[[str], None] = print, world: Optional[World] = None) -> Dict:
+    """Run training to total_kimg on `device` (cuda:0 when None) as one rank
+    of `world` (the default process group's when None); returns a summary
+    dict: cur_nimg, ticks, seconds, the step and cur_nimg the run started
+    from, and the final TrainState. The whole run, the panels' synthesis
+    included, keeps TF32 off unless setup.allow_tf32. Only rank 0 logs."""
     check_ported(setup)
+    world = current_world() if world is None else world
+    check_world(setup, world)
     device = resolve_device(device)
     os.makedirs(setup.run_dir, exist_ok=True)
     start_time = time.time()
-    logger = Logger(os.path.join(setup.run_dir, "log.txt"), "a").install()
+    if not world.is_chief:
+        log = _silent
+    logger = Logger(os.path.join(setup.run_dir, "log.txt"), "a").install() \
+        if world.is_chief else None
     try:
         with float32_precision(setup.allow_tf32):
-            result = _train(setup, device, abort_fn, progress_fn, log, start_time)
+            result = _train(setup, device, abort_fn, progress_fn, log, start_time, world)
     finally:
-        logger.close()     # gives sys.stdout back even when a step raises
+        if logger is not None:
+            logger.close()     # gives sys.stdout back even when a step raises
     log(f"Training complete: {result['cur_nimg'] // 1000} kimg in "
         f"{format_time(time.time() - start_time)}")
     return result
 
 
+def _silent(*_) -> None:
+    pass
+
+
 def _train(setup: TrainSetup, device: torch.device, abort_fn, progress_fn, log,
-           start_time: float) -> Dict:
+           start_time: float, world: World) -> Dict:
     run_dir = setup.run_dir
+    chief = world.is_chief
 
     # ---- dataset (reference training_loop.py:141-151) --------------------
     log("Loading training set...")
@@ -158,7 +185,10 @@ def _train(setup: TrainSetup, device: torch.device, abort_fn, progress_fn, log,
     G = Generator(setup.gen_cfg, generator=gen).to(device)
     D = Discriminator(setup.disc_cfg, generator=gen).to(device)
     state = init_train_state(G, D, setup.opt_g, setup.opt_d, setup.train_cfg,
-                             augment_p=setup.augment_p)
+                             augment_p=setup.augment_p, world=world)
+    if world.size > 1:
+        log(f"  {world.size} ranks ({world.backend}), {setup.train_cfg.batch_size // world.size}"
+            f" videos a rank a step" + (", ZeRO-1" if setup.train_cfg.zero1 else ""))
     n_gp = sum(p.numel() for p in G.parameters())
     n_dp = sum(p.numel() for p in D.parameters())
     log(f"  G params: {n_gp/1e6:.2f}M   D params: {n_dp/1e6:.2f}M")
@@ -168,10 +198,11 @@ def _train(setup: TrainSetup, device: torch.device, abort_fn, progress_fn, log,
     # reference's print_module_summary pass, misc.py:193-272)
     F = setup.sampling_cfg.num_frames_per_video
     c0 = torch.zeros(1, setup.gen_cfg.c_dim, device=device) if setup.gen_cfg.c_dim > 0 else None
-    print_activation_summary(G, torch.zeros(1, setup.gen_cfg.z_dim, device=device), c0,
-                             torch.zeros(1, F, device=device), noise_mode="const",
-                             generator=torch.Generator(device=device).manual_seed(0),
-                             title="Generator", log=log)
+    if chief:
+        print_activation_summary(G, torch.zeros(1, setup.gen_cfg.z_dim, device=device), c0,
+                                 torch.zeros(1, F, device=device), noise_mode="const",
+                                 generator=torch.Generator(device=device).manual_seed(0),
+                                 title="Generator", log=log)
 
     # ---- resume (reference train.py:283-317, training_loop.py:167-183) ---
     resume_nimg = 0
@@ -185,18 +216,23 @@ def _train(setup: TrainSetup, device: torch.device, abort_fn, progress_fn, log,
             resume_nimg = int(meta.get("cur_nimg", state.cur_nimg))
         elif setup.resume != "latest":
             raise FileNotFoundError(setup.resume)
+    # every rank starts from rank 0's state, drawn or resumed
+    _broadcast_state(state, world)
 
     # ---- augmentation + train step ---------------------------------------
-    augment_fn = (make_augment_pipe(dataclasses.replace(setup.augment_cfg, data_shards=1))
+    augment_fn = (make_augment_pipe(dataclasses.replace(setup.augment_cfg,
+                                                        data_shards=world.size))
                   if setup.augment_cfg is not None else None)
     step_fn = make_train_step(G, D, setup.loss_cfg, setup.train_cfg, augment_fn=augment_fn,
-                              allow_tf32=setup.allow_tf32)
+                              world=world, allow_tf32=setup.allow_tf32)
 
     # ---- visualization state (reference training_loop.py:272-299) --------
-    # Before the loader starts: its worker draws from the dataset's RNG too.
+    # Before the loader starts: its worker draws from the dataset's RNG too
+    # (every rank reads the grid, so every rank's dataset RNG moves alike).
     grid_reals, grid_labels = setup_snapshot_image_grid(dataset, setup.seed)
-    save_image_grid(grid_reals.astype(np.float32) / 127.5 - 1,
-                    os.path.join(run_dir, "reals.jpg"))
+    if chief:
+        save_image_grid(grid_reals.astype(np.float32) / 127.5 - 1,
+                        os.path.join(run_dir, "reals.jpg"))
     vis_n = min(9, setup.train_cfg.batch_size)
     vis_z = torch.randn((vis_n, setup.gen_cfg.z_dim),
                         generator=torch.Generator().manual_seed(setup.seed + 1))
@@ -206,19 +242,23 @@ def _train(setup: TrainSetup, device: torch.device, abort_fn, progress_fn, log,
 
     # fakes_init: untrained-G_ema grid before the first step (reference
     # training_loop.py:283)
-    init_vids = generate_videos(state.G_ema, vis_z, vis_c, vis_ts, noise_mode="const")
-    save_image_grid(init_vids[:, 0] * 2 - 1, os.path.join(run_dir, "fakes_init.jpg"))
+    if chief:
+        init_vids = generate_videos(state.G_ema, vis_z, vis_c, vis_ts, noise_mode="const")
+        save_image_grid(init_vids[:, 0] * 2 - 1, os.path.join(run_dir, "fakes_init.jpg"))
 
     # ---- loader + sinks --------------------------------------------------
+    # this rank's share of the rank-strided index stream (reference
+    # misc.py:136): its B/W rows of each global batch
     loader = TrainingDataLoader(
-        dataset, batch_size=setup.train_cfg.batch_size,
+        dataset, batch_size=setup.train_cfg.batch_size // world.size,
         gen_sampling=setup.sampling_cfg, use_fractional_t=setup.use_fractional_t,
-        seed=setup.seed, num_workers=setup.num_workers)
+        seed=setup.seed, num_workers=setup.num_workers,
+        rank=world.rank, num_replicas=world.size)
     batches = DeviceLoader(loader, device)
     collector = Collector()
     dstats = DeviceStatsAccumulator()
-    jsonl = StatsJsonlWriter(run_dir)
-    tb = TensorboardWriter(run_dir)
+    jsonl = StatsJsonlWriter(run_dir) if chief else None
+    tb = TensorboardWriter(run_dir) if chief else None
     step_gen = torch.Generator(device=device)
 
     # ---- main loop (reference training_loop.py:330-544) ------------------
@@ -270,6 +310,7 @@ def _train(setup: TrainSetup, device: torch.device, abort_fn, progress_fn, log,
             cur_tick += 1
             next_tick_nimg = cur_nimg
             dstats.drain_into(collector)   # the tick's ONE stats host sync
+            collector.reduce_across_ranks(world)
             tick_time = time.time() - tick_start
             fields = [
                 f"tick {cur_tick:<5d}",
@@ -282,45 +323,77 @@ def _train(setup: TrainSetup, device: torch.device, abort_fn, progress_fn, log,
                 f"Dreal {collector.mean('Loss/scores/real'):.3f}",
             ]
             log(" ".join(fields))
-            jsonl.write({k: v for k, v in collector.as_dict().items()})
-            tb.add_scalars(collector, cur_nimg)
+            if chief:
+                jsonl.write({k: v for k, v in collector.as_dict().items()})
+                tb.add_scalars(collector, cur_nimg)
             collector.reset()
             tick_start = time.time()
 
             # snapshots
             if setup.snap_ticks and (cur_tick % setup.snap_ticks == 0 or done):
                 log("Saving snapshots...")
-                save_panels(setup, state.G_ema, vis_z, vis_c, vis_ts, cur_nimg)
-                save_snapshot(run_dir, state, cur_nimg,
-                              configs={"G": setup.gen_cfg, "D": setup.disc_cfg})
+                # the ranks' replicated state must agree before it is saved
+                # (reference training_loop.py:487-492)
+                check_replica_consistency(train_state_tree(state), world)
+                consolidate_optimizers_(state)
+                if chief:
+                    save_panels(setup, state.G_ema, vis_z, vis_c, vis_ts, cur_nimg)
+                    save_snapshot(run_dir, state, cur_nimg,
+                                  configs={"G": setup.gen_cfg, "D": setup.disc_cfg})
+                if world.size > 1 and setup.train_cfg.zero1:
+                    log(f"  optimizer state on rank 0: "
+                        f"{opt_state_bytes_per_device(state) / 2**20:.1f} MiB (ZeRO-1)")
                 if setup.metrics:
-                    run_metrics(setup, state.G_ema, device, cur_nimg, log)
+                    run_metrics(setup, state.G_ema, device, cur_nimg, log, chief)
 
-            if progress_fn is not None:
+            if progress_fn is not None and chief:
                 progress_fn(cur_nimg // 1000, setup.total_kimg)
-            if abort_fn is not None and abort_fn():
+            if abort_fn is not None and _any_rank(abort_fn(), world):
                 log("Aborting...")
                 done = True
             if done:
                 break
     finally:
         batches.close()
-        jsonl.close()
+        if jsonl is not None:
+            jsonl.close()
+            tb.close()
     return dict(cur_nimg=cur_nimg, ticks=cur_tick, seconds=time.time() - start_time,
                 start_step=base_step, start_nimg=base_nimg, state=state)
 
 
-def run_metrics(setup: TrainSetup, G_ema, device: torch.device, cur_nimg: int, log) -> None:
+def _broadcast_state(state, world: World) -> None:
+    """Rank 0's G, D, G_ema (parameters and buffers) and device scalars into
+    every rank's state. Nothing happens for one rank."""
+    for module in (state.G, state.D, state.G_ema):
+        broadcast_module_(module, world)
+    broadcast_tensors_([state.pl_mean, state.augment_p, state.ada_sign_acc], world)
+
+
+def _any_rank(flag: bool, world: World) -> bool:
+    """True on every rank when `flag` is true on any (a rank-agreed abort)."""
+    if world.size == 1:
+        return bool(flag)
+    flags = [None] * world.size
+    torch.distributed.all_gather_object(flags, bool(flag))
+    return any(flags)
+
+
+def run_metrics(setup: TrainSetup, G_ema, device: torch.device, cur_nimg: int, log,
+                chief: bool = True) -> None:
     """setup.metrics on G_ema, one metric-<name>.jsonl row each (reference
-    training_loop.py:503-518). Metrics are best-effort, as in the JAX loop: a
-    failure is logged with its traceback and training goes on."""
+    training_loop.py:503-518), written by rank 0 (`chief`); over several
+    ranks each rank is one replica (metric_main.calc_metric). Metrics are
+    best-effort, as in the JAX loop: a failure is logged with its traceback
+    and training goes on."""
     kwargs = dict(setup.metric_kwargs or {})
     kwargs.setdefault("device", device)
     try:
         for metric in setup.metrics:
             r = metric_main.calc_metric(metric=metric, G=G_ema,
                                         dataset_kwargs=setup.dataset_kwargs, **kwargs)
-            metric_main.report_metric(r, run_dir=setup.run_dir, snapshot_nimg=cur_nimg)
+            if chief:
+                metric_main.report_metric(r, run_dir=setup.run_dir, snapshot_nimg=cur_nimg)
             log(f"  {metric}: {r['results']}")
     except Exception as e:                     # metrics are best-effort
         import traceback

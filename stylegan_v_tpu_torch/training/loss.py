@@ -20,6 +20,11 @@ source or a torch.Generator, training/augment.py). The train step makes
 them, from a torch.Generator or from the caller. Per-layer noise, when the
 generator config has it, is drawn inside synthesis from `generator`.
 
+Over several ranks, `batch_mean` takes a rank's mean of a batch quantity to
+the global batch's (parallel/distributed.py:World.mean_over_ranks): the
+mapping's w_avg moves toward the global mean of w, and Gpl's pl_mean toward
+the global mean path length, as in the JAX step over its global batch.
+
 With an augment pipe, every D input goes through it first, at `augment_p`
 (a float32 device tensor), as the JAX package's run_D does: with
 video_consistent_aug the frames of a video are fused on the channel axis,
@@ -29,7 +34,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -60,15 +65,17 @@ class GANLoss:
     """Bundles G, D and the loss config into the phase losses.
 
     augment_fn: Optional[(draws, img [N, C, H, W], p) -> img], the ADA pipe
-    (training/augment.py:make_augment_pipe).
+    (training/augment.py:make_augment_pipe). batch_mean: None on one rank,
+    else the mean over the ranks of a per-rank mean (module docstring).
     """
 
     def __init__(self, G: Generator, D: Discriminator, cfg: LossConfig,
-                 augment_fn=None):
+                 augment_fn=None, batch_mean: Optional[Callable] = None):
         self.G = G
         self.D = D
         self.cfg = cfg
         self.augment_fn = augment_fn
+        self.batch_mean = batch_mean
         self.num_frames = G.cfg.sampling.num_frames_per_video
 
     # ---------------- submodule runners ----------------
@@ -80,7 +87,7 @@ class GANLoss:
         mix = (cutoff, z2): layers at or past `cutoff` take their w from z2;
         cutoff == num_ws mixes nothing. Needed when style_mixing_prob > 0.
         """
-        ws = self.G.mapping(z, c, update_w_avg=update_w_avg)
+        ws = self.G.mapping(z, c, update_w_avg=update_w_avg, batch_mean=self.batch_mean)
         if self.cfg.style_mixing_prob > 0:
             cutoff, z2 = mix
             ws2 = self.G.mapping(z2, c, update_w_avg=False)
@@ -137,7 +144,10 @@ class GANLoss:
         pl_noise = pl_noise / math.sqrt(img.shape[2] * img.shape[3])
         pl_grads, = torch.autograd.grad((img * pl_noise).sum(), ws, create_graph=True)
         pl_lengths = pl_grads.square().sum(dim=2).mean(dim=1).sqrt()
-        new_pl_mean = pl_mean + self.cfg.pl_decay * (pl_lengths.detach().mean() - pl_mean)
+        mean_length = pl_lengths.detach().mean()
+        if self.batch_mean is not None:
+            mean_length = self.batch_mean(mean_length)
+        new_pl_mean = pl_mean + self.cfg.pl_decay * (mean_length - pl_mean)
         pl_penalty = (pl_lengths - new_pl_mean).square()
         loss = pl_penalty.mean() * self.cfg.pl_weight
         stats = {"Loss/pl_penalty": pl_penalty.detach().mean(), "Loss/G/reg": loss.detach()}

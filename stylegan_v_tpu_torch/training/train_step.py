@@ -35,7 +35,23 @@ rand(shape) and randn(shape), or a torch.Generator). "Gpl" is read only
 when do_gpl, "Dr1" only when do_dr1. Every D call augments at the state's
 `augment_p`, a device tensor the step never reads on the host.
 
-Batch (torch tensors, [B, ...] global shapes; moved to the modules' device):
+Over W ranks (one process each, `world`), every rank runs the step on its
+rows of the global batch (parallel/distributed.py:row_plan): per round of
+N = B/R videos, rank r holds rows rank_rows(N, G, W, r), which keep D's
+minibatch-std groups (G videos, strided) the global batch's, so D's forward
+issues no collective. `draws` are the step's GLOBAL draws, the same on every
+rank (or made from `generator`, seeded alike on every rank); each rank keeps
+its rows of them, so a run's draws do not depend on W. What the JAX step
+reduces over its global batch, the port all-reduces: each phase's gradients
+(one flat buffer per network, averaged after the rounds and before the
+scrub, as in JAX), the mapping's w_avg (the mean of each round's w), Gpl's
+pl_mean (the mean path length) and the step's stats, once, before the ADA
+controller reads Loss/signs/real. Every phase's loss is a mean over equally
+many rows on every rank, so the mean over the ranks is the global batch's.
+With one rank nothing is reduced.
+
+Batch (torch tensors, [B, ...]: the global batch, or with W ranks this
+rank's B/W rows of it; moved to the modules' device):
   real_img: [B, F, C, H, W] uint8, normalised on the device
   real_c:   [B, c_dim] float32 (c_dim may be 0)
   real_t:   [B, F] float32
@@ -51,6 +67,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..models import Discriminator, Generator
+from ..parallel.distributed import (World, all_reduce_mean_, mbstd_group, rank_draws, row_plan,
+                                    world as current_world)
+from ..parallel.zero import make_adam
 from ..utils.misc import float32_precision
 from .augment import GeneratorDraws
 from .loss import GANLoss, LossConfig, Stats
@@ -81,7 +100,8 @@ class TrainingConfig:
     ada_interval: int = 4
     ada_kimg: float = 500.0
     grad_clip_value: float = 1e5          # nan_to_num posinf bound (misc.py:46-56)
-    zero1: bool = False                   # ZeRO-1: not ported yet (ROADMAP P8)
+    # ZeRO-1: Adam's moments partitioned over the ranks (parallel/zero.py)
+    zero1: bool = False
 
 
 @dataclass
@@ -95,8 +115,8 @@ class TrainState:
     G: Generator
     D: Discriminator
     G_ema: Generator
-    opt_G: torch.optim.Adam
-    opt_D: torch.optim.Adam
+    opt_G: torch.optim.Optimizer          # Adam, or ZeRO-1 over Adam
+    opt_D: torch.optim.Optimizer
     pl_mean: torch.Tensor
     augment_p: torch.Tensor
     ada_sign_acc: torch.Tensor
@@ -106,9 +126,10 @@ def _mb_ratio(interval: Optional[int]) -> float:
     return 1.0 if interval is None else interval / (interval + 1)
 
 
-def _adam(params, cfg: OptimizerConfig, ratio: float) -> torch.optim.Adam:
-    return torch.optim.Adam(params, lr=cfg.lr * ratio,
-                            betas=(cfg.beta1 ** ratio, cfg.beta2 ** ratio), eps=cfg.eps)
+def _adam(params, cfg: OptimizerConfig, ratio: float, world: World,
+          zero1: bool = False) -> torch.optim.Optimizer:
+    return make_adam(params, lr=cfg.lr * ratio, betas=(cfg.beta1 ** ratio, cfg.beta2 ** ratio),
+                     eps=cfg.eps, world=world, zero1=zero1)
 
 
 def scrub_grads(params: List[torch.Tensor], clip: float = 1e5) -> None:
@@ -120,17 +141,22 @@ def scrub_grads(params: List[torch.Tensor], clip: float = 1e5) -> None:
 
 def init_train_state(G: Generator, D: Discriminator, opt_g_cfg: OptimizerConfig,
                      opt_d_cfg: OptimizerConfig, tcfg: TrainingConfig,
-                     augment_p: float = 0.0) -> TrainState:
+                     augment_p: float = 0.0, world: Optional[World] = None) -> TrainState:
     """State around G and D as they are (weights drawn or loaded), on their device.
 
-    G_ema starts as a copy of G. Adam's moments start at zero, as optax's do.
+    G_ema starts as a copy of G. Adam's moments start at zero, as optax's do;
+    with tcfg.zero1 and more than one rank in `world` (the default process
+    group's when None) they are partitioned over the ranks.
     """
+    world = current_world() if world is None else world
     device = next(G.parameters()).device
     return TrainState(
         step=0, cur_nimg=0, G=G, D=D,
         G_ema=copy.deepcopy(G).eval().requires_grad_(False),
-        opt_G=_adam(G.parameters(), opt_g_cfg, _mb_ratio(tcfg.G_reg_interval)),
-        opt_D=_adam(D.parameters(), opt_d_cfg, _mb_ratio(tcfg.D_reg_interval)),
+        opt_G=_adam(G.parameters(), opt_g_cfg, _mb_ratio(tcfg.G_reg_interval), world,
+                    tcfg.zero1),
+        opt_D=_adam(D.parameters(), opt_d_cfg, _mb_ratio(tcfg.D_reg_interval), world,
+                    tcfg.zero1),
         pl_mean=torch.zeros((), device=device),
         augment_p=torch.tensor(augment_p, dtype=torch.float32, device=device),
         ada_sign_acc=torch.zeros((), device=device))
@@ -173,10 +199,12 @@ def sample_draws(G: Generator, loss_cfg: LossConfig, batch_size: int, rounds: in
 
 
 def _accumulate(params: List[torch.Tensor], rounds: int,
-                run_round: Callable[[int], Tuple[torch.Tensor, Stats]]) -> Stats:
+                run_round: Callable[[int], Tuple[torch.Tensor, Stats]],
+                world: World = World()) -> Stats:
     """Gradient accumulation over microbatch rounds (train_step.py:208-234):
     the gradients (into .grad, zero where a parameter got none) and the
-    stats are averaged over the rounds."""
+    stats are averaged over the rounds; then the gradients over the ranks,
+    through one flat buffer. The stats stay this rank's."""
     for p in params:
         p.grad = None
     total: Stats = {}
@@ -190,29 +218,32 @@ def _accumulate(params: List[torch.Tensor], rounds: int,
             p.grad = torch.zeros_like(p)
         elif rounds > 1:
             p.grad.div_(rounds)
+    all_reduce_mean_([p.grad for p in params], world)
     return {k: v / rounds for k, v in total.items()}
 
 
 def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
                     tcfg: TrainingConfig, augment_fn=None, d_lr_scales=None,
-                    state_sharding=None, mesh=None, allow_tf32: bool = False):
+                    world: Optional[World] = None, allow_tf32: bool = False):
     """Returns train_step(state, batch, generator=None, do_gpl=False,
     do_dr1=False, draws=None) -> (state, stats) for a state around G and D.
 
     `draws` (module docstring) replaces every random draw of the step; without
     it they come from `generator`, a torch.Generator on the modules' device.
     `augment_fn` is the ADA pipe (training/augment.py:make_augment_pipe) or
-    None. The step runs its float32 convolutions and matmuls without TF32
+    None. `world` is this process's place among the ranks (the default
+    process group's when None; the module docstring says what W ranks
+    compute): the batch is then this rank's rows. The step runs its float32 convolutions and matmuls without TF32
     unless `allow_tf32` (the original's training option, off by default),
     and gives the caller's settings back when it returns or raises.
     """
     if d_lr_scales:
         raise NotImplementedError("per-subtree D learning rates (MoCoGAN) are not "
                                   "ported yet (ROADMAP P9)")
-    if state_sharding is not None or mesh is not None or tcfg.zero1:
-        raise NotImplementedError("sharded training (mesh, state sharding, ZeRO-1) is "
-                                  "not ported yet (ROADMAP P8)")
-    loss = GANLoss(G, D, loss_cfg, augment_fn=augment_fn)
+    world = current_world() if world is None else world
+    W = world.size
+    loss = GANLoss(G, D, loss_cfg, augment_fn=augment_fn,
+                   batch_mean=world.mean_over_ranks if W > 1 else None)
     params_G, params_D = list(G.parameters()), list(D.parameters())
     num_frames = G.cfg.sampling.num_frames_per_video
     c_dim = G.cfg.c_dim
@@ -230,13 +261,18 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
                    generator: Optional[torch.Generator] = None, do_gpl: bool = False,
                    do_dr1: bool = False, draws: Optional[Draws] = None):
         assert state.G is G and state.D is D, "the state is not around this step's G and D"
-        B = batch["real_t"].shape[0]
+        B = batch["real_t"].shape[0] * W                              # global videos
         rounds = rounds_of(B)
         if draws is None:
             if generator is None:
                 raise ValueError("train_step needs a torch.Generator or explicit draws")
             draws = sample_draws(G, loss_cfg, B, rounds, generator, do_gpl,
                                  augment=augment_fn is not None, do_dr1=do_dr1)
+        if W > 1:
+            N = B // rounds
+            plan = row_plan(B, rounds, mbstd_group(D, N), W, world.rank,
+                            loss_cfg.pl_batch_shrink if do_gpl else None)
+            draws = rank_draws(draws, plan, num_frames)
         batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
         real_img = batch["real_img"].float() / 127.5 - 1.0           # [B, F, C, H, W]
         real_c = batch["real_c"] if c_dim > 0 else None
@@ -271,7 +307,7 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
         # ---- Gmain (the w_avg buffer updates in place, round by round) ----
         stats.update(_accumulate(params_G, rounds,
                                  lambda r: loss.gmain(**phase_inputs("Gmain", 0, r),
-                                                      **aug_inputs("Gmain", r))))
+                                                      **aug_inputs("Gmain", r)), world))
         scrub_grads(params_G, tcfg.grad_clip_value)
         state.opt_G.step()
 
@@ -286,7 +322,7 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
                                          pl_mean=pl_mean, **phase_inputs("Gpl", 1, r))
                 return l * gain, s
 
-            stats.update(_accumulate(params_G, rounds, gpl_round))
+            stats.update(_accumulate(params_G, rounds, gpl_round, world))
             state.pl_mean = pl_mean.detach()
             scrub_grads(params_G, tcfg.grad_clip_value)
             state.opt_G.step()
@@ -302,7 +338,7 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
             s1["Loss/D/loss"] = l1.detach() + s2["Loss/D/loss_real"]
             return l1 + l2, s1
 
-        stats.update(_accumulate(params_D, rounds, dmain_round))
+        stats.update(_accumulate(params_D, rounds, dmain_round, world))
         scrub_grads(params_D, tcfg.grad_clip_value)
         state.opt_D.step()
 
@@ -317,11 +353,18 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
                                       **aug_inputs("Dr1", r))
                 return l * gain, s
 
-            stats.update(_accumulate(params_D, rounds, dr1_round))
+            stats.update(_accumulate(params_D, rounds, dr1_round, world))
             scrub_grads(params_D, tcfg.grad_clip_value)
             state.opt_D.step()
 
         with torch.no_grad():
+            # ---- the stats over the ranks, before the ADA controller reads them
+            if W > 1:
+                names = sorted(stats)
+                flat = torch.stack([stats[k].detach().float().reshape(()) for k in names])
+                all_reduce_mean_([flat], world)
+                stats = dict(zip(names, flat.unbind()))
+
             # ---- G_ema (reference training_loop.py:391-400) ----------------
             ema_nimg = tcfg.ema_kimg * 1000.0
             if tcfg.ema_rampup is not None:

@@ -4,14 +4,15 @@ stylegan_v_tpu/utils/summary.py.
 
   * print_module_summary — parameter and buffer table of a module;
   * print_activation_summary — per-submodule output shapes from a dummy
-    forward, read by forward hooks as the original's summary did.
-
-The JAX package's check_replica_consistency belongs to multi-GPU training
-(ROADMAP P8) and is not ported yet.
+    forward, read by forward hooks as the original's summary did;
+  * check_replica_consistency — every rank holds the same replicated state
+    (stylegan_v_tpu/utils/summary.py:112-142; reference misc.py:179-188).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+import hashlib
+import re
+from typing import Dict, List, Mapping, Optional
 
 import torch
 from torch import nn
@@ -83,3 +84,67 @@ def print_activation_summary(module: nn.Module, *args, title: str = "Module", lo
         log(f"{r['name']:<{w}}{str(r['shape']):<26}{r['dtype']}")
     log("-" * (w + 36))
     return rows
+
+
+def _named_tensors(tree, prefix: str = ""):
+    if isinstance(tree, torch.Tensor):
+        yield prefix, tree
+    elif isinstance(tree, Mapping):
+        for k, v in tree.items():
+            yield from _named_tensors(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_tensors(v, f"{prefix}/{i}")
+    elif isinstance(tree, (int, float)):
+        yield prefix, torch.tensor(tree, dtype=torch.float64)
+
+
+def tree_content_hash(tree, ignore_regex: Optional[str] = None) -> str:
+    """md5 over the names and bytes of every tensor in a nest of dicts and
+    lists (numbers count as float64), in name order."""
+    pat = re.compile(ignore_regex) if ignore_regex else None
+    h = hashlib.md5()
+    for name, t in sorted(_named_tensors(tree), key=lambda kv: kv[0]):
+        if pat and pat.search(name):
+            continue
+        h.update(name.encode())
+        h.update(t.detach().reshape(-1).cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def train_state_tree(state) -> Dict:
+    """What a TrainState replicates on every rank: G, D and G_ema (parameters
+    and buffers), Adam's moments unless ZeRO-1 partitions them, the device
+    scalars and the counters."""
+    from ..parallel.zero import is_zero
+    tree = {"G": state.G.state_dict(), "D": state.D.state_dict(),
+            "G_ema": state.G_ema.state_dict(), "pl_mean": state.pl_mean,
+            "augment_p": state.augment_p, "ada_sign_acc": state.ada_sign_acc,
+            "step": state.step, "cur_nimg": state.cur_nimg}
+    for name in ("opt_G", "opt_D"):
+        opt = getattr(state, name)
+        if not is_zero(opt):            # ZeRO-1's moments are this rank's share
+            tree[name] = {str(i): s for i, s in enumerate(opt.state.values())}
+    return tree
+
+
+def check_replica_consistency(tree, world=None, ignore_regex: Optional[str] = None) -> bool:
+    """Every rank must hold the same replicated state (call before a
+    snapshot): each rank hashes `tree` (tensors in a nest of dicts and lists,
+    on any device; `train_state_tree` gives a TrainState's), the digests are
+    gathered as host objects, and a divergence raises on every rank
+    together. One rank: trivially true. `ignore_regex` drops tensor names
+    (`/`-joined keys) that may legitimately differ."""
+    from ..parallel.distributed import world as current_world
+    world = current_world() if world is None else world
+    if world.size == 1:
+        return True
+    import torch.distributed as dist
+    digests = [None] * world.size
+    dist.all_gather_object(digests, tree_content_hash(tree, ignore_regex))
+    if len(set(digests)) != 1:
+        diverged = [r for r, d in enumerate(digests) if d != digests[0]]
+        raise RuntimeError(f"replicated training state diverged across ranks: rank(s) "
+                           f"{diverged} differ from rank 0 (the reference's "
+                           f"check_ddp_consistency failing)")
+    return True

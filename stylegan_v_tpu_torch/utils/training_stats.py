@@ -6,7 +6,9 @@ and stds can be aggregated exactly across steps (and, in the reference,
 across ranks via one all_reduce, training_stats.py:254-266).
 
 The port's step returns scalar stats as device tensors, so the Collector
-only aggregates across TIME on the host. `report()` accepts scalars or
+aggregates across TIME on the host; over several ranks,
+`Collector.reduce_across_ranks` sums every rank's moments into every rank's,
+as the reference's _sync does (training_stats.py:254-266). `report()` accepts scalars or
 arrays and accumulates moments. `Collector`, `StatsJsonlWriter` and
 `TensorboardWriter` are copies of stylegan_v_tpu/utils/training_stats.py;
 `DeviceStatsAccumulator` is its torch counterpart (tests/test_torch_data.py
@@ -90,6 +92,23 @@ class Collector:
 
     def reset(self) -> None:
         self._moments = {}
+
+    def reduce_across_ranks(self, world) -> None:
+        """Sum every rank's moments into every rank's (a collective: every
+        rank of `world` calls it). A name that some rank lacks counts zero
+        there. Nothing happens for one rank."""
+        if world.size == 1:
+            return
+        import torch.distributed as dist
+        names = [None] * world.size
+        dist.all_gather_object(names, sorted(self._moments))
+        names = sorted(set().union(*names))
+        mine = np.asarray([self._moments.get(n, np.zeros(3)) for n in names],
+                          np.float64).reshape(-1, 3)
+        every = [None] * world.size
+        dist.all_gather_object(every, mine)
+        total = np.sum(every, axis=0)
+        self._moments = {n: total[i] for i, n in enumerate(names)}
 
 
 class DeviceStatsAccumulator:
@@ -179,3 +198,7 @@ class TensorboardWriter:
     def flush(self):
         if self._w is not None:
             self._w.flush()
+
+    def close(self):
+        if self._w is not None:
+            self._w.close()

@@ -146,7 +146,9 @@ def test_port_never_imports_jax():
         " 'stylegan_v_tpu_torch.metrics.detectors.common',"
         " 'stylegan_v_tpu_torch.metrics.detectors.i3d',"
         " 'stylegan_v_tpu_torch.metrics.detectors.inception_v3',"
-        " 'stylegan_v_tpu_torch.metrics.detectors.c3d'}\n"
+        " 'stylegan_v_tpu_torch.metrics.detectors.c3d',"
+        " 'stylegan_v_tpu_torch.parallel', 'stylegan_v_tpu_torch.parallel.distributed',"
+        " 'stylegan_v_tpu_torch.parallel.zero'}\n"
         "assert new <= set(names) and len(names) >= 26, names\n"
         "assert not bad, bad\n"
         "lazy = [m for m in ('yaml', 'PIL', 'cv2', 'tensorboardX') if m in sys.modules]\n"

@@ -234,6 +234,28 @@ def test_loader_batches_equal_the_jax_package(tmp_path):
         dev.close()
 
 
+@pytest.mark.parametrize("rank", [0, 1])
+def test_loader_batches_of_each_rank_equal_the_jax_package(tmp_path, rank):
+    """Over two ranks each loader reads its rank-strided share of the index
+    stream with its own worker seeds, as the JAX package's does per process;
+    the training loop takes those rows as the rank's rows of the global batch."""
+    path = write_frames(str(tmp_path), "png", num_videos=5, frames=20)
+    jcfg, tcfg = both_samplings(**SAMPLING)
+    kw = dict(max_num_frames=16, seed=2)
+    lkw = dict(batch_size=2, use_fractional_t=True, seed=4, num_workers=1, rank=rank,
+               num_replicas=2)
+    jl = jloader.TrainingDataLoader(jdataset.VideoFramesFolderDataset(path, sampling=jcfg, **kw),
+                                    gen_sampling=jcfg, **lkw)
+    tl = tloader.TrainingDataLoader(tdataset.VideoFramesFolderDataset(path, sampling=tcfg, **kw),
+                                    gen_sampling=tcfg, **lkw)
+    try:
+        for _ in range(3):
+            assert_items_equal(next(tl), next(jl))
+    finally:
+        jl.close()
+        tl.close()
+
+
 # -------------------------------------------------------------------- stats
 
 def test_device_stats_accumulator_equals_the_jax_package():

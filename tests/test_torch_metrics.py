@@ -17,8 +17,9 @@
     REL.
   * A reference file under a canonical name loads into the port's module;
     any other runs as TorchScript.
-  * More than one replica raises, and so does a metric without a card that
-    was not asked to run on the CPU.
+  * A replica's share of the stats, in one process, equals the JAX
+    package's; a metric without a card that was not asked to run on the CPU
+    raises.
 """
 import dataclasses
 import functools
@@ -351,17 +352,34 @@ def test_kid_and_is_equal_the_jax_package(ds_path, gens, monkeypatch, one_reader
 
 # ------------------------------------------------------------------ limits
 
-def test_more_than_one_replica_raises(ds_path, gens):
+def test_replicas_in_one_process_equal_the_jax_package(ds_path, gens, tmp_path, monkeypatch,
+                                                      one_reader):
+    """num_replicas=2 in one process: each replica's partial dataset stats
+    (every second item, the global cutoff) equal the JAX package's to the
+    bit, under a replica-tagged cache key that is the JAX package's too; the
+    generator quotas split num_gen. tests/test_torch_parallel.py merges
+    replicas across processes."""
+    monkeypatch.setenv("SGV_STUB_DETECTORS", "1")
     _, _, G = gens
-    kw = dict(G=G, dataset_kwargs=dataset_kwargs(ds_path), device="cpu", num_replicas=2,
-              replica=1)
-    opts = tmu.MetricOptions(**kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP P8"):
-        tmm.calc_metric("fvd2048_16f", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP P8"):
-        tmu.compute_feature_stats_for_dataset(opts, "i3d", {}, max_items=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP P8"):
-        tmu.compute_feature_stats_for_generator(opts, "i3d", {}, max_items=1)
+    dkw = dict(dataset_kwargs(ds_path), load_n_consecutive=8)
+    for r in range(2):
+        out = []
+        for mod in (jmu, tmu):
+            opts = mod.MetricOptions(dataset_kwargs=dkw, num_replicas=2, replica=r,
+                                     cache_dir=str(tmp_path / mod.__name__))
+            out.append(mod.compute_feature_stats_for_dataset(
+                opts, "i3d", {}, capture_mean_cov=True, capture_all=True, max_items=3,
+                temporal_detector=True, batch_size=2))
+        assert_stats_equal(out[1], out[0])
+        assert out[1].num_items == (2, 1)[r]
+    files = [sorted(os.listdir(tmp_path / mod.__name__)) for mod in (jmu, tmu)]
+    assert files[0] == files[1] and len(files[1]) == 2
+    monkeypatch.setitem(tmu._custom_detectors, "pixels", pixels)
+    got = [tmu.compute_feature_stats_for_generator(
+        tmu.MetricOptions(G=G, dataset_kwargs=dataset_kwargs(ds_path), device="cpu",
+                          num_replicas=2, replica=r), "pixels", {}, capture_mean_cov=True,
+        max_items=3, num_video_frames=2, temporal_detector=True).num_items for r in range(2)]
+    assert got == [2, 1]
 
 
 def test_metrics_raise_without_a_card_unless_asked_for_the_cpu(ds_path, gens, monkeypatch):

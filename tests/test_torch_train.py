@@ -1,5 +1,8 @@
 """Parity of the PyTorch port's loss phases and training step against the JAX
-package, on CPU, at test_torch_models.py's small configs.
+package, on CPU, at test_torch_models.py's small configs. The step with
+accumulation rounds and from bridged Adam moments is held in
+test_torch_train_rounds.py, over several ranks in test_torch_parallel.py;
+both use the helpers here.
 
 The JAX state comes from its own init_train_state and crosses to the port
 through stylegan_v_tpu_torch.io.bridge.jax_to_torch_train_state. The JAX
@@ -55,8 +58,9 @@ from stylegan_v_tpu.training import augment as jaug
 from stylegan_v_tpu.training import loss as jloss_mod
 from stylegan_v_tpu.training import train_step as jts
 from stylegan_v_tpu_torch.io import (jax_to_torch_discriminator, jax_to_torch_generator,
-                                     jax_to_torch_train_state, load_adam_state)
+                                     jax_to_torch_train_state)
 from stylegan_v_tpu_torch.models import Discriminator, Generator
+from stylegan_v_tpu_torch.parallel import World
 from stylegan_v_tpu_torch.training import augment as taug
 from stylegan_v_tpu_torch.training import loss as tloss_mod
 from stylegan_v_tpu_torch.training import train_step as tts
@@ -201,6 +205,17 @@ class JaxDraws:
 
 
 # ------------------------------------------------------------------ fixtures
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU ops in one thread while a module's tests run: the test
+    processes run side by side (pytest-xdist), and torch's threads on every
+    core would wait on each other. Results are compared within one setting."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 @pytest.fixture(scope="module")
 def jax_side():
@@ -403,14 +418,6 @@ def test_three_steps_match_jax(jax_side):
     assert state.step == 3 and float(state.augment_p) > 0
 
 
-def test_batch_chip_rounds_match_jax(jax_side):
-    """batch_chip=2: two accumulation rounds per phase, w_avg and pl_mean carried
-    from round to round, as the JAX package's scan does."""
-    for state, stats, jstate, jstats in run_steps(jax_side, 2, [(True, True)]):
-        assert_stats_close(stats, jstats, GPL_TOL)
-        assert_state_close(state, jstate)
-
-
 def test_three_steps_with_augment_match_jax(jax_side):
     """The steps of test_three_steps_match_jax with the bgc pipe
     (warp_upsample=2) in front of every D call, from augment_p = 0.5."""
@@ -419,45 +426,6 @@ def test_three_steps_with_augment_match_jax(jax_side):
         assert_stats_close(stats, jstats, GPL_TOL if "Loss/pl_penalty" in jstats else TOL)
         assert_state_close(state, jstate)
     assert state.step == 3 and abs(float(state.augment_p) - AUG_P) < 1e-3
-
-
-def test_batch_chip_rounds_with_augment_match_jax(jax_side):
-    """batch_chip=2 with the bgc pipe: each round's D calls take that round's
-    augment keys."""
-    for state, stats, jstate, jstats in run_steps(jax_side, 2, [(True, True)], augment=True):
-        assert_stats_close(stats, jstats, GPL_TOL)
-        assert_state_close(state, jstate)
-
-
-def test_adam_moments_through_the_bridge_match_jax(jax_side):
-    """Two JAX steps, then the bridge carries the whole state, Adam's moments
-    (optax mu, nu, count -> torch exp_avg, exp_avg_sq, step) included, into
-    the port, whose next step is held to JAX's third. Without the moments the
-    port's Adam would restart its bias correction and its averages."""
-    JG, JD, jstate, jdraws = jax_side
-    tcfg = jts.TrainingConfig(**TRAIN)
-    opt = jts.OptimizerConfig(**OPT)
-    jstep = jts.make_train_step(JG, JD, jts.LossConfig(**LOSS), opt, opt, tcfg, donate=False)
-    plan = [(False, False)] * 3          # one compiled JAX step
-    for i, (do_gpl, do_dr1) in enumerate(plan[:2]):
-        jbatch, _ = make_batch(20 + i)
-        jstate, _ = jstep(jstate, jbatch, jax.random.PRNGKey(100 + i), do_gpl=do_gpl,
-                          do_dr1=do_dr1)
-    state, step = port_state(jstate)
-    pieces = jax_to_torch_train_state(jstate, state.G, state.D)
-    for opt_t, name in ((state.opt_G, "opt_G"), (state.opt_D, "opt_D")):
-        assert len(pieces[name]) == len(opt_t.param_groups[0]["params"])
-        assert {float(s["step"]) for s in pieces[name].values()} == {2.0}
-        load_adam_state(opt_t, pieces[name])
-    do_gpl, do_dr1 = plan[2]
-    jbatch, tbatch = make_batch(22)
-    rng = jax.random.PRNGKey(102)
-    jstate, jstats = jstep(jstate, jbatch, rng, do_gpl=do_gpl, do_dr1=do_dr1)
-    state, stats = step(state, tbatch, do_gpl=do_gpl, do_dr1=do_dr1,
-                        draws=jdraws.step(rng, 1, do_gpl))
-    assert_stats_close(stats, jstats)
-    assert_state_close(state, jstate)
-    assert {float(s["step"]) for s in state.opt_D.state_dict()["state"].values()} == {3.0}
 
 
 # ----------------------------------------------------------------- port only
@@ -493,17 +461,34 @@ def test_steps_drawn_from_a_generator_are_reproducible(augment):
         step(state, tbatch)
 
 
-@pytest.mark.parametrize("what", ["augment_shards", "zero1", "d_lr_scales", "mesh"])
+@pytest.mark.parametrize("what", ["d_lr_scales"])
 def test_unported_options_raise(what):
+    G, D = small_port_models()
+    lcfg = tloss_mod.LossConfig(**LOSS)
+    tcfg = tts.TrainingConfig(**TRAIN)
+    with pytest.raises(NotImplementedError, match="P9"):
+        tts.make_train_step(G, D, lcfg, tcfg, d_lr_scales={"video": 0.1})
+
+
+@pytest.mark.parametrize("what", ["augment_shards", "zero1", "mesh"])
+def test_options_ported_for_several_ranks_run_a_step(what):
+    """The multi-GPU options (ROADMAP P8) run in one process: the augment's
+    data_shards is ignored (it only chunked JAX's warp), ZeRO-1 over one rank
+    is plain Adam, and the process group that replaced the mesh may be given
+    explicitly. tests/test_torch_parallel.py runs them over two ranks."""
     G, D = small_port_models()
     lcfg = tloss_mod.LossConfig(**LOSS)
     tcfg = tts.TrainingConfig(**TRAIN, zero1=(what == "zero1"))
     kw = {"augment_shards": lambda: dict(augment_fn=taug.make_augment_pipe(
               taug.AugmentConfig(**AUG, data_shards=2))),
-          "zero1": dict, "d_lr_scales": lambda: dict(d_lr_scales={"video": 0.1}),
-          "mesh": lambda: dict(mesh=object())}[what]
-    with pytest.raises(NotImplementedError, match="P8|P9"):
-        tts.make_train_step(G, D, lcfg, tcfg, **kw())
+          "zero1": dict, "mesh": lambda: dict(world=World())}[what]()
+    state = tts.init_train_state(G, D, tts.OptimizerConfig(**OPT), tts.OptimizerConfig(**OPT),
+                                 tcfg, augment_p=AUG_P, world=kw.get("world"))
+    assert type(state.opt_G) is torch.optim.Adam
+    step = tts.make_train_step(G, D, lcfg, tcfg, **kw)
+    _, tbatch = make_batch(3)
+    state, stats = step(state, tbatch, generator=torch.Generator().manual_seed(5))
+    assert state.step == 1 and all(bool(torch.isfinite(v)) for v in stats.values())
 
 
 @pytest.mark.parametrize("allow_tf32", [False, True])
