@@ -111,6 +111,26 @@ holds them against the port's plain PyTorch paths:
               through the entry point under torchrun's environment; (f)
               ms/step of the two ranks (they share one card: not a scaling
               number), the all-reduce's ms and peak memory per rank.
+ 16. legacy:  a reference-format .pkl (stylegan_v_tpu_torch/tools/ref_pickle.py)
+              of seeded FFS-256 G, G_ema and D with phase 13's configs: (a)
+              imported and loaded on the card, the state_dicts, G_ema's frames
+              and D's logits equal to the source's to the bit; a TF-era pickle
+              at FFS-256's widths into a video G (the renamed variables to the
+              bit, the motion encoder fresh, card vs CPU); (b) the loop through
+              the entry point with --resume <the .pkl> on phase 13's zip, 21
+              ADA steps: step 0's weights equal the .pkl's, the counters
+              fresh, K1/K1-bwd/K4/K4-bwd launches per step as phase 11's,
+              ms/step; then one tick under torchrun (nproc 1, nccl); (c)
+              `python -m stylegan_v_tpu_torch.generate` on the .pkl (clips/s),
+              on phase 14's run dir by its metric jsonl, and with
+              --moco-decomposition, each equal to generate_videos on the
+              card; (d) `generate --frame-shards 2 --device cuda:0`, whose
+              own spawn puts two ranks on the card (gloo): its JPEGs read
+              back against the one-process frames through the same writer,
+              in uint8, each rank's launches, and the gather's ms; (e) calc_metrics on the .pkl and on phase 13's last snapshot,
+              calc_metrics_for_dataset on two frame zips, each equal to
+              calc_metric in process (phase 14's detectors and counts); no
+              kernel launch in (c)-(e), (d)'s ranks included.
 
 Any failed check exits non-zero. The last two lines are the kernel record
 (each kernel's launches in phase 11, worst error, time, plain and library
@@ -1747,6 +1767,572 @@ def par_nccl(dev, zip_path, tmp):
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# ---------------------------------------------------------------- phase 16
+
+LEGACY_CLIPS = 16                # (c): the timed generate, 16 clips of 16 frames at 256^2
+LEGACY_SHARDS = (2, 16)          # (d): videos, frames over two ranks, two frame shards
+# (d): the frame shards against one call of every frame may differ by this many
+# times the two one-process runs' difference (in the ranks' blocks, in one call)
+LEGACY_BATCH_FACTOR = 2
+SMOKE_FVD = "fvd2048_16f_smoke"  # (e): fvd2048_16f at phase 14's counts (METRIC_ITEMS)
+# (a): a TF-era StyleGAN2 pickle at FFS-256's widths (channel_base 16384 = 2 x fmap_base)
+LEGACY_TF = dict(resolution=256, latent=512, fmap_base=8192, fmap_max=512, mapping_layers=8)
+
+
+def legacy_modules(run):
+    """FFS-256 G, G_ema and D on the CPU with the configs of phase 13's run
+    (its first snapshot's meta), seeded, G_ema's w_avg nonzero."""
+    import os
+    import torch
+    from stylegan_v_tpu_torch.io.checkpoint import meta_decode
+    from stylegan_v_tpu_torch.models import Discriminator, Generator
+    meta = json.load(open(os.path.join(run, "network-snapshot-000000.meta.json")))
+    gcfg, dcfg = (meta_decode(meta["configs"][k]) for k in ("G", "D"))
+    gen = torch.Generator().manual_seed(16)
+    G, D, G_ema = (Generator(gcfg, generator=gen), Discriminator(dcfg, generator=gen),
+                   Generator(gcfg, generator=gen))
+    with torch.no_grad():
+        G_ema.mapping.w_avg.normal_(generator=gen)
+    return {"G": G.eval(), "G_ema": G_ema.eval(), "D": D.eval()}
+
+
+def _equal_states(got, want, where):
+    import torch
+    check(set(got) == set(want), f"{where}: keys differ {sorted(set(got) ^ set(want))[:5]}")
+    for k, v in want.items():
+        check(torch.equal(got[k].cpu(), v.cpu()), f"{where}: {k} differs")
+
+
+def legacy_load(dev, tmp, pkl, src):
+    """Phase 16 (a): the reference .pkl and a TF-era pickle at FFS-256 widths,
+    loaded on the card."""
+    import os
+    import numpy as np
+    import torch
+    from stylegan_v_tpu_torch import generate
+    from stylegan_v_tpu_torch.io import legacy, legacy_tf
+    from stylegan_v_tpu_torch.models import Discriminator, Generator, GeneratorConfig
+    from stylegan_v_tpu_torch.models.config import replace
+    from stylegan_v_tpu_torch.tools.ref_pickle import write_tf_pickle
+
+    t0 = time.perf_counter()
+    imported = legacy.import_reference_snapshot(pkl)
+    G = generate.load_any_checkpoint(pkl, dev)           # the CLIs' load: G_ema, strict
+    D = Discriminator(src["D"].cfg).to(dev).eval()
+    legacy.load_port_state(D, imported["D"], require_all=True)
+    torch.cuda.synchronize()
+    t_load = time.perf_counter() - t0
+    for key in ("G", "G_ema", "D"):
+        _equal_states(imported[key], src[key].state_dict(), f"[16 legacy] imported {key}")
+    _equal_states(G.state_dict(), src["G_ema"].state_dict(), "[16 legacy] G_ema on the card")
+    _equal_states(D.state_dict(), src["D"].state_dict(), "[16 legacy] D on the card")
+    g = torch.Generator(device=dev).manual_seed(16)
+    z = torch.randn(2, G.cfg.z_dim, generator=g, device=dev)
+    t = torch.tensor([[0.0, 5.0, 11.0], [3.0, 40.0, 90.0]], device=dev)
+    mz = G.synthesis.motion_encoder.sample_motion_z(2, g)
+    source_G = copy.deepcopy(src["G_ema"]).to(dev)
+    source_D = copy.deepcopy(src["D"]).to(dev)
+    with deterministic(), torch.no_grad():
+        frames = [m(z, None, t, motion_z=mz, noise_mode="const") for m in (source_G, G)]
+        logits = [m(frames[0], None, t)["image_logits"] for m in (source_D, D)]
+    check(bool(torch.isfinite(frames[1]).all()) and torch.equal(*frames)
+          and torch.equal(*logits), "[16 legacy] frames or logits of the loaded G_ema and D "
+                                    "differ from the source modules'")
+    del source_G, source_D, G, D
+
+    # a TF-era pickle at FFS-256's widths, into a video G whose motion encoder stays fresh
+    t0 = time.perf_counter()
+    tf_path = write_tf_pickle(os.path.join(tmp, "tf-snapshot.pkl"), np.random.RandomState(16),
+                              **LEGACY_TF)
+    t_write = time.perf_counter() - t0
+    tf = LEGACY_TF
+    cfg = replace(GeneratorConfig(), img_resolution=tf["resolution"], w_dim=tf["latent"],
+                  z_dim=tf["latent"], channel_base=2 * tf["fmap_base"],
+                  channel_max=tf["fmap_max"], mapping_layers=tf["mapping_layers"],
+                  use_noise=True, input_type="const", num_bf16_res=0)
+    G_tf = Generator(cfg, generator=torch.Generator().manual_seed(17)).to(dev).eval()
+    fresh = {k: v.clone() for k, v in G_tf.state_dict().items()}
+    t0 = time.perf_counter()
+    legacy.import_reference_snapshot(tf_path, G_ema=G_tf)
+    torch.cuda.synchronize()
+    t_tf = time.perf_counter() - t0
+    stub = legacy.load_network_pkl(tf_path)["G_ema"]
+    want = legacy.port_state(legacy_tf.tf_to_torch_generator_state(
+        legacy_tf.collect_tf_params(stub)))
+    got = G_tf.state_dict()
+    check(set(want) <= set(got), f"[16 legacy] TF names the port lacks: "
+                                 f"{sorted(set(want) - set(got))[:5]}")
+    _equal_states({k: got[k] for k in want}, want, "[16 legacy] TF G_ema")
+    _equal_states({k: got[k] for k in fresh if k not in want},
+                  {k: v for k, v in fresh.items() if k not in want}, "[16 legacy] TF fresh part")
+    zt = torch.randn(1, cfg.z_dim, generator=g, device=dev)
+    tt = torch.tensor([[0.0, 7.0]], device=dev)
+    mzt = G_tf.synthesis.motion_encoder.sample_motion_z(1, g)
+    with torch.no_grad():
+        card = G_tf(zt, None, tt, motion_z=mzt, noise_mode="const")
+        cpu = copy.deepcopy(G_tf).cpu()(zt.cpu(), None, tt.cpu(), motion_z=mzt.cpu(),
+                                        noise_mode="const")
+    scale = float(cpu.abs().max())
+    err = float((card.cpu() - cpu).abs().max())
+    check(bool(torch.isfinite(card).all()) and err <= PARITY_TOL * scale,
+          f"[16 legacy] TF G_ema card vs CPU: max abs err {err:.3g}, scale {scale:.3g}")
+    print(f"[16 legacy] (a) reference .pkl ({os.path.getsize(pkl) / 2**20:.1f} MiB: FFS-256 G, "
+          f"G_ema, D, augment_pipe None) imported and loaded on the card in {t_load:.2f} s: "
+          f"the three state_dicts equal the source's to the bit, G_ema's frames "
+          f"{list(frames[1].shape)} and D's logits equal the source modules' on the card to "
+          f"the bit; TF-era "
+          f"pickle at FFS-256's widths ({os.path.getsize(tf_path) / 2**20:.1f} MiB, written in "
+          f"{t_write:.2f} s) into a video G in {t_tf:.2f} s: {len(want)} tensors equal the "
+          f"renamed TF variables to the bit, {len(fresh) - len(want)} (the motion encoder) "
+          f"fresh; its frames card vs CPU max abs err {err:.3g} (scale {scale:.3g}, tol "
+          f"{PARITY_TOL} x scale)", flush=True)
+    del G_tf
+
+
+def legacy_resume(dev, smi, zip_path, tmp, pkl, src):
+    """Phase 16 (b): the loop resumed from the .pkl through the entry point
+    (21 steps of phase 11's ADA step, launches per step), then one tick under
+    torchrun on nccl."""
+    import contextlib
+    import io
+    import os
+    import torch
+    from stylegan_v_tpu_torch import train as entry
+    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
+                                          downfirdn2d_x2_bwd)
+    from stylegan_v_tpu_torch.parallel.distributed import free_port
+    from stylegan_v_tpu_torch.training import loop as tloop
+
+    kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+    start, steps = {}, []
+    make = tloop.make_train_step
+
+    def recording(*a, **k):
+        step = make(*a, **k)
+
+        def run(state, batch, **kw):
+            if not start:
+                start.update({n: {k2: v.detach().cpu().clone() for k2, v in
+                                  getattr(state, n).state_dict().items()}
+                              for n in ("G", "G_ema", "D")})
+                start.update(step=state.step, cur_nimg=state.cur_nimg,
+                             adam=len(state.opt_G.state) + len(state.opt_D.state))
+            before = [k.launches for k in kernels]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(state, batch, **kw)
+            torch.cuda.synchronize()
+            steps.append((kw.get("do_dr1", False), tuple(k.launches - b for k, b in
+                                                         zip(kernels, before)),
+                          (time.perf_counter() - t0) * 1e3))
+            return out
+        return run
+
+    run_dir = os.path.join(tmp, "run_pkl")
+    args = [f"dataset.path={zip_path}", "training.batch_size=16", "training.kimg=1",
+            "training.kimg_per_tick=0.25", "training.snap=100", "training.metrics=[]",
+            f"project_release_dir={run_dir}", "--resume", pkl]
+    t0 = time.perf_counter()
+    tloop.make_train_step = recording
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            result = entry.main(args)
+    finally:
+        tloop.make_train_step = make
+    t_run = time.perf_counter() - t0
+    for key in ("G", "G_ema", "D"):
+        _equal_states(start[key], src[key].state_dict(), f"[16 legacy] step 0's {key}")
+    check((start["step"], start["cur_nimg"], start["adam"]) == (0, 0, 0)
+          and (result["start_step"], result["start_nimg"]) == (0, 0)
+          and result["cur_nimg"] == 1008 and len(steps) == 21,
+          f"[16 legacy] the resumed run: start {start['step']}, {start['cur_nimg']}, "
+          f"{start['adam']} Adam states; ended at {result['cur_nimg']} after {len(steps)} steps")
+    for i, (do_dr1, got, _) in enumerate(steps):
+        check(got == ADA_LAUNCHES_PER_STEP[do_dr1] and do_dr1 == (i % 16 == 0),
+              f"[16 legacy] step {i} (R1 {do_dr1}) launched K1, K1-bwd, K4, K4-bwd {got}, "
+              f"expected {ADA_LAUNCHES_PER_STEP[do_dr1]}")
+    check("Importing reference snapshot" in open(os.path.join(run_dir, "log.txt")).read(),
+          "[16 legacy] the log does not say it imported the .pkl")
+    ms = [m for r1, _, m in steps[2:] if not r1]
+    ms_r1 = [m for r1, _, m in steps if r1]
+    del result
+    torch.cuda.empty_cache()
+
+    # the same resume under torchrun, one process on nccl, for one tick
+    run_tr = os.path.join(tmp, "run_pkl_torchrun")
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes=1", "--nproc_per_node=1",
+         "--master_addr=localhost", f"--master_port={free_port()}", "-m",
+         "stylegan_v_tpu_torch.train", f"dataset.path={zip_path}", "training.batch_size=16",
+         "training.kimg=0.048", "training.metrics=[]", f"project_release_dir={run_tr}",
+         "--resume", pkl], env=env, capture_output=True, text=True, timeout=300)
+    t_torchrun = time.perf_counter() - t0
+    log = open(os.path.join(run_tr, "log.txt")).read() if proc.returncode == 0 else ""
+    rows = open(os.path.join(run_tr, "stats.jsonl")).readlines() if log else []
+    check(proc.returncode == 0 and "Importing reference snapshot" in log and len(rows) == 1
+          and os.path.exists(os.path.join(run_tr, "network-snapshot-000000.pt")),
+          f"[16 legacy] torchrun: rc {proc.returncode}, {len(rows)} stats rows; "
+          f"{proc.stdout[-2000:]} {proc.stderr[-3000:]}")
+    print(f"[16 legacy] (b) `python -m stylegan_v_tpu_torch.train ... --resume <the .pkl>` on "
+          f"phase 13's zip, in process: step 0's G, G_ema and D equal the .pkl's to the bit, "
+          f"step 0 / cur_nimg 0 / no Adam state; 21 ADA steps at 16x3 (R1 at 0 and 16) with "
+          f"K1, K1-bwd, K4, K4-bwd launches per step as phase 11's; "
+          f"{sum(ms) / len(ms):.1f} ms/step without R1 (mean of {len(ms)} synchronised steps "
+          f"after the first two), {', '.join(f'{m:.1f}' for m in ms_r1)} ms with R1; the run "
+          f"{t_run:.1f} s with its setup and a snapshot. `python -m torch.distributed.run "
+          f"--nproc_per_node 1 -m stylegan_v_tpu_torch.train ... --resume <the .pkl>` on nccl: "
+          f"one step, one tick, a snapshot, in {t_torchrun:.1f} s; on {smi}", flush=True)
+
+
+def legacy_generate(dev, smi, tmp, pkl):
+    """Phase 16 (c): `python -m stylegan_v_tpu_torch.generate` in process on the
+    .pkl, on phase 14's run dir by its metric jsonl, and with
+    --moco-decomposition, each against generate_videos on the card."""
+    import contextlib
+    import io
+    import os
+    import numpy as np
+    import torch
+    from stylegan_v_tpu_torch import generate
+    from stylegan_v_tpu_torch.training.video_io import generate_videos
+    from stylegan_v_tpu_torch.utils.misc import float32_precision
+
+    def cli(argv):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), deterministic():
+            videos = generate.main(argv + ["--device", str(dev)])
+        return videos, time.perf_counter() - t0, out.getvalue()
+
+    def in_process(argv, path, timed=False):
+        """generate_videos on the CLI's draws, with deterministic kernels as the
+        CLI ran; `timed`: then twice more as a user runs it, the second timed."""
+        with contextlib.redirect_stdout(io.StringIO()):
+            G = generate.load_any_checkpoint(path, dev)
+        args = generate.parse_args(argv)
+        z, c, ts, mz = generate.draw_inputs(args, G.cfg)
+
+        def synthesise():
+            with float32_precision(False):
+                return generate_videos(G, z, c, ts, motion_z=mz, noise_mode=args.noise_mode,
+                                       truncation_psi=args.truncation_psi,
+                                       batch_size_num_frames=args.batch_size_num_frames,
+                                       seed=args.seed)
+        with deterministic():
+            videos = synthesise()
+        if not timed:
+            return videos, None
+        synthesise()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        synthesise()
+        torch.cuda.synchronize()
+        return videos, time.perf_counter() - t0
+
+    msgs = []
+    out_pkl = os.path.join(tmp, "gen_pkl")
+    argv = ["--network", pkl, "-o", out_pkl, "--num-videos", str(LEGACY_CLIPS),
+            "--video-len", "16", "--save-as-frames"]
+    got, t_cli, _ = cli(argv)
+    want, t_syn = in_process(argv, pkl, timed=True)
+    res = LOOP_DATA[2]
+    check(got.shape == (LEGACY_CLIPS, 16, res, res, 3) and np.array_equal(got, want)
+          and len(os.listdir(out_pkl)) == LEGACY_CLIPS
+          and len(os.listdir(os.path.join(out_pkl, "video0000"))) == 16,
+          "[16 legacy] generate on the .pkl: the frames differ from generate_videos'")
+    msgs.append(f"on the .pkl, {LEGACY_CLIPS} clips x 16 frames as frame folders: equal to "
+                f"generate_videos to the bit; {LEGACY_CLIPS / t_syn:.2f} clips/s of synthesis "
+                f"(generate_videos warm, {t_syn:.3f} s on the host clock, synchronised; "
+                f"{LEGACY_CLIPS * -(-16 // -(-16 // max(1, 100 // LEGACY_CLIPS)))}-frame calls"
+                f"), the CLI {t_cli:.2f} s "
+                f"with the load, deterministic "
+                f"kernels and {LEGACY_CLIPS * 16} JPEGs")
+
+    run = os.path.join(tmp, "run_metrics")            # phase 14 (f): snapshots and jsonl
+    rows = [json.loads(line) for line in open(os.path.join(run, "metric-fvd2048_16f.jsonl"))]
+    best = min(rows, key=lambda r: r["results"]["fvd2048_16f"])["snapshot"]
+    path = os.path.join(run, best + ".pt")
+    argv = ["--networks-dir", run, "-o", os.path.join(tmp, "gen_best"), "--num-videos", "4",
+            "--video-len", "16"]
+    got, _, printed = cli(argv)
+    want, _ = in_process(argv, path)
+    check(f"Loading {path}" in printed and np.array_equal(got, want),
+          f"[16 legacy] generate --networks-dir picked {printed.splitlines()[:1]}, expected "
+          f"{best} by its FVD")
+    msgs.append(f"--networks-dir on phase 14's run picks {best} (FVD "
+                f"{[r['results']['fvd2048_16f'] for r in rows]}), frames equal to the bit")
+
+    argv = ["--network", pkl, "-o", os.path.join(tmp, "gen_moco"), "--num-videos", "4",
+            "--video-len", "16", "--moco-decomposition"]
+    got, _, _ = cli(argv)
+    want, _ = in_process(argv, pkl)
+    check(np.array_equal(got, want) and os.path.exists(os.path.join(tmp, "gen_moco",
+                                                                    "grid.mp4")),
+          "[16 legacy] generate --moco-decomposition differs from generate_videos")
+    msgs.append("--moco-decomposition 2x2 grid.mp4, frames equal to the bit")
+    print(f"[16 legacy] (c) `python -m stylegan_v_tpu_torch.generate`: " + "; ".join(msgs)
+          + f"; on {smi}", flush=True)
+
+
+RANK_LAUNCHES = "SMOKE_RANK_LAUNCHES"   # (d): where each spawned rank writes its launches
+
+
+def _write_rank_launches():
+    """At a spawned rank's exit: its K1, K1-bwd, K4 and K4-bwd launches, to a
+    file of its own in $SMOKE_RANK_LAUNCHES."""
+    import os
+    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
+                                          downfirdn2d_x2_bwd)
+    with open(os.path.join(os.environ[RANK_LAUNCHES], f"{os.getpid()}.json"), "w") as f:
+        json.dump([k.launches for k in (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp,
+                                        affine_warp_bwd)], f)
+
+
+if __name__ == "__mp_main__":          # a spawned rank imports this script under that name
+    import os as _os
+    if _os.environ.get(RANK_LAUNCHES):
+        import atexit
+        atexit.register(_write_rank_launches)
+
+
+def read_frame_folders(out, V, T):
+    """The frame folders a generate run wrote, decoded: uint8 [V, T, H, W, 3]."""
+    import os
+    import numpy as np
+    import PIL.Image
+    return np.stack([np.stack([np.asarray(PIL.Image.open(
+        os.path.join(out, f"video{v:04d}", f"{t:06d}.jpg")).convert("RGB")) for t in range(T)])
+        for v in range(V)])
+
+
+def legacy_shards(dev, tmp, pkl):
+    """Phase 16 (d): `generate --frame-shards 2 --device cuda:0` as a user runs
+    it: main spawns its two ranks, both on the card over gloo, and rank 0
+    writes the frame folders. They are held against the one-process synthesis
+    of the same draws, written by the same JPEG writer and read back, in
+    uint8. FFS-256 computes its top four resolutions in bf16, where cuDNN's
+    kernels, and so the rounding, depend on the batch: the one-process run
+    that must agree to a level is generate_videos in calls of the ranks'
+    blocks (V x T/2 frames); against one call of all the frames the
+    difference must stay within LEGACY_BATCH_FACTOR times that of the two
+    one-process runs, the floor set by the batch alone. Each rank writes its
+    kernel launches at exit (_write_rank_launches); the gather's time is rank
+    0's log line."""
+    import contextlib
+    import io
+    import os
+    import re
+    import numpy as np
+    from stylegan_v_tpu_torch import generate
+    from stylegan_v_tpu_torch.training.video_io import (generate_videos,
+                                                        save_video_frames_as_frames_parallel)
+    from stylegan_v_tpu_torch.utils.misc import float32_precision
+
+    V, T = LEGACY_SHARDS
+    out = os.path.join(tmp, "gen_shards")
+    argv = ["--network", pkl, "-o", out, "--num-videos", str(V), "--video-len", str(T),
+            "--frame-shards", "2", "--save-as-frames",
+            "--device", f"cuda:{dev.index or 0}" if dev.type == "cuda" else "cpu"]
+    launches_dir = os.path.join(tmp, "shard_launches")
+    os.makedirs(launches_dir)
+    log_path = os.path.join(tmp, "gen_shards.log")
+    sys.stdout.flush()
+    saved = os.dup(1)                  # the spawned ranks print to this process's fd 1
+    os.environ[RANK_LAUNCHES] = launches_dir
+    t0 = time.perf_counter()
+    try:
+        with open(log_path, "w") as log:
+            os.dup2(log.fileno(), 1)
+            returned = generate.main(argv)
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+        del os.environ[RANK_LAUNCHES]
+    t_cli = time.perf_counter() - t0
+    printed = open(log_path).read()
+    gather = re.findall(r"Gathered \d+ x \d+ frames from 2 ranks in ([0-9.]+) ms", printed)
+    rank_launches = [json.load(open(os.path.join(launches_dir, f)))
+                     for f in sorted(os.listdir(launches_dir))]
+    check(returned is None and len(gather) == 1 and len(rank_launches) == 2
+          and all(n == [0, 0, 0, 0] for n in rank_launches),
+          f"[16 legacy] generate --frame-shards 2: returned {type(returned)}, launches a rank "
+          f"{rank_launches}, printed {printed[-2000:]!r}")
+    got = read_frame_folders(out, V, T)
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        G = generate.load_any_checkpoint(pkl, dev)
+    args = generate.parse_args(argv)
+    z, c, ts, mz = generate.draw_inputs(args, G.cfg)
+
+    def one_process(frames_a_call):
+        with float32_precision(False):
+            videos = generate_videos(G, z, c, ts, motion_z=mz, noise_mode=args.noise_mode,
+                                     truncation_psi=args.truncation_psi,
+                                     batch_size_num_frames=frames_a_call, seed=args.seed)
+        where = os.path.join(tmp, f"gen_one_{frames_a_call}")
+        for v in range(V):
+            save_video_frames_as_frames_parallel(videos[v], os.path.join(where,
+                                                                         f"video{v:04d}"))
+        return read_frame_folders(where, V, T).astype(np.int16)
+
+    blocks, whole = one_process(V * T // 2), one_process(V * T)
+    got = got.astype(np.int16)
+    diff, diff_whole, floor = (np.abs(a - b) for a, b in
+                               ((got, blocks), (got, whole), (blocks, whole)))
+    res = LOOP_DATA[2]
+    check(got.shape == blocks.shape == (V, T, res, res, 3) and diff.max() <= 1
+          and diff_whole.max() <= max(1, LEGACY_BATCH_FACTOR * floor.max()),
+          f"[16 legacy] --frame-shards 2: worst uint8 difference {diff.max()} from the "
+          f"one-process run in the ranks' blocks, {diff_whole.max()} from it in one call "
+          f"(the two one-process runs: {floor.max()})")
+    print(f"[16 legacy] (d) `generate --frame-shards 2 --device {argv[-1]}`, its two ranks "
+          f"spawned by the CLI on the card (gloo), {V} videos x {T} frames, each rank {V} x "
+          f"{T // 2}; its JPEGs read back against the one-process synthesis of the same draws "
+          f"through the same writer: in the ranks' blocks {int((diff > 0).sum())} of "
+          f"{diff.size} uint8 values differ, worst by {int(diff.max())}; in one call of "
+          f"{V * T} frames {int((diff_whole > 0).sum())} differ, worst by "
+          f"{int(diff_whole.max())}, where the two one-process runs differ in "
+          f"{int((floor > 0).sum())}, worst by {int(floor.max())} (bf16 at the top four "
+          f"resolutions); K1, K1-bwd, K4, K4-bwd launches in each rank {rank_launches}; "
+          f"rank 0's all_gather of the frames (float32 via the host) {gather[0]} ms; the CLI "
+          f"{t_cli:.1f} s with the spawn", flush=True)
+
+
+def legacy_metrics(dev, zip_path, tmp, pkl, models):
+    """Phase 16 (e): calc_metrics on the .pkl and on phase 13's last snapshot and
+    calc_metrics_for_dataset on two frame datasets, against calc_metric in
+    process on the same G, counts and detectors (phase 14's)."""
+    import contextlib
+    import io
+    import math
+    import os
+    from stylegan_v_tpu_torch import calc_metrics, calc_metrics_for_dataset, generate
+    from stylegan_v_tpu_torch.metrics import detectors as det
+    from stylegan_v_tpu_torch.metrics import frechet_video_distance as fvd_lib
+    from stylegan_v_tpu_torch.metrics import metric_main, metric_utils
+    from stylegan_v_tpu_torch.models.config import SamplingConfig
+
+    fns = {"i3d": det.i3d_features_fn, "inception": det.inception_features_fn,
+           "c3d_ucf101": det.c3d_features_fn}
+    for (name, fn), model in zip(fns.items(), models):
+        model = copy.deepcopy(model).to(dev)
+        metric_utils.register_detector(name, lambda fn=fn, model=model, **kw: fn(model, **kw),
+                                       cache_tag=f"chip-smoke-random-{name}-s16")
+    real, gen = METRIC_ITEMS
+    if not metric_main.is_valid_metric(SMOKE_FVD):
+        def fvd2048_16f_smoke(opts):
+            return {SMOKE_FVD: fvd_lib.compute_fvd(opts, max_real=real, num_gen=gen,
+                                                   num_frames=16)}
+        metric_main.register_metric(fvd2048_16f_smoke)
+
+    def row(run_dir):
+        return json.loads(open(os.path.join(run_dir, f"metric-{SMOKE_FVD}.jsonl"))
+                          .readlines()[-1])["results"][SMOKE_FVD]
+
+    def agree(a, b):
+        return math.isfinite(a) and abs(a - b) <= 1e-6 * max(abs(b), 1e-6)
+
+    home = os.environ.get("HOME")
+    os.environ["HOME"] = os.path.join(tmp, "home")          # the CLIs' stats cache
+    msgs, t0 = [], time.perf_counter()
+    try:
+        for tag, network in (("pkl", pkl),
+                             ("snapshot", os.path.join(tmp, "run", "network-snapshot-000002.pt"))):
+            run_dir = os.path.join(tmp, f"cm_{tag}")
+            t1 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                calc_metrics.main(["--network", network, "--data", zip_path, "--mirror",
+                                   "--metrics", SMOKE_FVD, "--run-dir", run_dir,
+                                   "--device", str(dev)])
+            t_cli = time.perf_counter() - t1
+            G = generate.load_any_checkpoint(network, dev)
+            kw = dict(path=zip_path, sampling=G.cfg.sampling, xflip=True,
+                      max_num_frames=G.cfg.sampling.max_num_frames,
+                      resolution=G.cfg.img_resolution)
+            want = metric_main.calc_metric(SMOKE_FVD, G=G, dataset_kwargs=kw,
+                                           device=dev).results[SMOKE_FVD]
+            got = row(run_dir)
+            check(agree(got, want), f"[16 legacy] calc_metrics on the {tag}: {got!r}, "
+                                    f"calc_metric {want!r}")
+            msgs.append(f"calc_metrics on the {tag} {got!r} (calc_metric {want!r}, "
+                        f"{t_cli:.2f} s)")
+        t1 = time.perf_counter()
+        other = write_ppm_zip(os.path.join(tmp, "other256.zip"), seed=1)
+        t_other = time.perf_counter() - t1
+        common = dict(sampling=SamplingConfig(max_num_frames=1024), max_num_frames=1024,
+                      xflip=False, resolution=LOOP_DATA[2])
+        values = []
+        for tag, fake in (("same", zip_path), ("other", other)):
+            run_dir = os.path.join(tmp, f"cmd_{tag}")
+            with contextlib.redirect_stdout(io.StringIO()):
+                calc_metrics_for_dataset.main(["--real-data", zip_path, "--fake-data", fake,
+                                               "--metrics", SMOKE_FVD, "--run-dir", run_dir,
+                                               "--resolution", str(LOOP_DATA[2]),
+                                               "--device", str(dev)])
+            want = metric_main.calc_metric(
+                SMOKE_FVD, dataset_kwargs=dict(path=zip_path, **common),
+                gen_dataset_kwargs=dict(path=fake, **common), generator_as_dataset=True,
+                device=dev).results[SMOKE_FVD]
+            got = row(run_dir)
+            check(agree(got, want) or (tag == "same" and abs(got - want) <= 1e-6),
+                  f"[16 legacy] calc_metrics_for_dataset ({tag}): {got!r}, calc_metric {want!r}")
+            values.append(got)
+        check(abs(values[0]) <= 1e-3 * values[1] and values[1] > 0,
+              f"[16 legacy] dataset against itself {values[0]!r}, against another {values[1]!r}")
+        msgs.append(f"calc_metrics_for_dataset phase 13's zip against itself {values[0]!r}, "
+                    f"against a second zip (seed 1, written in {t_other:.1f} s) {values[1]!r}, "
+                    f"each equal to calc_metric's")
+    finally:
+        if home is None:
+            os.environ.pop("HOME", None)
+        else:
+            os.environ["HOME"] = home
+    print(f"[16 legacy] (e) {SMOKE_FVD} ({real} real, {gen} generated clips, phase 14's random "
+          f"detectors): " + "; ".join(msgs) + f"; in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def phase_legacy(dev, smi, zip_path, tmp, models):
+    """Phase 16: a reference .pkl written from seeded FFS-256 modules with
+    phase 13's configs; (a) load, (b) resume, (c) generate, (d) frame shards,
+    (e) metrics; no kernel launch in (c)-(e)."""
+    import os
+    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
+                                          downfirdn2d_x2_bwd)
+    from stylegan_v_tpu_torch.tools.ref_pickle import write_reference_pickle
+
+    t_phase = time.perf_counter()
+    src = legacy_modules(os.path.join(tmp, "run"))
+    pkl = write_reference_pickle(os.path.join(tmp, "network-snapshot-ffs256.pkl"),
+                                 cur_nimg=123456, **src)
+    parts = {}
+    t0 = time.perf_counter()
+    legacy_load(dev, tmp, pkl, src)
+    parts["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    legacy_resume(dev, smi, zip_path, tmp, pkl, src)
+    parts["b"] = time.perf_counter() - t0
+    kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+    for k in kernels:
+        k.launches = 0
+    for tag, fn, args in (("c", legacy_generate, (dev, smi, tmp, pkl)),
+                          ("d", legacy_shards, (dev, tmp, pkl)),
+                          ("e", legacy_metrics, (dev, zip_path, tmp, pkl, models))):
+        t0 = time.perf_counter()
+        fn(*args)
+        parts[tag] = time.perf_counter() - t0
+    launches = tuple(k.launches for k in kernels)
+    check(launches == (0, 0, 0, 0), f"[16 legacy] K1, K1-bwd, K4, K4-bwd launched {launches} "
+                                     "times in (c)-(e), expected none")
+    print(f"[16 legacy] K1, K1-bwd, K4, K4-bwd launches during (c)-(e) in this process (and "
+          f"none in (d)'s ranks, above): "
+          f"{launches}; the parts took " + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items())
+          + f"; phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def kernel_records(k1, k1_bwd, k4, k4_bwd, launches):
     """The kernel record: each kernel's launches in the ADA run (phase 11),
     worst error against its plain version, and its time, its plain version's
@@ -1817,9 +2403,11 @@ def main() -> int:
         zip_path, G_ema = phase_loop(dev, smi, prestaged, tmp)   # the loop's own TF32 default
         with float32_precision(False):
             phase_metrics(dev, smi, G_ema, zip_path, tmp, detectors)
-        del G_ema, detectors
+        del G_ema
         torch.cuda.empty_cache()
         phase_parallel(dev, smi, zip_path, tmp)       # the steps' own TF32 default
+        torch.cuda.empty_cache()
+        phase_legacy(dev, smi, zip_path, tmp, detectors)   # the loop's own TF32 default
     records = kernel_records(k1, k1_bwd, k4, k4_bwd, launches)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -8,7 +8,10 @@ float32. Modulated convs use the activation-scaling form of
 ops/modulated_conv2d.py.
 
 Random draws (motion_z when it is not given, per-layer noise in 'random'
-mode) come from the `generator` argument of `forward`.
+mode) come from the `generator` argument of `forward`: a torch.Generator, or
+for the per-layer noise also a draw source with randn(shape) (over several
+ranks, parallel/distributed.py:RowsDraws, which draws the global batch's
+noise and keeps the rank's rows, as the JAX step draws it).
 """
 from __future__ import annotations
 
@@ -24,6 +27,14 @@ from ..utils.misc import assert_shape, normal_param
 from .config import GeneratorConfig
 from .layers import Conv2dLayer, FullyConnectedLayer, GenInput, MappingNetwork
 from .motion import MotionMappingNetwork, compute_motion_v_dim
+
+
+def draw_noise(source, shape, device) -> torch.Tensor:
+    """Standard normal noise of `shape` on `device`, from a torch.Generator or
+    from a draw source (an object whose randn(shape) returns a tensor)."""
+    if isinstance(source, torch.Generator):
+        return torch.randn(shape, generator=source, device=device)
+    return source.randn(shape).to(device)
 
 
 class SynthesisLayer(nn.Module):
@@ -64,9 +75,9 @@ class SynthesisLayer(nn.Module):
         noise = None
         if self.use_noise and noise_mode == "random":
             if generator is None:
-                raise ValueError("noise_mode='random' needs a torch.Generator")
-            noise = torch.randn([x.shape[0], 1, self.resolution, self.resolution],
-                                generator=generator, device=x.device) * self.noise_strength
+                raise ValueError("noise_mode='random' needs a torch.Generator or a draw source")
+            noise = draw_noise(generator, [x.shape[0], 1, self.resolution, self.resolution],
+                               x.device) * self.noise_strength
         elif self.use_noise and noise_mode == "const":
             noise = self.noise_const[None, None] * self.noise_strength
 

@@ -14,8 +14,9 @@ group:
     D's minibatch-std groups (strided across the batch,
     models/discriminator.py:MinibatchStdLayer) are the global batch's groups:
     D's forward needs no collective.
-  * `RowsDraws` and `rank_draws`: every rank makes a step's GLOBAL draws and
-    keeps its rows, so a run's draws do not depend on the world size.
+  * `RowsDraws`, `rank_draws` and `frame_rows`: every rank makes a step's
+    GLOBAL draws and keeps its rows, so a run's draws do not depend on the
+    world size (the per-layer noise of synthesis too, one row a frame).
   * `all_reduce_mean_`, `broadcast_module_`, `broadcast_tensors_`: the
     collectives of the step and of start and resume, over one flat buffer.
   * `launch`: runs a function in W spawned processes; a rank that raises ends
@@ -188,6 +189,13 @@ class RowsDraws:
 
     def randn(self, shape) -> torch.Tensor:
         return self._take(self.source.randn(self._global(shape)))
+
+
+def frame_rows(rows: np.ndarray, frames: int) -> np.ndarray:
+    """The frame rows [v*frames + f for v in rows for f in 0..frames-1] of
+    video rows `rows`: synthesis makes one image a frame."""
+    rows = np.asarray(rows, dtype=np.int64)
+    return (rows[:, None] * frames + np.arange(frames)).reshape(-1)
 
 
 def _take_rows(x: torch.Tensor, rows: np.ndarray, per: int = 1) -> torch.Tensor:

@@ -4,12 +4,15 @@
         training.batch_size=16 exp_suffix=myrun
 
     python -m stylegan_v_tpu_torch.train --cfg-path runs/exp/experiment_config.yaml
+    python -m stylegan_v_tpu_torch.train dataset.path=... --resume network-snapshot.pkl
 
 The counterpart of the repo's root train.py (the JAX package's): it composes
 configs/ groups with dotted overrides (or reads a frozen config), freezes the
 resolved config to <run_dir>/experiment_config.yaml (what makes
-resume=latest work), probes the dataset's resolution and labels, resolves
-the setup and runs the training loop on `--device` (default cuda; there is
+resume=latest work; `--resume` sets training.resume: latest, a snapshot, or
+a reference .pkl whose weights the run starts from), probes the dataset's
+resolution and labels, resolves the setup and runs the training loop on
+`--device` (default cuda; there is
 no fallback to the CPU: pass --device cpu for a CPU run). After each
 snapshot the loop scores `training.metrics` (configs/training/base.yaml lists
 four FVD and FID metrics) with the detectors found in $SGV_DETECTOR_DIR or
@@ -51,7 +54,12 @@ def main(argv: Optional[List[str]] = None) -> Optional[Dict]:
     ap.add_argument("--device", default="cuda", help="cuda (the default), cuda:N or cpu")
     ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
                     help="the ranks' backend: nccl on CUDA and gloo on the CPU by default")
-    args = ap.parse_args(argv)
+    ap.add_argument("--resume", default=None,
+                    help="training.resume=<value>: latest, a snapshot (.pt), or a reference "
+                         ".pkl (weights only)")
+    args = ap.parse_intermixed_args(argv)          # overrides on both sides of the options
+    if args.resume:
+        args.overrides.append(f"training.resume={args.resume}")
 
     import torch
 

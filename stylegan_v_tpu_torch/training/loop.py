@@ -33,9 +33,17 @@ with `setup.metric_kwargs`, on the loop's device) and appends one
 metric-<name>.jsonl row per metric; a metric that fails is logged with its
 traceback and training goes on, as in the JAX loop.
 
-Options the port does not have yet (MoCoGAN, .pkl resume) raise
-NotImplementedError before the first step, naming their ROADMAP item
-(`check_ported`).
+Resume: `resume='latest'` or a snapshot path restores the whole state
+(io/checkpoint.py). A reference `.pkl` (torch-era or TF-era, io/legacy.py)
+is a weights-only import, as in the JAX loop and the reference's resume_pkl:
+a name-matched partial copy into G, G_ema and D where the pickle holds each
+(parameters and buffers; a shape that differs raises), while the counters,
+Adam's state, augment_p and cur_nimg stay fresh. Rank 0 reads the pickle
+before it makes anything (a pickle the port cannot take raises there), and
+the broadcast after resume gives every rank its weights.
+
+The MoCoGAN discriminator is not ported yet: it raises NotImplementedError
+before the first step, naming its ROADMAP item (`check_ported`).
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ import torch
 from ..data import DeviceLoader, TrainingDataLoader, VideoFramesFolderDataset
 from ..io.checkpoint import (find_latest_snapshot, load_snapshot, restore_train_state,
                              save_snapshot)
+from ..io.legacy import import_reference_snapshot, load_port_state
 from ..metrics import metric_main
 from ..models import Discriminator, Generator
 from ..models.motion import MotionMappingNetwork
@@ -81,10 +90,7 @@ def resolve_device(device=None) -> torch.device:
 def check_ported(setup: TrainSetup) -> None:
     """Raise NotImplementedError for an option the port does not have yet."""
     if setup.disc_source == "mocogan":
-        raise NotImplementedError("the MoCoGAN discriminator is not ported yet (ROADMAP P9)")
-    if setup.resume and str(setup.resume).endswith(".pkl"):
-        raise NotImplementedError("resume from a reference .pkl (io/legacy) is not ported "
-                                  "yet (ROADMAP P9)")
+        raise NotImplementedError("the MoCoGAN discriminator is not ported yet (ROADMAP P9c)")
 
 
 def check_world(setup: TrainSetup, world: World) -> None:
@@ -147,6 +153,9 @@ def training_loop(setup: TrainSetup, device=None,
     world = current_world() if world is None else world
     check_world(setup, world)
     device = resolve_device(device)
+    reference = None
+    if setup.resume and str(setup.resume).endswith(".pkl") and world.is_chief:
+        reference = import_reference_snapshot(setup.resume)      # before anything is made
     os.makedirs(setup.run_dir, exist_ok=True)
     start_time = time.time()
     if not world.is_chief:
@@ -155,7 +164,8 @@ def training_loop(setup: TrainSetup, device=None,
         if world.is_chief else None
     try:
         with float32_precision(setup.allow_tf32):
-            result = _train(setup, device, abort_fn, progress_fn, log, start_time, world)
+            result = _train(setup, device, abort_fn, progress_fn, log, start_time, world,
+                            reference)
     finally:
         if logger is not None:
             logger.close()     # gives sys.stdout back even when a step raises
@@ -169,7 +179,7 @@ def _silent(*_) -> None:
 
 
 def _train(setup: TrainSetup, device: torch.device, abort_fn, progress_fn, log,
-           start_time: float, world: World) -> Dict:
+           start_time: float, world: World, reference=None) -> Dict:
     run_dir = setup.run_dir
     chief = world.is_chief
 
@@ -206,7 +216,15 @@ def _train(setup: TrainSetup, device: torch.device, abort_fn, progress_fn, log,
 
     # ---- resume (reference train.py:283-317, training_loop.py:167-183) ---
     resume_nimg = 0
-    if setup.resume:
+    if setup.resume and str(setup.resume).endswith(".pkl"):
+        # weights only, from a reference snapshot pickle (reference resume_pkl:
+        # partial copy, counters and optimizer fresh); rank 0 reads it and the
+        # broadcast below carries it
+        log(f"Importing reference snapshot {setup.resume} (weights only)")
+        for key, module in (("G", state.G), ("G_ema", state.G_ema), ("D", state.D)):
+            if reference is not None and reference[key] is not None:
+                load_port_state(module, reference[key])
+    elif setup.resume:
         path = (find_latest_snapshot(run_dir) if setup.resume == "latest"
                 else setup.resume)
         if path:

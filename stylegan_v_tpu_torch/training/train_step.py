@@ -41,7 +41,10 @@ N = B/R videos, rank r holds rows rank_rows(N, G, W, r), which keep D's
 minibatch-std groups (G videos, strided) the global batch's, so D's forward
 issues no collective. `draws` are the step's GLOBAL draws, the same on every
 rank (or made from `generator`, seeded alike on every rank); each rank keeps
-its rows of them, so a run's draws do not depend on W. What the JAX step
+its rows of them, so a run's draws do not depend on W. Per-layer noise in
+'random' mode is drawn inside synthesis from `generator`: over W ranks every
+layer draws the noise of the round's global frames and keeps the rank's
+(RowsDraws), as the JAX step draws it over its global batch. What the JAX step
 reduces over its global batch, the port all-reduces: each phase's gradients
 (one flat buffer per network, averaged after the rounds and before the
 scrub, as in JAX), the mapping's w_avg (the mean of each round's w), Gpl's
@@ -67,8 +70,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..models import Discriminator, Generator
-from ..parallel.distributed import (World, all_reduce_mean_, mbstd_group, rank_draws, row_plan,
-                                    world as current_world)
+from ..parallel.distributed import (RowsDraws, World, all_reduce_mean_, frame_rows, mbstd_group,
+                                    rank_draws, row_plan, world as current_world)
 from ..parallel.zero import make_adam
 from ..utils.misc import float32_precision
 from .augment import GeneratorDraws
@@ -239,7 +242,7 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
     """
     if d_lr_scales:
         raise NotImplementedError("per-subtree D learning rates (MoCoGAN) are not "
-                                  "ported yet (ROADMAP P9)")
+                                  "ported yet (ROADMAP P9c)")
     world = current_world() if world is None else world
     W = world.size
     loss = GANLoss(G, D, loss_cfg, augment_fn=augment_fn,
@@ -268,11 +271,21 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
                 raise ValueError("train_step needs a torch.Generator or explicit draws")
             draws = sample_draws(G, loss_cfg, B, rounds, generator, do_gpl,
                                  augment=augment_fn is not None, do_dr1=do_dr1)
+        noise = {}               # each phase's source of synthesis's per-layer noise
         if W > 1:
             N = B // rounds
             plan = row_plan(B, rounds, mbstd_group(D, N), W, world.rank,
                             loss_cfg.pl_batch_shrink if do_gpl else None)
             draws = rank_draws(draws, plan, num_frames)
+            if generator is not None:
+                source = GeneratorDraws(generator)
+                noise = {name: RowsDraws(source, frame_rows(plan.rows, num_frames),
+                                         N * num_frames) for name in ("Gmain", "Dgen")}
+                if do_gpl:        # Gpl's rows: the rank's share of a round's first b videos
+                    k = len(plan.rows) // loss_cfg.pl_batch_shrink
+                    b = N // loss_cfg.pl_batch_shrink
+                    noise["Gpl"] = RowsDraws(source, frame_rows(plan.rows[:k], num_frames),
+                                             b * num_frames)
         batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
         real_img = batch["real_img"].float() / 127.5 - 1.0           # [B, F, C, H, W]
         real_c = batch["real_c"] if c_dim > 0 else None
@@ -300,7 +313,8 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
                 mix = (rows(d["mix_cutoff"], r)[0], rows(d["mix_z"], r))
             c = rows(gen_c[:, p], r) if gen_c is not None else None
             return dict(z=rows(d["z"], r), c=c, t=rows(gen_t[:, p], r),
-                        motion_z=rows(d["motion_z"], r), mix=mix, generator=generator)
+                        motion_z=rows(d["motion_z"], r), mix=mix,
+                        generator=noise.get(name, generator))
 
         stats: Stats = {}
 

@@ -8,8 +8,9 @@ asymmetric filter), and the wrappers' input checks (K4's plain version is
 held to the JAX package in tests/test_torch_augment.py). float32 holds to
 1e-5; bf16 to 1e-2, since both sides round once from a float32 sum.
 
-Tests marked `cuda` need an NVIDIA GPU and nvcc; they skip elsewhere. On
-such a machine, which need not have jax:
+Tests marked `cuda` need an NVIDIA GPU and nvcc; they skip elsewhere. One
+of them also loads a reference .pkl and runs the generate CLI on the card.
+On such a machine, which need not have jax:
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py -q
 """
 import numpy as np
@@ -506,3 +507,31 @@ def test_k4_bwd_matches_plain_and_repeats_to_the_bit_on_card(cuda, maps, mode, d
     assert dx.dtype == dtype
     assert_close(dx, affine_grid_sample_bwd_plain(dy, G, 18, 20, mode), dtype)
     assert torch.equal(dx, affine_warp_bwd(dy, G, 18, 20, mode))
+
+
+# ------------------------------------------ a reference .pkl and generate on the card
+
+@pytest.mark.cuda
+def test_reference_pkl_loads_and_generates_on_card(cuda, tmp_path):
+    """io/legacy.py's import and `python -m stylegan_v_tpu_torch.generate` on
+    the card, against the CPU (they launch none of the kernels above)."""
+    from stylegan_v_tpu_torch import generate
+    from stylegan_v_tpu_torch.models import Generator, GeneratorConfig
+    from stylegan_v_tpu_torch.tools.ref_pickle import write_reference_pickle
+
+    cfg = GeneratorConfig(w_dim=64, z_dim=64, img_resolution=32, channel_base=1024,
+                          channel_max=64, num_bf16_res=0, mapping_layers=2)
+    G = Generator(cfg, generator=torch.Generator().manual_seed(51))
+    pkl = write_reference_pickle(str(tmp_path / "g.pkl"), G=G, G_ema=G)
+    loaded = generate.load_any_checkpoint(pkl, cuda)
+    for k, v in G.state_dict().items():
+        assert torch.equal(loaded.state_dict()[k].cpu(), v), k
+    argv = ["--network", pkl, "--num-videos", "4", "--video-len", "6", "--moco-decomposition"]
+    launches = [k.launches for k in (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp,
+                                     affine_warp_bwd)]
+    got = generate.main(argv + ["-o", str(tmp_path / "card"), "--device", "cuda"])
+    want = generate.main(argv + ["-o", str(tmp_path / "cpu"), "--device", "cpu"])
+    assert got.shape == want.shape == (4, 6, 32, 32, 3)
+    assert float(np.abs(got - want).max()) <= 1e-3
+    assert launches == [k.launches for k in (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp,
+                                             affine_warp_bwd)]

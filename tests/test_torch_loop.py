@@ -347,10 +347,20 @@ def test_step_seed_depends_on_seed_and_step_only():
     assert len(seeds) == 300 and all(0 <= s < 2 ** 63 for s in seeds)
 
 
+def lstm_pickle(path):
+    """A reference pickle whose motion encoder holds an LSTM (`rnn.*`), which
+    the port does not have yet (ROADMAP P9c)."""
+    from stylegan_v_tpu_torch.models import Generator
+    from stylegan_v_tpu_torch.tools.ref_pickle import write_reference_pickle
+    G = Generator(port_cfg(small_gen_cfg()))
+    G.synthesis.motion_encoder.rnn = torch.nn.LSTM(8, 8)
+    return write_reference_pickle(str(path), G=G, G_ema=G)
+
+
 @pytest.mark.parametrize("option", ["mocogan", "pkl"])
 def test_unported_options_raise_before_a_step(tmp_path, option):
     kw = {"mocogan": dict(disc_source="mocogan"),
-          "pkl": dict(resume="network-snapshot.pkl")}[option]
+          "pkl": dict(resume=lstm_pickle(tmp_path / "network-snapshot.pkl"))}[option]
     run = str(tmp_path / "run")
     with pytest.raises(NotImplementedError, match="ROADMAP P9"):
         tloop.training_loop(tiny_setup("unused", run, **kw), device=torch.device("cpu"))
