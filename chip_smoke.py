@@ -131,12 +131,39 @@ holds them against the port's plain PyTorch paths:
               calc_metrics_for_dataset on two frame zips, each equal to
               calc_metric in process (phase 14's detectors and counts); no
               kernel launch in (c)-(e), (d)'s ranks included.
+ 17. mocogan: configs/experiments.yaml's mocogan_baseline/b16_mnf16 at
+              256^2 (model=mocogan: the LSTM motion G and the MoCoGAN D, image
+              D + Conv3d/BatchNorm3d video D), 16 videos x 16 frames a step in
+              accumulation rounds of training.batch_gpu videos, composed from
+              configs/ as the entry point composes it: (a) one step with R1,
+              three without, one more with R1 at augment_p 0.5, every loss,
+              stat (the video ones too) and parameter finite, D's Adam groups
+              at 1x and 0.1x (video_discr), K1/K1-bwd/K4/K4-bwd launches per
+              step (phase 11's per round times the rounds), TF32 off in D,
+              ms/step, frames/s, peak memory; (b) K1 and K1-bwd against their
+              plain versions at the image D's six skip inputs of the step
+              (a round's 8 x 16 frames; phases 3 and 7's checks and times),
+              K4 and K4-bwd at the pipe's 48-channel warp (phase 10's checks
+              and times; the plan's whole/chunked/direct tile shares), beside
+              phase 10's 9-channel times; (c) at 64^2 reduced width, card vs
+              CPU with the same weights and draws (the video D's noise too):
+              the LSTM G's frames, D's two logits, Gmain's dG and Dr1's dD,
+              the gradients within 3x the CPU's own gradient move at the
+              weight move that moves its outputs as far as the card's differ;
+              (d) the loop through the entry point on phase 13's zip: 4 steps,
+              a snapshot equal to the bit to the state, resume=latest for 4
+              more, the resumed optimizer's groups, launches per run, both
+              logit streams in stats.jsonl; (e) generate on (d)'s last
+              snapshot against generate_videos, clips/s, fvd2048_16f at phase
+              14's counts, no kernel launch.
 
 Any failed check exits non-zero. The last two lines are the kernel record
 (each kernel's launches in phase 11, worst error, time, plain and library
 time, and its bound: bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s,
-whichever is larger) and {"ok": true, "device": {...}}. There is no CPU path: without a CUDA
-device the script fails.
+whichever is larger; its launches per MoCoGAN step, K1's and K1-bwd's
+numbers at the MoCoGAN image D's skips and K4's and K4-bwd's at 48 channels,
+from phase 17) and {"ok": true, "device": {...}}. There is no CPU path:
+without a CUDA device the script fails.
 """
 from __future__ import annotations
 
@@ -246,14 +273,15 @@ def phase_build():
           f"{time.perf_counter() - t0:.2f} s", flush=True)
 
 
-def phase_kernel(dev, tag, kind, kernel, plain):
-    """K1 (kind "down") or K1-bwd ("up") against its plain version at D's six
-    skip shapes at 2 x 3 and at 16 x 3, in float32 and bf16 (the first shape
-    of each with an asymmetric filter too), with CUDA-event times of the
-    kernel, its plain version and its library call in turns, in D's dtype at
-    each shape; at 16 x 3 with a cold L2. Returns the worst error and, summed
-    over the six shapes at 16 x 3 (one D pass), the kernel, plain, library and
-    bound times."""
+def phase_kernel(dev, tag, kind, kernel, plain, sets=None):
+    """K1 (kind "down") or K1-bwd ("up") against its plain version at each set
+    of D skip shapes in `sets` ((label, [((N, C, H, W), D's dtype there)]);
+    by default D's six skips at 2 x 3 and at 16 x 3), in float32 and bf16
+    (the first shape of each set with an asymmetric filter too), with
+    CUDA-event times of the kernel, its plain version and its library call in
+    turns, in D's dtype at each shape; the last set with a cold L2. Returns
+    the worst error and, summed over the last set's shapes (one D pass), the
+    kernel, plain, library and bound times."""
     import torch
     from stylegan_v_tpu_torch.ops import setup_filter
 
@@ -262,7 +290,9 @@ def phase_kernel(dev, tag, kind, kernel, plain):
     g = torch.Generator(device=dev).manual_seed(0)
     max_err = 0.0
     sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
-    for batch, shapes in (("2x3", D_SKIP_SHAPES), ("16x3", D_SKIP_SHAPES_16X3)):
+    sets = sets or (("2x3", D_SKIP_SHAPES), ("16x3", D_SKIP_SHAPES_16X3))
+    last = sets[-1][0]
+    for batch, shapes in sets:
         small = {"ms": 0.0, "plain_ms": 0.0}
         for i, ((n, c, h, w), path_dtype) in enumerate(shapes):
             shape = (n, c, h, w) if kind == "down" else (n, c, h // 2, w // 2)
@@ -281,7 +311,7 @@ def phase_kernel(dev, tag, kind, kernel, plain):
                 if dtype_name != path_dtype:
                     continue
                 library = depthwise_library(kind, sym, c, dtype, dev)
-                xs = cold_copies(x) if batch == "16x3" else [x]
+                xs = cold_copies(x) if batch == last else [x]
                 fns = [rotating(lambda x: plain(x, sym), xs),
                        rotating(lambda x: kernel(x, sym), xs), rotating(library, xs)]
                 for fn in fns:                                  # warm-up
@@ -294,7 +324,7 @@ def phase_kernel(dev, tag, kind, kernel, plain):
                       f"({nbytes / (kern * 1e-3) / 1e9:.0f} GB/s, {bound / kern:.1%} of the "
                       f"{bound:.4f} ms bound)  plain {plain_t:.4f} ms  library {lib:.4f} ms",
                       flush=True)
-                if batch == "16x3":
+                if batch == last:
                     for k, v in (("ms", kern), ("plain_ms", plain_t), ("library_ms", lib),
                                  ("bound_ms", bound)):
                         sums[k] += v
@@ -303,10 +333,10 @@ def phase_kernel(dev, tag, kind, kernel, plain):
                     small["ms"] += kern
                     small["plain_ms"] += plain_t
                 del xs, fns
-        if batch == "2x3":
-            print(f"{tag} one D pass at 2x3: kernel {small['ms']:.4f} ms, plain "
+        if batch != last:
+            print(f"{tag} one D pass at {batch}: kernel {small['ms']:.4f} ms, plain "
                   f"{small['plain_ms']:.4f} ms", flush=True)
-    print(f"{tag} one D pass at 16x3 (cold L2): kernel {sums['ms']:.4f} ms, plain "
+    print(f"{tag} one D pass at {last} (cold L2): kernel {sums['ms']:.4f} ms, plain "
           f"{sums['plain_ms']:.4f} ms, library {sums['library_ms']:.4f} ms, bound "
           f"{sums['bound_ms']:.4f} ms ({sums['bound_ms'] / sums['ms']:.1%} of it)", flush=True)
     return max_err, sums
@@ -613,14 +643,15 @@ def phase_grads(dev):
           f"{PARITY_TOL} x scale: " + "; ".join(msgs), flush=True)
 
 
-def warp_calls(dev):
-    """The K4 calls of the ADA pipe at 16 videos x 3 frames (9 channels), as
-    (input shape, G_inv, out_h, out_w, dtype) for warp_upsample 2 and 1, taken
-    from the pipe itself run on the card with bgc draws at p = 1."""
+def warp_calls(dev, batch=WARP_BATCH, upsamples=(2, 1)):
+    """The K4 calls of the ADA pipe on `batch` (videos, fused channels, size;
+    16 videos x 3 frames, 9 channels, by default), as (input shape, G_inv,
+    out_h, out_w, dtype) for each of `upsamples` (warp_upsample), taken from
+    the pipe itself run on the card with bgc draws at p = 1."""
     import torch
     from stylegan_v_tpu_torch.training import augment as taug
 
-    (N, C, H), calls, warp = WARP_BATCH, [], taug.affine_grid_sample
+    (N, C, H), calls, warp = batch, [], taug.affine_grid_sample
 
     def recorded(x, G_inv, out_h, out_w, mode="reflect"):
         calls.append((tuple(x.shape), G_inv.detach().clone(), out_h, out_w, x.dtype))
@@ -630,7 +661,7 @@ def warp_calls(dev):
     x = torch.rand(N, C, H, H, generator=g, device=dev) * 2 - 1
     taug.affine_grid_sample = recorded
     try:
-        for warp_upsample in (2, 1):
+        for warp_upsample in upsamples:
             pipe = taug.make_augment_pipe(taug.AugmentConfig(**taug.AUGPIPE_SPECS["bgc"],
                                                              warp_upsample=warp_upsample))
             with torch.no_grad():
@@ -640,8 +671,8 @@ def warp_calls(dev):
     shapes = [(c[0], c[2], c[3]) for c in calls]
     # warp_upsample=2: reflect pad 6, 2x up, warp to the canvas less 3 a side; 1: direct
     big, out = 2 * (H + 12), 2 * (H + 6)
-    check(shapes == [((N, C, big, big), out, out), ((N, C, H, H), H, H)],
-          f"the ADA pipe's warp calls: {shapes}")
+    want = {2: ((N, C, big, big), out, out), 1: ((N, C, H, H), H, H)}
+    check(shapes == [want[u] for u in upsamples], f"the ADA pipe's warp calls: {shapes}")
     return calls
 
 
@@ -665,12 +696,13 @@ def per_pixel_warp():
     return warp
 
 
-def phase_warp(dev):
-    """K4 and K4-bwd against their plain versions at the pipe's shapes, K4
-    against its reference design to the bit; returns each one's worst error
-    and its time, the plain version's and the nearest PyTorch call's at the
-    ADA step's call (the 536^2 canvas in the pipe's bf16), and for K4 its
-    reference design's time there."""
+def phase_warp(dev, batch=WARP_BATCH, upsamples=(2, 1), tag="[10 warp]", autograd=True):
+    """K4 and K4-bwd against their plain versions at the pipe's shapes on
+    `batch` (warp_calls), K4 against its reference design to the bit; returns
+    each one's worst error and its time, the plain version's and the nearest
+    PyTorch call's at the ADA step's call (the 536^2 canvas in the pipe's
+    bf16), and for K4 its reference design's time there. `autograd`: then
+    autograd through K4 to second order."""
     import math
     import torch
     import torch.nn.functional as F
@@ -679,7 +711,7 @@ def phase_warp(dev):
                                           affine_warp_bwd)
     from stylegan_v_tpu_torch.ops.grid_sample import _warp_tile_boxes
 
-    calls = warp_calls(dev)
+    calls = warp_calls(dev, batch, upsamples)
     per_pixel = per_pixel_warp()
     c = 4 * math.cos(math.pi / 4)     # a quarter scale at 45 degrees, past the border
     extreme = torch.tensor([[[c, -c, 1.7], [c, c, -2.3], [0, 0, 1]],
@@ -722,9 +754,10 @@ def phase_warp(dev):
                               f"K4 {[N, C, H, W]} {dtype_name} {set_name}: not equal to the bit "
                               f"to its reference design")
                         equal_plain.append(torch.equal(got, want))
-                plan = _warp_tile_boxes(G, H, W, out_h, out_w, channels=C,
-                                        itemsize=x.element_size())
-                staged[set_name] = float((plan.channels > 0).mean())
+                ch = _warp_tile_boxes(G, H, W, out_h, out_w, channels=C,
+                                      itemsize=x.element_size()).channels
+                staged[set_name] = "/".join(f"{float(share):.4f}" for share in (
+                    (ch == C).mean(), ((ch > 0) & (ch < C)).mean(), (ch == 0).mean()))
             if i == 0:    # K4-bwd sums without atomics, in a fixed order: it repeats to the bit
                 check(torch.equal(bwd(G_bgc), bwd(G_bgc)),
                       f"K4-bwd {[N, C, H, W]} {dtype_name}: two calls differ")
@@ -757,7 +790,7 @@ def phase_warp(dev):
                     path[name] = (t["kernel"], t["plain"], t["nearest"], bound, by)
                 path["K4"] += (times["K4"]["per_pixel"],)
             k4, k4b = times["K4"], times["K4-bwd"]
-            print(f"[10 warp] {[N, C, H, W]} -> {[out_h, out_w]} {dtype_name}: K4 "
+            print(f"{tag} {[N, C, H, W]} -> {[out_h, out_w]} {dtype_name}: K4 "
                   f"{k4['kernel']:.4f} ms ({bound / k4['kernel']:.1%} of the {bound:.4f} ms "
                   f"bound) reference design {k4['per_pixel']:.4f} plain {k4['plain']:.4f}"
                   + (f" nearest {k4['nearest']:.4f}" if at_path else "")
@@ -765,10 +798,12 @@ def phase_warp(dev):
                   f"{k4b['plain']:.4f}" + (f" nearest {k4b['nearest']:.4f}" if at_path else "")
                   + f"; max_abs_err over {', '.join(sets)}: K4 {err['K4']:.3g}, K4-bwd "
                   f"{err['K4-bwd']:.3g}; K4 equal to the bit to its reference design, to the "
-                  f"plain version {sum(equal_plain)} of {len(equal_plain)}; K4 tiles staged by the "
-                  f"plan (computed on the host, not measured) "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in staged.items())
+                  f"plain version {sum(equal_plain)} of {len(equal_plain)}; K4 tiles staged "
+                  f"whole/chunked/direct by the plan (computed on the host, not measured) "
+                  + ", ".join(f"{k} {v}" for k, v in staged.items())
                   + ("; K4-bwd repeats to the bit" if i == 0 else ""), flush=True)
+    if not autograd:
+        return ((worst["K4"], *path["K4"]), (worst["K4-bwd"], *path["K4-bwd"]))
     # Autograd through K4 on the card: first order launches K4-bwd, second order K4.
     x = torch.randn(3, 5, 18, 20, generator=g, device=dev, requires_grad=True)
     G = extreme[torch.tensor([0, 1, 0], device=dev)]
@@ -943,20 +978,21 @@ def write_ppm_zip(path, seed=0):
     return path
 
 
-def _equal_trees(a, b, where=""):
+def _equal_trees(a, b, where="", tag="[13 loop]"):
     """Every tensor of a nest of dicts and lists equal to the bit; returns the count."""
     import torch
     if isinstance(a, torch.Tensor):
         check(isinstance(b, torch.Tensor) and a.dtype == b.dtype and torch.equal(a, b),
-              f"[13 loop] {where} differs from the saved state")
+              f"{tag} {where} differs from the saved state")
         return 1
     if isinstance(a, dict):
-        check(isinstance(b, dict) and set(a) == set(b), f"[13 loop] {where} keys differ")
-        return sum(_equal_trees(a[k], b[k], f"{where}.{k}") for k in a)
+        check(isinstance(b, dict) and set(a) == set(b), f"{tag} {where} keys differ")
+        return sum(_equal_trees(a[k], b[k], f"{where}.{k}", tag) for k in a)
     if isinstance(a, (list, tuple)):
-        check(len(a) == len(b), f"[13 loop] {where} lengths differ")
-        return sum(_equal_trees(x, y, f"{where}[{i}]") for i, (x, y) in enumerate(zip(a, b)))
-    check(a == b, f"[13 loop] {where}: {a} != {b}")
+        check(len(a) == len(b), f"{tag} {where} lengths differ")
+        return sum(_equal_trees(x, y, f"{where}[{i}]", tag)
+                   for i, (x, y) in enumerate(zip(a, b)))
+    check(a == b, f"{tag} {where}: {a} != {b}")
     return 0
 
 
@@ -2201,19 +2237,12 @@ def legacy_shards(dev, tmp, pkl):
           f"{t_cli:.1f} s with the spawn", flush=True)
 
 
-def legacy_metrics(dev, zip_path, tmp, pkl, models):
-    """Phase 16 (e): calc_metrics on the .pkl and on phase 13's last snapshot and
-    calc_metrics_for_dataset on two frame datasets, against calc_metric in
-    process on the same G, counts and detectors (phase 14's)."""
-    import contextlib
-    import io
-    import math
-    import os
-    from stylegan_v_tpu_torch import calc_metrics, calc_metrics_for_dataset, generate
+def register_smoke_metrics(dev, models):
+    """Phase 14's random detectors under the reference's names, on the card, and
+    SMOKE_FVD: fvd2048_16f at phase 14's counts (METRIC_ITEMS)."""
     from stylegan_v_tpu_torch.metrics import detectors as det
     from stylegan_v_tpu_torch.metrics import frechet_video_distance as fvd_lib
     from stylegan_v_tpu_torch.metrics import metric_main, metric_utils
-    from stylegan_v_tpu_torch.models.config import SamplingConfig
 
     fns = {"i3d": det.i3d_features_fn, "inception": det.inception_features_fn,
            "c3d_ucf101": det.c3d_features_fn}
@@ -2227,6 +2256,22 @@ def legacy_metrics(dev, zip_path, tmp, pkl, models):
             return {SMOKE_FVD: fvd_lib.compute_fvd(opts, max_real=real, num_gen=gen,
                                                    num_frames=16)}
         metric_main.register_metric(fvd2048_16f_smoke)
+
+
+def legacy_metrics(dev, zip_path, tmp, pkl, models):
+    """Phase 16 (e): calc_metrics on the .pkl and on phase 13's last snapshot and
+    calc_metrics_for_dataset on two frame datasets, against calc_metric in
+    process on the same G, counts and detectors (phase 14's)."""
+    import contextlib
+    import io
+    import math
+    import os
+    from stylegan_v_tpu_torch import calc_metrics, calc_metrics_for_dataset, generate
+    from stylegan_v_tpu_torch.metrics import metric_main
+    from stylegan_v_tpu_torch.models.config import SamplingConfig
+
+    register_smoke_metrics(dev, models)
+    real, gen = METRIC_ITEMS
 
     def row(run_dir):
         return json.loads(open(os.path.join(run_dir, f"metric-{SMOKE_FVD}.jsonl"))
@@ -2333,12 +2378,534 @@ def phase_legacy(dev, smi, zip_path, tmp, models):
           + f"; phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
-def kernel_records(k1, k1_bwd, k4, k4_bwd, launches):
+# ---------------------------------------------------------------- phase 17
+# The MoCoGAN slice: configs/experiments.yaml's mocogan_baseline/b16_mnf16 at
+# 256^2 with clips of 16 consecutive frames, composed as the entry point
+# composes it (stylegan_v_tpu_torch/tools/moco_memory.py: OVERRIDES, SHAPE).
+MOCO_SHAPE = (16, 16, 256)       # videos, frames, resolution of a step
+MOCO_BATCH_GPU = 8               # videos a round: the largest that fits 80 GB (PERF.md 4)
+MOCO_ROUNDS = MOCO_SHAPE[0] // MOCO_BATCH_GPU
+# Each round runs phase 11's D calls: the image D is the same resnet D (six K1
+# skips a call; with one frame a "video" it fuses nothing), the pipe one K4 a
+# call, and the video D launches no kernel. So per step: phase 11's counts
+# times the rounds.
+MOCO_LAUNCHES_PER_STEP = {r1: tuple(MOCO_ROUNDS * n for n in ADA_LAUNCHES_PER_STEP[r1])
+                          for r1 in (False, True)}
+MOCO_WARP_BATCH = (MOCO_BATCH_GPU, 3 * MOCO_SHAPE[1], MOCO_SHAPE[2])   # 48 fused channels
+MOCO_LOOP_RUNS = ((0, 4), (4, 8))   # the loop's two runs: 1024 and 2048 frames at 256 a step
+# (c): card vs CPU gradients within MOCO_FLOOR_FACTOR times the CPU's own
+# gradient move, the largest of MOCO_FLOOR_SEEDS draws, when every weight moves
+# by m of itself (weights x (1 + m N(0, 1))), with m for each draw the move at
+# which the CPU's frames and logits move as far from the CPU's own as the
+# card's differ from them (found from a move of MOCO_PROBE_MOVE, to which the
+# outputs' move is proportional): the card's sums round otherwise, by that
+# much, and each of the video D's leaky-ReLU kinks (after batch norms, whose
+# outputs crowd zero) that flips moves a gradient element by ~1e-3 of scale.
+MOCO_FLOOR_FACTOR, MOCO_PROBE_MOVE, MOCO_FLOOR_SEEDS = 3.0, 1e-6, 3
+MOCO_CLIPS = 8                   # (e): generate, 8 clips of 16 frames
+
+
+def moco_setup():
+    """The slice's TrainSetup at MOCO_BATCH_GPU videos a round."""
+    from stylegan_v_tpu_torch.tools import moco_memory
+    return moco_memory.slice_setup(MOCO_BATCH_GPU)
+
+
+def moco_step(dev, smi):
+    """Phase 17 (a): five steps (R1, three without, R1) of the slice's step on
+    seeded weights, at augment_p = 0.5; returns the launches of each kernel a
+    step without and with R1 as measured, (ms without R1, ms with R1,
+    amortised ms, frames/s, peak GiB), and the image D's skip inputs in the
+    step, ((N, C, H, W), dtype name) in block order (phase_kernel's shapes)."""
+    import torch
+    from stylegan_v_tpu_torch.models import MoCoGANDiscriminator
+    from stylegan_v_tpu_torch.models.discriminator import DiscriminatorBlock
+    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
+                                          downfirdn2d_x2_bwd)
+    from stylegan_v_tpu_torch.tools import moco_memory
+    from stylegan_v_tpu_torch.utils.misc import float32_precision
+
+    tag = "[17 moco (a)]"
+    setup = moco_setup()
+    gcfg, tcfg = setup.gen_cfg, setup.train_cfg
+    check(gcfg.motion.gen_strategy == "autoregressive" and not gcfg.motion.fourier
+          and setup.disc_source == "mocogan" and setup.loss_cfg.video_consistent_aug
+          and tcfg.batch_chip == MOCO_BATCH_GPU and tcfg.D_reg_interval == 16
+          and setup.augment_cfg is not None and setup.augment_cfg.warp_upsample == 2
+          and gcfg.img_resolution == MOCO_SHAPE[2],
+          f"{tag} the composed setup is not the slice's: {setup}")
+    state, step = moco_memory.slice_step(setup, dev, augment_p=ADA_P)
+    D = state.D
+    scales = D.lr_scale_map
+    groups = state.opt_D.param_groups
+    video = {id(p) for n, p in D.named_parameters() if n.startswith("video_discr.")}
+    check(len(groups) == 2 and groups[1]["lr"] == groups[0]["lr"] * scales["video_discr"]
+          and {id(p) for p in groups[1]["params"]} == video,
+          f"{tag} D's Adam groups: {[(g['lr'], len(g['params'])) for g in groups]}")
+    kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+    B, F, res = MOCO_SHAPE
+    batch = moco_memory.slice_batch(dev)
+    g = torch.Generator(device=dev).manual_seed(18)
+    tf32 = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    seen, skips = set(), {}
+
+    def skip_input(module, args):       # the first input each skip takes; args unchanged
+        skips.setdefault(module, (tuple(args[0].shape), str(args[0].dtype).split(".")[-1]))
+
+    hooks = [D.register_forward_hook(lambda *_: seen.add(tuple(t.allow_tf32 for t in tf32)))]
+    hooks += [m.skip.register_forward_pre_hook(skip_input) for m in D.image_discr.modules()
+              if isinstance(m, DiscriminatorBlock) and hasattr(m, "skip")]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    times, measured = {True: [], False: []}, {}
+    before_video = [p.detach().clone() for p in groups[1]["params"]]
+    try:
+        for do_dr1 in (True, False, False, False, True):
+            before = [k.launches for k in kernels]
+            t0 = time.perf_counter()
+            state, stats = step(state, batch, generator=g, do_dr1=do_dr1)
+            torch.cuda.synchronize()
+            times[do_dr1].append(time.perf_counter() - t0)
+            got = measured[do_dr1] = tuple(k.launches - n for k, n in zip(kernels, before))
+            check(got == MOCO_LAUNCHES_PER_STEP[do_dr1],
+                  f"{tag} step (do_dr1={do_dr1}) launched K1, K1-bwd, K4, K4-bwd {got} times, "
+                  f"expected {MOCO_LAUNCHES_PER_STEP[do_dr1]}")
+            bad = [k for k, v in stats.items() if not bool(torch.isfinite(v).all())]
+            check(not bad, f"{tag} non-finite stats {bad}")
+            check({"Loss/G/loss_video", "Loss/scores/fake_video",
+                   "Loss/scores/real_video"} <= set(stats), f"{tag} stats {sorted(stats)}")
+    finally:
+        for h in hooks:
+            h.remove()
+    check(seen == {(False, False)}, f"{tag} (cudnn, matmul) allow_tf32 inside D: {seen}")
+    skips = list(skips.values())
+    check(len(skips) == MOCO_LAUNCHES_PER_STEP[False][0] // (3 * MOCO_ROUNDS)
+          and all(n == MOCO_BATCH_GPU * F for (n, *_), _ in skips),
+          f"{tag} the image D's skip inputs {skips}")
+    check(isinstance(D, MoCoGANDiscriminator) and state.step == 5
+          and state.cur_nimg == 5 * B * F, f"{tag} step {state.step}, {state.cur_nimg} frames")
+    moved = max(float((p.detach() - b).abs().max())
+                for p, b in zip(groups[1]["params"], before_video))
+    check(moved > 0, f"{tag} the video branch did not move")
+    for name, module in (("G", state.G), ("D", state.D), ("G_ema", state.G_ema)):
+        bad = [n for n, p in module.named_parameters() if not bool(torch.isfinite(p).all())]
+        check(not bad, f"{tag} non-finite {name} parameters {bad[:5]}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms_main = sum(times[False][1:]) / len(times[False][1:]) * 1e3
+    ms_r1 = times[True][1] * 1e3
+    ms_step = (15 * ms_main + ms_r1) / 16
+    fps = B * F / (ms_step * 1e-3)
+    # The video D alone at a round's input, TF32 off as in the step: its
+    # forward, and its forward with the backward into the input and the
+    # weights (each of a round's Gmain, Dgen and Dreal calls takes one of the two)
+    vd, convs, flops = D.video_discr, [], [0]
+    x = torch.randn(MOCO_BATCH_GPU, 3, F, res, res, generator=g, device=dev, requires_grad=True)
+    for m in vd.modules():
+        if hasattr(m, "out_shape"):            # the video D's Conv3d layers
+            convs.append(m.register_forward_hook(lambda m, i, o: flops.__setitem__(
+                0, flops[0] + 2 * o.numel() * m.weight[0].numel())))
+    with float32_precision(False):
+        with torch.no_grad():
+            vd(x, g)
+        for h in convs:
+            h.remove()
+
+        def forward():
+            with torch.no_grad():
+                vd(x, g)
+
+        def forward_backward():
+            torch.autograd.backward(vd(x, g).sum(), inputs=[x] + list(vd.parameters()))
+
+        forward_backward()
+        ms_fwd, ms_fwd_bwd = in_turns([forward, forward_backward], 3)
+    video_ms = MOCO_ROUNDS * 3 * ms_fwd_bwd
+    print(f"{tag} the Conv3d video D alone at {list(x.shape)}, float32 without TF32: forward "
+          f"{ms_fwd:.1f} ms ({flops[0] / 1e12:.3f} TFLOP, {flops[0] / ms_fwd / 1e9:.1f} "
+          f"TFLOP/s), forward and backward {ms_fwd_bwd:.1f} ms (CUDA events, in turns); "
+          f"{MOCO_ROUNDS} rounds x 3 calls = {video_ms:.0f} ms, {video_ms / ms_main:.2f} of the "
+          f"step without R1", flush=True)
+    print(f"{tag} MoCoGAN step (LSTM G at channel_base {gcfg.channel_base}, image D + Conv3d "
+          f"video D), {B}x{F} at {res}^2 "
+          f"in {MOCO_ROUNDS} rounds of {MOCO_BATCH_GPU} videos (the pipe on "
+          f"{list(MOCO_WARP_BATCH[:2])} x {res}^2), bgc ADA at p {ADA_P}: {ms_main:.1f} ms "
+          f"without R1 (first {times[False][0] * 1e3:.1f}), {ms_r1:.1f} ms with R1 (first "
+          f"{times[True][0] * 1e3:.1f}); amortised at R1 every 16: {ms_step:.1f} ms/step, "
+          f"{fps:.1f} frames/s; peak {peak:.2f} GiB; D's Adam groups lr "
+          f"{[g['lr'] for g in groups]} (video_discr {scales['video_discr']}x); losses "
+          f"{', '.join(f'{k} {v.item():.4f}' for k, v in stats.items())}; K1, K1-bwd, K4, "
+          f"K4-bwd launches per step {measured[False]} without R1, "
+          f"{measured[True]} with (phase 11's {ADA_LAUNCHES_PER_STEP[False]}, "
+          f"{ADA_LAUNCHES_PER_STEP[True]}); the image D's skip inputs {skips}; allow_tf32 "
+          f"inside D {sorted(seen)}; on {smi}", flush=True)
+    return measured, (ms_main, ms_r1, ms_step, fps, peak), skips
+
+
+def reduced_mocogan():
+    """(c)'s reduced-width MoCoGAN on the CPU: the LSTM G and the MoCoGAN D at
+    64^2 (the video D's least size), 4 videos x 3 frames, num_t_paddings=6."""
+    import torch
+    from stylegan_v_tpu_torch.models import (DiscriminatorConfig, Generator, GeneratorConfig,
+                                             MoCoGANDiscriminator, MotionConfig, SamplingConfig,
+                                             TimeEncConfig)
+    sampling = SamplingConfig(num_frames_per_video=3, max_num_frames=16)
+    gcfg = GeneratorConfig(
+        w_dim=64, z_dim=64, img_resolution=64, channel_base=1024, channel_max=64,
+        num_bf16_res=0, mapping_layers=2, input_type="const",
+        motion=MotionConfig(z_dim=32, v_dim=32, motion_z_distance=1,
+                            gen_strategy="autoregressive", fourier=False),
+        time_enc=TimeEncConfig(cond_type="concat_w", dim=32), sampling=sampling)
+    dcfg = DiscriminatorConfig(img_resolution=64, channel_base=1024, channel_max=64,
+                               num_bf16_res=0, mbstd_group_size=4, mapping_layers=2,
+                               sampling=sampling)
+    gen = torch.Generator().manual_seed(23)
+    G = Generator(gcfg, generator=gen)          # training mode: cuDNN's LSTM backward needs it
+    D = MoCoGANDiscriminator(dcfg, video_discr_num_t_paddings=6, generator=gen)
+    z = torch.randn(4, gcfg.z_dim, generator=gen)
+    t = torch.tensor([[0.0, 1.0, 2.0], [3.0, 5.0, 9.0], [0.0, 7.0, 14.0], [2.5, 4.0, 6.5]])
+    mz = G.synthesis.motion_encoder.sample_motion_z(4, gen)
+    real = torch.rand(12, 3, 64, 64, generator=gen) * 2 - 1
+    return G, D, z, t, mz, real
+
+
+def moco_run(G, D, inputs, draws, frames, device):
+    """(c)'s forward and gradients on `device`: the LSTM G's frames and D's two
+    logits on the real frames, Gmain's gradient of G (D's input takes the first
+    run's frames' values, `frames["cpu"]`, as phase 9 pins them) and Dr1's of
+    D; each gradient as a list in parameters() order, on the CPU."""
+    import torch
+    from stylegan_v_tpu_torch.training import GANLoss, LossConfig
+
+    z, t, mz, real = (x.to(device) for x in inputs)
+    with torch.no_grad():
+        img = G(z, None, t, motion_z=mz)
+        out = D(real, None, t, noise=draws["d"])
+    loss = GANLoss(G, D, LossConfig(r1_gamma=1.0))
+    synthesis = loss.run_synthesis
+
+    def pinned(*args, **kwargs):
+        x = synthesis(*args, **kwargs)
+        if "cpu" not in frames:
+            frames["cpu"] = x.detach()
+            return x
+        return x + (frames["cpu"].to(device) - x).detach()
+
+    loss.run_synthesis = pinned
+    l, _ = loss.gmain(z, None, t, mz, d_noise=draws["gmain"])
+    gG = torch.autograd.grad(l, list(G.parameters()), allow_unused=True)
+    l, _ = loss.dreal_dr1(real, None, t, do_main=False, do_r1=True, r1_gamma=1.0,
+                          d_noise=draws["dr1"])
+    gD = torch.autograd.grad(l, list(D.parameters()), allow_unused=True)
+    grads = [[(g if g is not None else torch.zeros_like(p)).cpu()
+              for p, g in zip(m.parameters(), gs)] for m, gs in ((G, gG), (D, gD))]
+    outs = {"frames": img.cpu(), **{k: v.cpu() for k, v in out.items()}}
+    return outs, dict(zip(("G", "D"), grads))
+
+
+def forward_move(got, want):
+    """The largest of (max |got - want|) / (want's largest magnitude) over
+    (c)'s outputs: frames, image_logits, video_logits."""
+    return max(float((got[k] - w).abs().max()) / float(w.abs().max()) for k, w in want.items())
+
+
+def moco_parity(dev):
+    """Phase 17 (c): card against CPU at reduced width with the same weights and
+    draws (RecordedDraws: the video D's noise too): the LSTM G's frames and D's
+    two logits within PARITY_TOL of scale; Gmain's dG and Dr1's dD within
+    MOCO_FLOOR_FACTOR times the CPU's own gradient move at the weight move
+    that moves the CPU's outputs as far as the card's differ from them (the
+    constants' comment), and at least PARITY_TOL."""
+    import torch
+    from stylegan_v_tpu_torch.ops import downfirdn2d_x2, downfirdn2d_x2_bwd
+
+    tag = "[17 moco (c)]"
+    G, D, z, t, mz, real = reduced_mocogan()
+    inputs = (z, t, mz, real)
+    draws = {k: RecordedDraws(seed) for k, seed in (("d", 24), ("gmain", 25), ("dr1", 26))}
+    frames = {}
+
+    def replay():
+        for d in draws.values():
+            d.replay()
+
+    def counts():
+        return downfirdn2d_x2.launches, downfirdn2d_x2_bwd.launches
+
+    before = counts()
+    want, want_g = moco_run(copy.deepcopy(G), copy.deepcopy(D), inputs, draws, frames,
+                            torch.device("cpu"))
+    check(counts() == before, f"{tag} the CPU run launched a kernel")
+    replay()
+    got, got_g = moco_run(copy.deepcopy(G).to(dev), copy.deepcopy(D).to(dev), inputs, draws,
+                          frames, dev)
+    ran = tuple(a - b for a, b in zip(counts(), before))
+    check(min(ran) > 0, f"{tag} the card run launched K1, K1-bwd {ran} times")
+    card_move = forward_move(got, want)
+
+    def cpu_moved(seed, move):
+        replay()
+        Gp, Dp = copy.deepcopy(G), copy.deepcopy(D)
+        noise = torch.Generator().manual_seed(99 + seed)
+        with torch.no_grad():
+            for p in list(Gp.parameters()) + list(Dp.parameters()):
+                p.mul_(1 + move * torch.randn(p.shape, generator=noise))
+        return moco_run(Gp, Dp, inputs, draws, frames, torch.device("cpu"))
+
+    floor, moves = {"G": 0.0, "D": 0.0}, []
+    before = counts()
+    for seed in range(MOCO_FLOOR_SEEDS):
+        move = MOCO_PROBE_MOVE * card_move / forward_move(cpu_moved(seed, MOCO_PROBE_MOVE)[0],
+                                                          want)
+        moves.append(move)
+        for name, err in grad_errors(cpu_moved(seed, move)[1], want_g).items():
+            floor[name] = max(floor[name], err[0] / err[1])
+    check(counts() == before, f"{tag} the CPU runs launched a kernel")
+    msgs = []
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        err = float((got[k] - w).abs().max())
+        check(bool(torch.isfinite(got[k]).all()) and err <= PARITY_TOL * scale,
+              f"{tag} card vs CPU {k}: max err {err} > {PARITY_TOL} * {scale}")
+        msgs.append(f"{k} {tuple(w.shape)} max_abs_err {err:.3g} (scale {scale:.3g})")
+    for name, err in grad_errors(got_g, want_g).items():
+        what = "Gmain dG" if name == "G" else "Dr1 dD"
+        rel, rel_floor = err[0] / err[1], floor[name]
+        tol = max(PARITY_TOL, MOCO_FLOOR_FACTOR * rel_floor)
+        check(rel <= tol, f"{tag} card vs CPU {what}: max err {err[0]} = {rel:.3g} of scale "
+                          f"{err[1]} > {tol:.3g}")
+        msgs.append(f"{what} max_abs_err {err[0]:.3g} = {rel:.3g} of scale {err[1]:.3g}, "
+                    f"{err[2]:.3g} of its L2 norm (the CPU's own, the largest of "
+                    f"{MOCO_FLOOR_SEEDS} draws: {rel_floor:.3g}; tol {tol:.3g})")
+    print(f"{tag} 64^2 reduced width, LSTM G on cuDNN, the video D's noise replayed; card "
+          f"(K1, K1-bwd launched {ran}) vs CPU: " + "; ".join(msgs) + f"; the card's outputs "
+          f"differ by {card_move:.3g} of scale, which the CPU's move as weights x (1 + m N(0, "
+          f"1)) at m = {', '.join(f'{m:.3g}' for m in moves)} matches", flush=True)
+
+
+def moco_loop(dev, smi, zip_path, tmp, step_ms):
+    """Phase 17 (d): the loop through the entry point on phase 13's zip, model=
+    mocogan with the slice's overrides: 4 steps (2 ticks, a snapshot), then
+    resume=latest for 4 more; returns the run dir."""
+    import contextlib
+    import io
+    import math
+    import os
+    import torch
+    from stylegan_v_tpu_torch import train as entry
+    from stylegan_v_tpu_torch.io.checkpoint import load_snapshot, snapshot_payload
+    from stylegan_v_tpu_torch.models import MoCoGANDiscriminator
+    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
+                                          downfirdn2d_x2_bwd)
+    from stylegan_v_tpu_torch.tools import moco_memory
+
+    tag = "[17 moco (d)]"
+    kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+    tf32 = (torch.backends.cudnn, torch.backends.cuda.matmul)
+    seen = set()
+
+    def d_hook(module, *_):
+        if isinstance(module, MoCoGANDiscriminator):
+            seen.add(tuple(t.allow_tf32 for t in tf32))
+
+    run = os.path.join(tmp, "run_moco")
+    args = [f"dataset.path={zip_path}"] + moco_memory.OVERRIDES + [
+        f"training.batch_gpu={MOCO_BATCH_GPU}", "training.kimg=1", "training.kimg_per_tick=0.5",
+        "training.snap=2", "training.metrics=[]", f"project_release_dir={run}"]
+    hook = torch.nn.modules.module.register_module_forward_hook(d_hook)
+    results, counts, secs, out = [], [], [], io.StringIO()
+    try:
+        for extra in ([], ["training.resume=latest", "training.kimg=2"]):
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                results.append(entry.main(args + extra))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts.append(tuple(k.launches for k in kernels))
+            if not extra:       # the first run's last snapshot, to the bit
+                payload, meta = load_snapshot(os.path.join(run, "network-snapshot-000001.pt"))
+                check(meta["cur_nimg"] == 1024, f"{tag} snapshot 000001 at {meta['cur_nimg']}")
+                n_saved = _equal_trees(snapshot_payload(results[0]["state"]), payload,
+                                       "snapshot 000001", tag)
+                results[0]["step"] = results[0].pop("state").step
+    finally:
+        hook.remove()
+    first, second = results
+    state = second["state"]
+    check((first["cur_nimg"], first["step"]) == (1024, 4)
+          and (second["start_nimg"], second["start_step"]) == (1024, 4)
+          and (second["cur_nimg"], state.step) == (2048, 8),
+          f"{tag} runs ended at {first['cur_nimg']}, resumed at {second['start_nimg']}, ended "
+          f"at {second['cur_nimg']}")
+    groups = state.opt_D.param_groups
+    check(isinstance(state.D, MoCoGANDiscriminator) and len(groups) == 2
+          and groups[1]["lr"] == groups[0]["lr"] * 0.1,
+          f"{tag} the resumed D's Adam groups: {[g['lr'] for g in groups]}")
+    for (lo, hi), got in zip(MOCO_LOOP_RUNS, counts):
+        want = tuple(sum(MOCO_LAUNCHES_PER_STEP[i % 16 == 0][j] for i in range(lo, hi))
+                     for j in range(4))
+        check(got == want, f"{tag} steps {lo}-{hi - 1} launched K1, K1-bwd, K4, K4-bwd {got} "
+                           f"times, expected {want} (R1 at every 16th step index)")
+    check(seen == {(False, False)}, f"{tag} (cudnn, matmul) allow_tf32 in D: {seen}")
+    files = set(os.listdir(run))
+    check({f"network-snapshot-{k:06d}.pt" for k in (1, 2)} <= files,
+          f"{tag} snapshots {sorted(f for f in files if f.endswith('.pt'))}")
+    rows = [json.loads(line) for line in open(os.path.join(run, "stats.jsonl"))]
+    check(len(rows) == 4, f"{tag} {len(rows)} stats rows, expected 2 ticks a run")
+    for row in rows:
+        check({"Loss/G/loss_video", "Loss/scores/fake_video", "Loss/scores/real_video"}
+              <= set(row), f"{tag} stats keys {sorted(row)}")
+        check(all(math.isfinite(v["mean"]) for k, v in row.items() if k != "timestamp"),
+              f"{tag} a non-finite stat in {row}")
+    ms = [r["Timing/Gmain_Dmain"]["mean"] * 1e3 for r in rows[2:] if "Timing/Gmain_Dmain" in r]
+    print("\n".join(f"{tag} {line}" for line in out.getvalue().splitlines()
+                    if line.startswith("tick ")))
+    print(f"{tag} `python -m stylegan_v_tpu_torch.train` model=mocogan on phase 13's zip, "
+          f"{MOCO_SHAPE[0]}x{MOCO_SHAPE[1]} at {MOCO_SHAPE[2]}^2, batch_gpu {MOCO_BATCH_GPU}: "
+          f"4 steps ({secs[0]:.1f} s with the setup and snapshots), snapshot 000001 equal to "
+          f"the bit to the state in memory ({n_saved} tensors), resumed from latest at step 4 "
+          f"for 4 more ({secs[1]:.1f} s); the resumed D's Adam groups lr "
+          f"{[g['lr'] for g in groups]}; launches K1, K1-bwd, K4, K4-bwd per run {counts[0]} "
+          f"and {counts[1]}; allow_tf32 in D {sorted(seen)}; loader-fed Timing/Gmain_Dmain "
+          f"{', '.join(f'{m:.1f}' for m in ms)} ms in the resumed ticks (pre-staged (a): "
+          f"{step_ms:.1f} ms); on {smi}", flush=True)
+    return run
+
+
+def moco_sample(dev, smi, zip_path, tmp, run, models):
+    """Phase 17 (e): `python -m stylegan_v_tpu_torch.generate` on (d)'s last
+    snapshot against generate_videos on the card, with clips/s; SMOKE_FVD from
+    that snapshot, finite; no kernel launch."""
+    import contextlib
+    import io
+    import math
+    import os
+    import numpy as np
+    import torch
+    from stylegan_v_tpu_torch import generate
+    from stylegan_v_tpu_torch.metrics import metric_main
+    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
+                                          downfirdn2d_x2_bwd)
+    from stylegan_v_tpu_torch.training.video_io import generate_videos
+    from stylegan_v_tpu_torch.utils.misc import float32_precision
+
+    tag = "[17 moco (e)]"
+    kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+    for k in kernels:
+        k.launches = 0
+    path = os.path.join(run, "network-snapshot-000002.pt")
+    argv = ["--network", path, "-o", os.path.join(tmp, "gen_moco"), "--num-videos",
+            str(MOCO_CLIPS), "--video-len", "16"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()), deterministic():
+        got = generate.main(argv + ["--device", str(dev)])
+    t_cli = time.perf_counter() - t0
+    with contextlib.redirect_stdout(io.StringIO()):
+        G = generate.load_any_checkpoint(path, dev)
+    args = generate.parse_args(argv)
+    z, c, ts, mz = generate.draw_inputs(args, G.cfg)
+
+    def synthesise():
+        with float32_precision(False):
+            return generate_videos(G, z, c, ts, motion_z=mz, noise_mode=args.noise_mode,
+                                   truncation_psi=args.truncation_psi,
+                                   batch_size_num_frames=args.batch_size_num_frames,
+                                   seed=args.seed)
+    with deterministic():
+        want = synthesise()
+    res = MOCO_SHAPE[2]
+    check(G.cfg.motion.gen_strategy == "autoregressive"
+          and got.shape == (MOCO_CLIPS, 16, res, res, 3) and np.array_equal(got, want),
+          f"{tag} generate on the MoCoGAN snapshot differs from generate_videos")
+    synthesise()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    synthesise()
+    torch.cuda.synchronize()
+    t_syn = time.perf_counter() - t0
+    register_smoke_metrics(dev, models)
+    t0 = time.perf_counter()
+    fvd = metric_main.calc_metric(
+        SMOKE_FVD, G=G, dataset_kwargs=dict(path=zip_path, sampling=G.cfg.sampling,
+                                            max_num_frames=G.cfg.sampling.max_num_frames,
+                                            resolution=res),
+        device=dev).results[SMOKE_FVD]
+    t_fvd = time.perf_counter() - t0
+    check(math.isfinite(fvd), f"{tag} {SMOKE_FVD} {fvd!r}")
+    launches = tuple(k.launches for k in kernels)
+    check(launches == (0, 0, 0, 0), f"{tag} K1, K1-bwd, K4, K4-bwd launched {launches} times "
+                                    "in generate and the metric, expected none")
+    print(f"{tag} generate on snapshot 000002 (LSTM G_ema), {MOCO_CLIPS} clips x 16 frames at "
+          f"{res}^2: equal to generate_videos to the bit; {MOCO_CLIPS / t_syn:.2f} clips/s of "
+          f"synthesis (warm, {t_syn:.3f} s), the CLI {t_cli:.2f} s with the load; {SMOKE_FVD} "
+          f"({METRIC_ITEMS[0]} real, {METRIC_ITEMS[1]} generated clips, phase 14's random "
+          f"detectors) {fvd!r} in {t_fvd:.1f} s; launches {launches}; on {smi}", flush=True)
+
+
+def phase_mocogan(dev, smi, zip_path, tmp, models, k4_9ch):
+    """Phase 17: MoCoGAN with the LSTM G at FFS-256, (a)-(e); `k4_9ch` is
+    phase 10's (K4, K4-bwd) record at 9 channels, printed beside (b)'s.
+    Returns (a)'s launches per step, (b)'s K1 and K1-bwd records (phase_kernel's)
+    at the image D's skips and (b)'s K4 and K4-bwd records at 48 channels."""
+    import torch
+    from stylegan_v_tpu_torch.ops import (downfirdn2d_x2, downfirdn2d_x2_bwd,
+                                          downfirdn2d_x2_bwd_plain, downfirdn2d_x2_plain)
+    from stylegan_v_tpu_torch.utils.misc import float32_precision
+
+    t_phase, parts = time.perf_counter(), {}
+    t0 = time.perf_counter()
+    launches, step, skips = moco_step(dev, smi)     # the step's own TF32 default
+    parts["a"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sets = ((f"{MOCO_BATCH_GPU}x{MOCO_SHAPE[1]}", skips),)
+    with float32_precision(False):
+        k1 = phase_kernel(dev, "[17 moco (b)] K1", "down", downfirdn2d_x2,
+                          downfirdn2d_x2_plain, sets)
+        torch.cuda.empty_cache()
+        k1_bwd = phase_kernel(dev, "[17 moco (b)] K1-bwd", "up", downfirdn2d_x2_bwd,
+                              downfirdn2d_x2_bwd_plain, sets)
+        torch.cuda.empty_cache()
+        k4, k4_bwd = phase_warp(dev, MOCO_WARP_BATCH, upsamples=(2,), tag="[17 moco (b)]",
+                                autograd=False)
+    for name, rec, nine in (("K4", k4, k4_9ch[0]), ("K4-bwd", k4_bwd, k4_9ch[1])):
+        print(f"[17 moco (b)] {name} at the MoCoGAN pipe's warp {list(MOCO_WARP_BATCH[:2])} x "
+              f"536^2 -> 524^2 bf16: {rec[1]:.4f} ms, {rec[4] / rec[1]:.3f} of its "
+              f"{rec[4]:.4f} ms bound (plain {rec[2]:.4f} ms); at phase 10's [16, 9]: "
+              f"{nine[1]:.4f} ms, {nine[4] / nine[1]:.3f} of {nine[4]:.4f} ms", flush=True)
+    parts["b"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with float32_precision(False):
+        moco_parity(dev)
+    parts["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run = moco_loop(dev, smi, zip_path, tmp, step[0])   # the loop's own TF32 default
+    parts["d"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with float32_precision(False):
+        moco_sample(dev, smi, zip_path, tmp, run, models)
+    parts["e"] = time.perf_counter() - t0
+    print(f"[17 moco] the parts took " + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items())
+          + f"; phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, k1, k1_bwd, k4, k4_bwd
+
+
+def kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco):
     """The kernel record: each kernel's launches in the ADA run (phase 11),
     worst error against its plain version, and its time, its plain version's
     and its library call's beside its bound: K1 and K1-bwd summed over one D
     pass at 16 x 3 (phases 3, 7), K4 and K4-bwd at the step's warp (phase 10);
-    for K4 also its reference design's time there."""
+    for K4 also its reference design's time there. `moco` is phase 17's
+    (launches per step without and with R1 as measured, K1's and K1-bwd's
+    records at the image D's skips, K4's and K4-bwd's at 48 channels): each
+    kernel's launches per MoCoGAN step, K1's and K1-bwd's worst error, times
+    and bound summed over the image D's skips at a round's 8 x 16 frames, and
+    K4's and K4-bwd's at the MoCoGAN pipe's warp."""
     warp = "stylegan_v_tpu/ops/grid_sample.py:33 (XLA gather; no Pallas kernel)"
     conv = "depthwise, stride 2, padding 1, in the input's dtype"
     near = "not the same function (border half pixel)"
@@ -2366,6 +2933,19 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, launches):
                         "share_of_bound": times["bound_ms"] / times["ms"]})
     # K4's reference design (every tap from device memory), timed in the same run
     records[2].update(reference_design_ms=k4[6])
+    moco_launches, moco_k1, moco_k1_bwd, moco_k4, moco_k4_bwd = moco
+    for i, rec in enumerate(records):
+        rec["mocogan_launches_per_step"] = {"without_r1": moco_launches[False][i],
+                                            "with_r1": moco_launches[True][i]}
+    for rec, (err, m) in ((records[0], moco_k1), (records[1], moco_k1_bwd)):
+        rec["mocogan_image_d"] = {"max_abs_err": err, "ms": m["ms"], "plain_ms": m["plain_ms"],
+                                  "library_ms": m["library_ms"], "bound_ms": m["bound_ms"],
+                                  "bound_by": m["bound_by"],
+                                  "share_of_bound": m["bound_ms"] / m["ms"]}
+    for rec, m in ((records[2], moco_k4), (records[3], moco_k4_bwd)):
+        rec["mocogan_48ch"] = {"max_abs_err": m[0], "ms": m[1], "plain_ms": m[2],
+                               "library_ms": m[3], "bound_ms": m[4], "bound_by": m[5],
+                               "share_of_bound": m[4] / m[1]}
     return records
 
 
@@ -2408,7 +2988,9 @@ def main() -> int:
         phase_parallel(dev, smi, zip_path, tmp)       # the steps' own TF32 default
         torch.cuda.empty_cache()
         phase_legacy(dev, smi, zip_path, tmp, detectors)   # the loop's own TF32 default
-    records = kernel_records(k1, k1_bwd, k4, k4_bwd, launches)
+        torch.cuda.empty_cache()
+        moco = phase_mocogan(dev, smi, zip_path, tmp, detectors, (k4, k4_bwd))
+    records = kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -18,6 +18,16 @@ Layout conversions (flax -> port):
     noise_const [H, W, 1]      -> [H, W]
     moving/mapping/w_avg       -> the mapping.w_avg buffer
     D epilogue fc: input rows from the flax HWC flatten to the port's CHW flatten
+                               (under any prefix: MoCoGAN's image_discr.b4.fc too)
+    conv3d    [kd, kh, kw, I, O] -> [O, I, kd, kh, kw]   (MoCoGAN's video D)
+    LSTM      rnn/OptimizedLSTMCell_0/{ii,if,ig,io}.kernel, {hi,hf,hg,ho}.{kernel,bias}
+                               -> rnn.{weight_ih_l0, weight_hh_l0, bias_ih_l0, bias_hh_l0}
+                               (the inverse of stylegan_v_tpu/io/legacy.py:convert_lstm_state)
+
+optax's `multi_transform` state (MoCoGAN's per-branch learning rates) holds
+one Adam state per label, with masked nodes in the places of the other
+label's parameters; `jax_to_torch_adam` merges them into one per-parameter
+state.
 """
 from __future__ import annotations
 
@@ -32,15 +42,47 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()
     for key, val in tree.items():
         if isinstance(val, Mapping):
             yield from _leaves(val, prefix + (key,))
+        elif isinstance(val, tuple) and not val:
+            continue          # optax's MaskedNode: a parameter of another label
         else:
             yield prefix + (key,), np.asarray(val, dtype=np.float32)
 
 
+_GATES = "ifgo"         # nn.LSTM's row blocks, and flax's gate names
+
+
+def _lstm_state(name: str, cell: Dict[Tuple[str, ...], np.ndarray]) -> Dict[str, np.ndarray]:
+    """flax OptimizedLSTMCell leaves {(gate, kind): array} -> nn.LSTM's
+    parameters under `name`: each gate's kernel [In, H] transposed into its
+    row block, in (i, f, g, o) order; flax's one bias per gate into
+    bias_ih_l0 and zeros into bias_hh_l0, whose sum nn.LSTM's cell adds."""
+    bias = np.concatenate([cell[("h" + g, "bias")] for g in _GATES])
+    return {f"{name}.weight_ih_l0": np.concatenate([cell[("i" + g, "kernel")].T
+                                                    for g in _GATES]),
+            f"{name}.weight_hh_l0": np.concatenate([cell[("h" + g, "kernel")].T
+                                                    for g in _GATES]),
+            f"{name}.bias_ih_l0": bias, f"{name}.bias_hh_l0": np.zeros_like(bias)}
+
+
+def _convert_params(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    out, cells = {}, {}
+    for path, arr in _leaves(params):
+        if "rnn" in path:     # rnn/OptimizedLSTMCell_0/<gate>/<kind>
+            i = path.index("rnn")
+            cells.setdefault(".".join(path[:i + 1]), {})[path[i + 2:]] = arr
+        else:
+            name, arr = _convert_param(path, arr)
+            out[name] = arr
+    for name, cell in cells.items():
+        out.update(_lstm_state(name, cell))
+    return out
+
+
 def _convert_param(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
-    if "rnn" in path:
-        raise NotImplementedError("the autoregressive (LSTM) motion encoder is not ported yet")
     leaf = path[-1]
-    if leaf == "weight" and arr.ndim == 2:
+    if leaf == "weight" and arr.ndim == 5:
+        arr = arr.transpose(4, 3, 0, 1, 2)
+    elif leaf == "weight" and arr.ndim == 2:
         arr = arr.T
     elif leaf == "weight" and arr.ndim == 3:
         arr = arr.transpose(2, 1, 0)
@@ -61,7 +103,7 @@ def _state_dict(named: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 def jax_to_torch_generator(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """flax Generator variables {'params', 'moving'?, 'buffers'?} -> Generator state_dict."""
-    out = dict(_convert_param(p, a) for p, a in _leaves(variables["params"]))
+    out = _convert_params(variables["params"])
     for path, arr in _leaves(variables.get("moving", {})):
         out[".".join(path)] = arr                                 # mapping.w_avg
     for path, arr in _leaves(variables.get("buffers", {})):
@@ -70,11 +112,13 @@ def jax_to_torch_generator(variables: Mapping[str, Any]) -> Dict[str, torch.Tens
 
 
 def jax_to_torch_discriminator(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """flax Discriminator variables {'params'} -> Discriminator state_dict."""
-    out = dict(_convert_param(p, a) for p, a in _leaves(variables["params"]))
-    w = out["b4.fc.weight"]                       # [out, 4*4*C], HWC order
-    n_out = w.shape[0]
-    out["b4.fc.weight"] = w.reshape(n_out, 4, 4, -1).transpose(0, 3, 1, 2).reshape(n_out, -1)
+    """flax Discriminator or MoCoGANDiscriminator variables {'params'} -> the
+    port's state_dict."""
+    out = _convert_params(variables["params"])
+    for name in [k for k in out if k == "b4.fc.weight" or k.endswith(".b4.fc.weight")]:
+        w = out[name]                             # [out, 4*4*C], HWC order
+        n_out = w.shape[0]
+        out[name] = w.reshape(n_out, 4, 4, -1).transpose(0, 3, 1, 2).reshape(n_out, -1)
     return _state_dict(out)
 
 
@@ -86,22 +130,35 @@ def _adam_moments(opt_state):
     raise ValueError(f"no Adam moments (count, mu, nu) in {type(opt_state).__name__}")
 
 
+def _adam_states(opt_state) -> list:
+    """Every Adam state of an optax state: one for optax.adam, one per label
+    for optax.multi_transform (its inner_states, each a masked Adam)."""
+    inner = getattr(opt_state, "inner_states", None)
+    if inner is None:
+        return [_adam_moments(opt_state)]
+    return [_adam_moments(getattr(s, "inner_state", s)) for s in inner.values()]
+
+
 def jax_to_torch_adam(opt_state, module: torch.nn.Module, convert) -> Dict[int, Dict[str, Any]]:
-    """optax Adam state -> torch.optim.Adam's per-parameter `state`.
+    """optax Adam state (plain, or multi_transform's per-label Adams) ->
+    torch.optim.Adam's per-parameter `state`.
 
     optax's count, mu and nu become torch's step, exp_avg and exp_avg_sq,
-    keyed by the index of each parameter in `module.parameters()`. `convert`
-    is jax_to_torch_generator or jax_to_torch_discriminator, so each moment
+    keyed by the index of each parameter in `module.parameters()`; each
+    parameter takes the count of its label's Adam. `convert` is
+    jax_to_torch_generator or jax_to_torch_discriminator, so each moment
     takes its parameter's layout change (the D epilogue fc's row permutation
     included)."""
-    adam = _adam_moments(opt_state)
-    mu, nu = convert({"params": adam.mu}), convert({"params": adam.nu})
     names = [n for n, _ in module.named_parameters()]
-    if set(names) != set(mu):
-        raise KeyError(f"Adam moments and parameters differ: {sorted(set(names) ^ set(mu))}")
-    step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
-    return {i: {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
-            for i, n in enumerate(names)}
+    merged: Dict[str, Dict[str, Any]] = {}
+    for adam in _adam_states(opt_state):
+        mu, nu = convert({"params": adam.mu}), convert({"params": adam.nu})
+        step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
+        for n in mu:
+            merged[n] = {"step": step.clone(), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+    if set(names) != set(merged):
+        raise KeyError(f"Adam moments and parameters differ: {sorted(set(names) ^ set(merged))}")
+    return {i: merged[n] for i, n in enumerate(names)}
 
 
 def jax_to_torch_train_state(state, G: Optional[torch.nn.Module] = None,

@@ -150,8 +150,9 @@ def _packed_param_groups(opt: torch.optim.Optimizer):
 def load_adam_state(opt: torch.optim.Optimizer, per_param: Mapping[int, Any]) -> None:
     """Adam's per-parameter state (step, exp_avg, exp_avg_sq by parameter
     index) into `opt`, plain Adam or ZeRO-1 (which keeps this rank's share);
-    lr and betas stay the ones the optimizer was built with, from the run's
-    config, as optax's do. The optimizer gets copies: it updates its moments
+    each parameter group's lr and betas stay the ones the optimizer was built
+    with, from the run's config (MoCoGAN's video branch keeps its 0.1x), as
+    optax's do. The optimizer gets copies: it updates its moments
     in place, and `per_param` stays as it was."""
     opt.load_state_dict({"state": copy.deepcopy(dict(per_param)),
                          "param_groups": _packed_param_groups(opt)})

@@ -168,15 +168,12 @@ def port_state(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     renamed variables) as the port's: float32 CPU tensors without the
     recomputed constants, with the first block's input constant under the
     port's name `synthesis.b4.input.const` as [C, 4, 4]. The LSTM motion
-    encoder (`rnn.*`) is not ported yet and raises."""
+    encoder's `rnn.*` keys are nn.LSTM's, in the port as in the reference."""
     out: Dict[str, torch.Tensor] = {}
     for name, arr in flat.items():
         parts = name.split(".")
         if parts[-1] in RECOMPUTED:
             continue
-        if "rnn" in parts:
-            raise NotImplementedError(f"{name}: the autoregressive (LSTM) motion encoder is "
-                                      "not ported yet (ROADMAP P9c)")
         if parts[0] == "synthesis" and len(parts) > 3 and parts[2] == "input" \
                 and parts[-1] == "const":
             name = ".".join(parts[:3] + ["const"])     # GenInput: input.const or input.input.const

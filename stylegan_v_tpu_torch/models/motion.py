@@ -1,8 +1,10 @@
 """Motion mapping network + acyclic sine time encoder.
 
 Counterpart of stylegan_v_tpu/models/motion.py (reference
-src/training/motion.py), with the `conv` trajectory strategy; the LSTM
-(`autoregressive`) strategy is not ported yet.
+src/training/motion.py), with both trajectory strategies: `conv` (a
+padding-free Conv1d stack) and `autoregressive` (a one-layer `nn.LSTM`
+named `rnn`, the reference's own module and state_dict names; cuDNN's on
+the card).
 
 The trajectory length is `MotionMappingNetwork.required_traj_len(cfg, max_t)`.
 `motion_z` [B, L, z_dim] comes in as an argument, or is drawn from an
@@ -94,6 +96,23 @@ class AlignedTimeEncoder(nn.Module):
         return pos_emb(t) - aligners_remove + aligners_add
 
 
+def _lstm(input_size: int, hidden_size: int,
+          generator: Optional[torch.Generator]) -> nn.LSTM:
+    """A one-layer unidirectional nn.LSTM (reference motion.py:44-48) whose
+    weights and biases are drawn from `generator`, uniform in +-1/sqrt(H) as
+    nn.LSTM's own init draws them from the global RNG (None leaves them
+    uninitialised, to be loaded). Built on the meta device first, so that
+    its constructor draws nothing."""
+    rnn = nn.LSTM(input_size, hidden_size, batch_first=True, device="meta")
+    rnn = rnn.to_empty(device="cpu")
+    if generator is not None:
+        bound = 1.0 / math.sqrt(hidden_size)
+        with torch.no_grad():
+            for p in rnn.parameters():
+                p.copy_(torch.rand(p.shape, generator=generator) * (2 * bound) - bound)
+    return rnn
+
+
 class MotionMappingNetwork(nn.Module):
     """Continuous-time motion code generator (reference motion.py:19-156)."""
 
@@ -101,14 +120,17 @@ class MotionMappingNetwork(nn.Module):
         super().__init__()
         self.cfg = cfg
         m = cfg.motion
-        if m.gen_strategy != "conv":
-            raise NotImplementedError(f"gen_strategy {m.gen_strategy!r} is not ported yet")
-        # padding-free stack => valid for unbounded t (motion.py:51-59)
-        self.conv = nn.Sequential(
-            EqLRConv1d(m.z_dim + cfg.c_dim, m.z_dim, m.kernel_size, activation="lrelu",
-                       lr_multiplier=0.01, generator=generator),
-            EqLRConv1d(m.z_dim, m.v_dim, m.kernel_size, activation="lrelu",
-                       lr_multiplier=0.01, generator=generator))
+        if m.gen_strategy == "autoregressive":
+            self.rnn = _lstm(m.z_dim + cfg.c_dim, m.z_dim, generator)
+        elif m.gen_strategy == "conv":
+            # padding-free stack => valid for unbounded t (motion.py:51-59)
+            self.conv = nn.Sequential(
+                EqLRConv1d(m.z_dim + cfg.c_dim, m.z_dim, m.kernel_size, activation="lrelu",
+                           lr_multiplier=0.01, generator=generator),
+                EqLRConv1d(m.z_dim, m.v_dim, m.kernel_size, activation="lrelu",
+                           lr_multiplier=0.01, generator=generator))
+        else:
+            raise NotImplementedError(f"Unknown gen strategy: {m.gen_strategy}")
         if m.fourier:
             self.time_encoder = AlignedTimeEncoder(cfg, latent_dim=m.v_dim, generator=generator)
         else:
@@ -146,7 +168,13 @@ class MotionMappingNetwork(nn.Module):
             c_rep = c[:, None, :].expand(batch_size, input_trajs.shape[1], c.shape[1])
             input_trajs = torch.cat([input_trajs, c_rep.float()], dim=2)
 
-        trajs = self.conv(input_trajs.transpose(1, 2)).transpose(1, 2)    # [B, L', D]
+        if self.cfg.motion.gen_strategy == "autoregressive":
+            # JAX's cell holds one bias per gate, bias_ih_l0 + bias_hh_l0 here: only
+            # bias_ih_l0 trains (Adam on both would move their sum twice as far)
+            trajs, _ = torch.func.functional_call(
+                self.rnn, {"bias_hh_l0": self.rnn.bias_hh_l0.detach()}, (input_trajs,))
+        else:
+            trajs = self.conv(input_trajs.transpose(1, 2)).transpose(1, 2)  # [B, L', D]
 
         t = t.float()
         dist = float(m.motion_z_distance)

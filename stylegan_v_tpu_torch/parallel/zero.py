@@ -21,10 +21,11 @@ import torch
 from .distributed import World
 
 
-def make_adam(params: Iterable[torch.Tensor], lr: float, betas, eps: float,
+def make_adam(params: Iterable, lr: float, betas, eps: float,
               world: World, zero1: bool = False) -> torch.optim.Optimizer:
-    """Adam over `params`, partitioned over the ranks with ZeRO-1 when `zero1`
-    and there is more than one rank."""
+    """Adam over `params`, tensors or parameter groups (dicts with "params"
+    and their own "lr"), partitioned over the ranks with ZeRO-1 when `zero1`
+    and there is more than one rank; ZeRO-1 keeps each group's lr."""
     params = list(params)
     if zero1 and world.size > 1:
         from torch.distributed.optim import ZeroRedundancyOptimizer

@@ -11,7 +11,9 @@ meta['state'] is the module's __dict__ (`_parameters`, `_buffers`,
 that structure from the port's modules: every module a persistent object,
 its parameters, its buffers (the constants the port recomputes included, as
 the reference stores them) and, for G, the init kwargs from which
-io/legacy.py:infer_generator_config rebuilds the config. TF-era pickles are
+io/legacy.py:infer_generator_config rebuilds the config. The LSTM motion
+encoder's `rnn` is torch's own nn.LSTM in the reference, which pickles as
+itself, and so it does here. TF-era pickles are
 a 3-tuple (G, D, Gs) of `dnnlib.tflib.network.Network` objects;
 `write_tf_pickle` writes one with seeded random variables at any StyleGAN2
 widths (skip G, resnet D).
@@ -23,6 +25,7 @@ exposes it.
 from __future__ import annotations
 
 import contextlib
+import copy
 import pickle
 import sys
 import types
@@ -89,11 +92,17 @@ def _persistent(module: torch.nn.Module, init_kwargs: Optional[Dict] = None) -> 
     if isinstance(f, torch.Tensor):               # a buffer in the reference
         buffers["resample_filter"] = f.detach().cpu().clone()
     state = {"training": False, "_parameters": params, "_buffers": buffers,
-             "_modules": {k: _persistent(m) for k, m in module._modules.items()
-                          if m is not None},
+             "_modules": {k: (_plain(m) if isinstance(m, torch.nn.RNNBase) else _persistent(m))
+                          for k, m in module._modules.items() if m is not None},
              "_init_args": (), "_init_kwargs": dict(init_kwargs or {})}
     return _Persistent({"type": "class", "version": 6, "module_src": "",
                         "class_name": type(module).__name__, "state": state})
+
+
+def _plain(module: torch.nn.Module) -> torch.nn.Module:
+    """A torch module the reference pickles as itself (not through
+    persistence), as a CPU copy."""
+    return copy.deepcopy(module).cpu()
 
 
 def generator_init_kwargs(cfg) -> Dict[str, Any]:

@@ -42,8 +42,12 @@ Adam's state, augment_p and cur_nimg stay fresh. Rank 0 reads the pickle
 before it makes anything (a pickle the port cannot take raises there), and
 the broadcast after resume gives every rank its weights.
 
-The MoCoGAN discriminator is not ported yet: it raises NotImplementedError
-before the first step, naming its ROADMAP item (`check_ported`).
+With `setup.disc_source == "mocogan"` D is the MoCoGAN discriminator
+(models/mocogan.py) and its Adam takes the video branch's learning-rate
+multiplier (D's `lr_scale_map`) as a parameter group, as the JAX loop builds it
+(stylegan_v_tpu/training/loop.py:102-114). Over several ranks it raises
+NotImplementedError before anything is made, naming its ROADMAP item
+(`check_ported`).
 """
 from __future__ import annotations
 
@@ -60,7 +64,7 @@ from ..io.checkpoint import (find_latest_snapshot, load_snapshot, restore_train_
                              save_snapshot)
 from ..io.legacy import import_reference_snapshot, load_port_state
 from ..metrics import metric_main
-from ..models import Discriminator, Generator
+from ..models import Discriminator, Generator, MoCoGANDiscriminator
 from ..models.motion import MotionMappingNetwork
 from ..parallel.distributed import World, broadcast_module_, broadcast_tensors_
 from ..parallel.distributed import world as current_world
@@ -87,10 +91,22 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def check_ported(setup: TrainSetup) -> None:
+def check_ported(setup: TrainSetup, world: World) -> None:
     """Raise NotImplementedError for an option the port does not have yet."""
+    if setup.disc_source == "mocogan" and max(world.size, setup.num_chips) > 1:
+        raise NotImplementedError("the MoCoGAN discriminator over several ranks is not ported "
+                                  "yet (ROADMAP P9c-ranks): its BatchNorm statistics would be "
+                                  "each rank's")
+
+
+def build_discriminator(setup: TrainSetup, generator: torch.Generator) -> torch.nn.Module:
+    """The setup's D, drawn from `generator`: the StyleGAN-V Discriminator, or
+    the MoCoGAN one (`disc_source`)."""
     if setup.disc_source == "mocogan":
-        raise NotImplementedError("the MoCoGAN discriminator is not ported yet (ROADMAP P9c)")
+        return MoCoGANDiscriminator(
+            setup.disc_cfg, video_discr_lr_multiplier=setup.video_discr_lr_multiplier,
+            video_discr_num_t_paddings=setup.video_discr_num_t_paddings, generator=generator)
+    return Discriminator(setup.disc_cfg, generator=generator)
 
 
 def check_world(setup: TrainSetup, world: World) -> None:
@@ -149,8 +165,8 @@ def training_loop(setup: TrainSetup, device=None,
     dict: cur_nimg, ticks, seconds, the step and cur_nimg the run started
     from, and the final TrainState. The whole run, the panels' synthesis
     included, keeps TF32 off unless setup.allow_tf32. Only rank 0 logs."""
-    check_ported(setup)
     world = current_world() if world is None else world
+    check_ported(setup, world)
     check_world(setup, world)
     device = resolve_device(device)
     reference = None
@@ -193,7 +209,7 @@ def _train(setup: TrainSetup, device: torch.device, abort_fn, progress_fn, log,
     log("Constructing networks...")
     gen = torch.Generator().manual_seed(setup.seed)
     G = Generator(setup.gen_cfg, generator=gen).to(device)
-    D = Discriminator(setup.disc_cfg, generator=gen).to(device)
+    D = build_discriminator(setup, gen).to(device)
     state = init_train_state(G, D, setup.opt_g, setup.opt_d, setup.train_cfg,
                              augment_p=setup.augment_p, world=world)
     if world.size > 1:

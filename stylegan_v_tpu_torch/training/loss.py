@@ -15,10 +15,17 @@ Phases (reference loss.py:74-173):
 
 Every random draw is an argument: `motion_z` (the motion trajectories),
 `pl_noise` (Gpl's image-space noise, unscaled N(0, 1)), `mix` (style
-mixing: the cutoff and the second z) and `aug_draws` (the ADA pipe's draw
-source or a torch.Generator, training/augment.py). The train step makes
-them, from a torch.Generator or from the caller. Per-layer noise, when the
-generator config has it, is drawn inside synthesis from `generator`.
+mixing: the cutoff and the second z), `aug_draws` (the ADA pipe's draw
+source or a torch.Generator, training/augment.py) and `d_noise` (the
+MoCoGAN video D's instance noise, a draw source or a torch.Generator,
+models/mocogan.py). The train step makes them, from a torch.Generator or
+from the caller. Per-layer noise, when the generator config has it, is
+drawn inside synthesis from `generator`.
+
+With the MoCoGAN discriminator, D also returns `video_logits`, and every
+phase that runs D adds their softplus term to its loss (reference
+loss.py:91-96, 130-134, 156-159). R1 stays on the image logits alone, as the
+JAX package's `sum_logits_and_out` differentiates them only.
 
 Over several ranks, `batch_mean` takes a rank's mean of a batch quantity to
 the global batch's (parallel/distributed.py:World.mean_over_ranks): the
@@ -111,22 +118,31 @@ class GANLoss:
         return self.augment_fn(aug_draws, img, augment_p)
 
     def run_D(self, img: torch.Tensor, c: Optional[torch.Tensor], t: torch.Tensor,
-              aug_draws=None, augment_p=None) -> Dict[str, torch.Tensor]:
+              aug_draws=None, augment_p=None, d_noise=None) -> Dict[str, torch.Tensor]:
         if self.augment_fn is not None:
             img = self.augment(img, aug_draws, augment_p)
-        return self.D(img, c, t)
+        if d_noise is None:
+            return self.D(img, c, t)
+        return self.D(img, c, t, noise=d_noise)
 
     # ---------------- phase losses ----------------
 
     def gmain(self, z, c, t, motion_z, mix: Mix = None,
               generator: Optional[torch.Generator] = None, aug_draws=None,
-              augment_p=None) -> Tuple[torch.Tensor, Stats]:
+              augment_p=None, d_noise=None) -> Tuple[torch.Tensor, Stats]:
         """softplus(-D(G)) + the in-place w_avg update (reference loss.py:84-99)."""
         ws = self.run_mapping(z, c, update_w_avg=True, mix=mix)
         img = self.run_synthesis(ws, t, c, motion_z, generator)
-        logits = self.run_D(img, c, t, aug_draws, augment_p)["image_logits"]
+        out = self.run_D(img, c, t, aug_draws, augment_p, d_noise)
+        logits = out["image_logits"]
         loss = F.softplus(-logits).mean()
-        return loss, {**_score_stats(logits, "fake"), "Loss/G/loss": loss.detach()}
+        stats = {**_score_stats(logits, "fake"), "Loss/G/loss": loss.detach()}
+        if "video_logits" in out:          # MoCoGAN (reference loss.py:91-96)
+            loss_video = F.softplus(-out["video_logits"]).mean()
+            stats["Loss/scores/fake_video"] = out["video_logits"].detach().mean()
+            stats["Loss/G/loss_video"] = loss_video.detach()
+            loss = loss + loss_video
+        return loss, stats
 
     def gpl(self, z, c, t, motion_z, pl_noise, pl_mean: torch.Tensor, mix: Mix = None,
             generator: Optional[torch.Generator] = None
@@ -155,28 +171,38 @@ class GANLoss:
 
     def dgen(self, z, c, t, motion_z, mix: Mix = None,
              generator: Optional[torch.Generator] = None, aug_draws=None,
-             augment_p=None) -> Tuple[torch.Tensor, Stats]:
+             augment_p=None, d_noise=None) -> Tuple[torch.Tensor, Stats]:
         """softplus(D(G)), G frozen (reference loss.py:119-137)."""
         with torch.no_grad():
             ws = self.run_mapping(z, c, update_w_avg=False, mix=mix)
             img = self.run_synthesis(ws, t, c, motion_z, generator)
-        logits = self.run_D(img, c, t, aug_draws, augment_p)["image_logits"]
-        return F.softplus(logits).mean(), _score_stats(logits, "fake")
+        out = self.run_D(img, c, t, aug_draws, augment_p, d_noise)
+        logits = out["image_logits"]
+        loss, stats = F.softplus(logits).mean(), _score_stats(logits, "fake")
+        if "video_logits" in out:          # reference loss.py:130-134
+            loss = loss + F.softplus(out["video_logits"]).mean()
+            stats["Loss/scores/fake_video"] = out["video_logits"].detach().mean()
+        return loss, stats
 
     def dreal_dr1(self, real_img: torch.Tensor, c, t, do_main: bool, do_r1: bool,
-                  r1_gamma: float, aug_draws=None, augment_p=None) -> Tuple[torch.Tensor, Stats]:
+                  r1_gamma: float, aug_draws=None, augment_p=None,
+                  d_noise=None) -> Tuple[torch.Tensor, Stats]:
         """Dreal + R1 sharing ONE D forward (reference loss.py:139-173): R1 takes
-        the gradient of that forward's logits, which Dreal reuses, with respect
-        to the real frames before the augment."""
+        the gradient of that forward's image logits, which Dreal reuses, with
+        respect to the real frames before the augment."""
         if do_r1:
             real_img = real_img.detach().requires_grad_(True)
-        logits = self.run_D(real_img, c, t, aug_draws, augment_p)["image_logits"]
+        out = self.run_D(real_img, c, t, aug_draws, augment_p, d_noise)
+        logits = out["image_logits"]
         stats = _score_stats(logits, "real")
         loss = torch.zeros((), device=logits.device)
         if do_main:
             loss_real = F.softplus(-logits).mean()
             stats["Loss/D/loss_real"] = loss_real.detach()
             loss = loss + loss_real
+            if "video_logits" in out:      # reference loss.py:156-159
+                loss = loss + F.softplus(-out["video_logits"]).mean()
+                stats["Loss/scores/real_video"] = out["video_logits"].detach().mean()
         if do_r1:
             r1_grads, = torch.autograd.grad(logits.sum(), real_img, create_graph=True)
             r1_per_frame = r1_grads.square().sum(dim=(1, 2, 3))              # [B*F]

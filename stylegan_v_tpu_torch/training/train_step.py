@@ -9,6 +9,10 @@ scalars), returning it with the stats.
 Lazy regularization (reference training_loop.py:238-252): main and reg phases
 share one Adam per network whose lr and betas are pre-scaled by
 mb_ratio = interval/(interval+1); reg losses are scaled by their interval.
+`d_lr_scales` (MoCoGAN's {'video_discr': 0.1}, models/mocogan.py:
+lr_scale_map) gives D's Adam one parameter group per top-level child it
+names, at lr * mb_ratio * scale, as the JAX package's optax.multi_transform
+does (stylegan_v_tpu/training/train_step.py:86-110).
 The caller chooses `do_gpl` and `do_dr1` (stylegan_v_tpu/training/loop.py:257-258).
 
 Random draws. The JAX step draws z, the motion trajectories, Gpl's noise,
@@ -18,19 +22,20 @@ takes them as `draws`, or makes them from an explicit torch.Generator
 
     draws = {"Gmain": {"z": [B, z_dim], "motion_z": [B, L, mz],
                        "mix_cutoff": [R] int, "mix_z": [B, z_dim],
-                       "augment": [R draw sources]},
+                       "augment": [R draw sources], "d_noise": [R draw sources]},
              "Gpl":   {"z": [B, z_dim], "motion_z": [R*b, L, mz],
                        "pl_noise": [R*b*F, C, H, W],
                        "mix_cutoff": [R] int, "mix_z": [R*b, z_dim]},
              "Dgen":  like "Gmain",
-             "Dreal": {"augment": [R draw sources]},
-             "Dr1":   {"augment": [R draw sources]}}
+             "Dreal": {"augment": [R draw sources], "d_noise": [R draw sources]},
+             "Dr1":   {"augment": [R draw sources], "d_noise": [R draw sources]}}
 
 with R accumulation rounds, b = (B/R) // pl_batch_shrink, the mix_*
-entries only when style_mixing_prob > 0, and the "augment" entries (and
-"Dreal", "Dr1") only with an augment pipe. Round r takes the r-th of R
-equal slices of every tensor entry and the r-th draw source, which feeds
-that round's D call of the phase (training/augment.py: an object with
+entries only when style_mixing_prob > 0, the "augment" entries only with an
+augment pipe and the "d_noise" entries (the video D's instance noise) only
+with the MoCoGAN D; "Dreal" and "Dr1" only with either. Round r takes the
+r-th of R equal slices of every tensor entry and the r-th draw source, which
+feeds that round's D call of the phase (training/augment.py: an object with
 rand(shape) and randn(shape), or a torch.Generator). "Gpl" is read only
 when do_gpl, "Dr1" only when do_dr1. Every D call augments at the state's
 `augment_p`, a device tensor the step never reads on the host.
@@ -51,7 +56,8 @@ scrub, as in JAX), the mapping's w_avg (the mean of each round's w), Gpl's
 pl_mean (the mean path length) and the step's stats, once, before the ADA
 controller reads Loss/signs/real. Every phase's loss is a mean over equally
 many rows on every rank, so the mean over the ranks is the global batch's.
-With one rank nothing is reduced.
+With one rank nothing is reduced. The MoCoGAN D is refused over several
+ranks (ROADMAP P9c-ranks): its BatchNorm statistics would be each rank's.
 
 Batch (torch tensors, [B, ...]: the global batch, or with W ranks this
 rank's B/W rows of it; moved to the modules' device):
@@ -69,7 +75,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from ..models import Discriminator, Generator
+from ..models import Discriminator, Generator, MoCoGANDiscriminator
 from ..parallel.distributed import (RowsDraws, World, all_reduce_mean_, frame_rows, mbstd_group,
                                     rank_draws, row_plan, world as current_world)
 from ..parallel.zero import make_adam
@@ -129,10 +135,26 @@ def _mb_ratio(interval: Optional[int]) -> float:
     return 1.0 if interval is None else interval / (interval + 1)
 
 
-def _adam(params, cfg: OptimizerConfig, ratio: float, world: World,
-          zero1: bool = False) -> torch.optim.Optimizer:
-    return make_adam(params, lr=cfg.lr * ratio, betas=(cfg.beta1 ** ratio, cfg.beta2 ** ratio),
-                     eps=cfg.eps, world=world, zero1=zero1)
+def param_groups(module: torch.nn.Module, lr: float,
+                 lr_scales: Optional[Dict[str, float]] = None) -> List[Dict]:
+    """`module`'s parameters as Adam parameter groups, in `module.parameters()`
+    order: a top-level child named in `lr_scales` at lr * its scale, the rest
+    at lr (optax.multi_transform's labels; one group without scales)."""
+    groups: List[Dict] = []
+    for name, p in module.named_parameters():
+        group_lr = lr * (lr_scales or {}).get(name.split(".")[0], 1.0)
+        if not groups or groups[-1]["lr"] != group_lr:
+            groups.append({"params": [], "lr": group_lr})
+        groups[-1]["params"].append(p)
+    return groups
+
+
+def _adam(module: torch.nn.Module, cfg: OptimizerConfig, ratio: float, world: World,
+          zero1: bool = False, lr_scales: Optional[Dict[str, float]] = None
+          ) -> torch.optim.Optimizer:
+    return make_adam(param_groups(module, cfg.lr * ratio, lr_scales), lr=cfg.lr * ratio,
+                     betas=(cfg.beta1 ** ratio, cfg.beta2 ** ratio), eps=cfg.eps, world=world,
+                     zero1=zero1)
 
 
 def scrub_grads(params: List[torch.Tensor], clip: float = 1e5) -> None:
@@ -142,24 +164,28 @@ def scrub_grads(params: List[torch.Tensor], clip: float = 1e5) -> None:
         p.grad.nan_to_num_(nan=0.0, posinf=clip, neginf=-clip)
 
 
-def init_train_state(G: Generator, D: Discriminator, opt_g_cfg: OptimizerConfig,
+def init_train_state(G: Generator, D: torch.nn.Module, opt_g_cfg: OptimizerConfig,
                      opt_d_cfg: OptimizerConfig, tcfg: TrainingConfig,
-                     augment_p: float = 0.0, world: Optional[World] = None) -> TrainState:
+                     augment_p: float = 0.0, world: Optional[World] = None,
+                     d_lr_scales: Optional[Dict[str, float]] = None) -> TrainState:
     """State around G and D as they are (weights drawn or loaded), on their device.
 
     G_ema starts as a copy of G. Adam's moments start at zero, as optax's do;
     with tcfg.zero1 and more than one rank in `world` (the default process
-    group's when None) they are partitioned over the ranks.
+    group's when None) they are partitioned over the ranks. `d_lr_scales`
+    (D's own `lr_scale_map` when None, as MoCoGAN's D carries; {} for none)
+    gives D's Adam a parameter group per scaled child (`param_groups`).
     """
     world = current_world() if world is None else world
     device = next(G.parameters()).device
+    if d_lr_scales is None:
+        d_lr_scales = getattr(D, "lr_scale_map", None)
     return TrainState(
         step=0, cur_nimg=0, G=G, D=D,
         G_ema=copy.deepcopy(G).eval().requires_grad_(False),
-        opt_G=_adam(G.parameters(), opt_g_cfg, _mb_ratio(tcfg.G_reg_interval), world,
-                    tcfg.zero1),
-        opt_D=_adam(D.parameters(), opt_d_cfg, _mb_ratio(tcfg.D_reg_interval), world,
-                    tcfg.zero1),
+        opt_G=_adam(G, opt_g_cfg, _mb_ratio(tcfg.G_reg_interval), world, tcfg.zero1),
+        opt_D=_adam(D, opt_d_cfg, _mb_ratio(tcfg.D_reg_interval), world, tcfg.zero1,
+                    d_lr_scales),
         pl_mean=torch.zeros((), device=device),
         augment_p=torch.tensor(augment_p, dtype=torch.float32, device=device),
         ada_sign_acc=torch.zeros((), device=device))
@@ -167,9 +193,10 @@ def init_train_state(G: Generator, D: Discriminator, opt_g_cfg: OptimizerConfig,
 
 def sample_draws(G: Generator, loss_cfg: LossConfig, batch_size: int, rounds: int,
                  generator: torch.Generator, do_gpl: bool, augment: bool = False,
-                 do_dr1: bool = False) -> Draws:
+                 do_dr1: bool = False, d_noise: bool = False) -> Draws:
     """Every random draw of one step (module docstring), on the generator's
-    device. The augment pipe draws from `generator` itself, when it runs."""
+    device. The augment pipe and the video D's noise (`d_noise`) draw from
+    `generator` itself, when they run."""
     cfg = G.cfg
     dev = generator.device
     num_ws = G.num_ws
@@ -194,10 +221,10 @@ def sample_draws(G: Generator, loss_cfg: LossConfig, batch_size: int, rounds: in
     draws = {"Gmain": phase(batch_size, False), "Dgen": phase(batch_size, False)}
     if do_gpl:
         draws["Gpl"] = phase(rounds * (batch_size // rounds // loss_cfg.pl_batch_shrink), True)
-    if augment:
-        sources = [GeneratorDraws(generator)] * rounds
+    sources = [GeneratorDraws(generator)] * rounds
+    for key in ("augment",) * augment + ("d_noise",) * d_noise:
         for name in ("Gmain", "Dgen", "Dreal") + (("Dr1",) if do_dr1 else ()):
-            draws.setdefault(name, {})["augment"] = sources
+            draws.setdefault(name, {})[key] = sources
     return draws
 
 
@@ -234,17 +261,22 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
     `draws` (module docstring) replaces every random draw of the step; without
     it they come from `generator`, a torch.Generator on the modules' device.
     `augment_fn` is the ADA pipe (training/augment.py:make_augment_pipe) or
-    None. `world` is this process's place among the ranks (the default
+    None. `d_lr_scales` is taken for the JAX package's signature only: D's
+    learning rates are the groups of the state's opt_D (init_train_state).
+    `world` is this process's place among the ranks (the default
     process group's when None; the module docstring says what W ranks
-    compute): the batch is then this rank's rows. The step runs its float32 convolutions and matmuls without TF32
-    unless `allow_tf32` (the original's training option, off by default),
-    and gives the caller's settings back when it returns or raises.
+    compute): the batch is then this rank's rows. The step runs its float32
+    convolutions and matmuls without TF32 unless `allow_tf32` (the
+    original's training option, off by default), and gives the caller's
+    settings back when it returns or raises.
     """
-    if d_lr_scales:
-        raise NotImplementedError("per-subtree D learning rates (MoCoGAN) are not "
-                                  "ported yet (ROADMAP P9c)")
     world = current_world() if world is None else world
     W = world.size
+    video_noise = isinstance(D, MoCoGANDiscriminator)
+    if video_noise and W > 1:
+        raise NotImplementedError("the MoCoGAN discriminator over several ranks is not "
+                                  "ported yet (ROADMAP P9c-ranks): its BatchNorm statistics "
+                                  "would be each rank's")
     loss = GANLoss(G, D, loss_cfg, augment_fn=augment_fn,
                    batch_mean=world.mean_over_ranks if W > 1 else None)
     params_G, params_D = list(G.parameters()), list(D.parameters())
@@ -270,7 +302,8 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
             if generator is None:
                 raise ValueError("train_step needs a torch.Generator or explicit draws")
             draws = sample_draws(G, loss_cfg, B, rounds, generator, do_gpl,
-                                 augment=augment_fn is not None, do_dr1=do_dr1)
+                                 augment=augment_fn is not None, do_dr1=do_dr1,
+                                 d_noise=video_noise)
         noise = {}               # each phase's source of synthesis's per-layer noise
         if W > 1:
             N = B // rounds
@@ -301,10 +334,13 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
             return x[r * n:(r + 1) * n].to(device, non_blocking=True)
 
         def aug_inputs(name: str, r: int):
-            """Round r's augment draws and p for a phase that runs D."""
-            if augment_fn is None:
-                return {}
-            return dict(aug_draws=draws[name]["augment"][r], augment_p=state.augment_p)
+            """Round r's augment draws and p, and video D noise, for a phase that runs D."""
+            out = {}
+            if augment_fn is not None:
+                out.update(aug_draws=draws[name]["augment"][r], augment_p=state.augment_p)
+            if video_noise:
+                out["d_noise"] = draws[name]["d_noise"][r]
+            return out
 
         def phase_inputs(name: str, p: int, r: int):
             d = draws[name]

@@ -509,6 +509,44 @@ def test_k4_bwd_matches_plain_and_repeats_to_the_bit_on_card(cuda, maps, mode, d
     assert torch.equal(dx, affine_warp_bwd(dy, G, 18, 20, mode))
 
 
+# The MoCoGAN step's ADA pipe warps 16 frames x RGB = 48 fused channels: K4's
+# plan stages (nearly) every tile in double-buffered channel chunks, and K4-bwd
+# sums the channels 9 at a time, the last chunk of 3.
+K4_48 = ((2, 48, 96, 96), 64, 72,
+         [_rotation(1.05, 10, 0.05, -0.02), _rotation(1.6, 30, 0.2, -0.1)])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_plan_stages_48_channels_in_chunks(dtype):
+    (_, C, H, W), out_h, out_w, maps = K4_48
+    G = torch.eye(3).repeat(2, 1, 1)
+    G[:, :2] = torch.tensor(maps, dtype=torch.float32)
+    ch = grid_sample._warp_tile_boxes(G, H, W, out_h, out_w, channels=C,
+                                      itemsize=dtype.itemsize).channels
+    assert ch.size > 2 and ((ch > 0) & (ch < C)).mean() > 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["reflect", "zeros"])
+def test_k4_and_k4_bwd_match_plain_at_48_channels_on_card(cuda, mode, dtype):
+    (N, C, H, W), out_h, out_w, maps = K4_48
+    G = torch.eye(3).repeat(2, 1, 1)
+    G[:, :2] = torch.tensor(maps, dtype=torch.float32)
+    G = G.to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.randn(N, C, H, W, generator=g, device=cuda).to(dtype)
+    dy = torch.randn(N, C, out_h, out_w, generator=g, device=cuda).to(dtype)
+    k4, k4b = affine_warp.launches, affine_warp_bwd.launches
+    y = affine_warp(x, G, out_h, out_w, mode)
+    dx = affine_warp_bwd(dy, G, H, W, mode)
+    torch.cuda.synchronize()
+    assert (affine_warp.launches - k4, affine_warp_bwd.launches - k4b) == (1, 1)
+    assert_close(y, affine_grid_sample_plain(x, G, out_h, out_w, mode), dtype)
+    assert_close(dx, affine_grid_sample_bwd_plain(dy, G, H, W, mode), dtype)
+    assert torch.equal(dx, affine_warp_bwd(dy, G, H, W, mode))
+
+
 # ------------------------------------------ a reference .pkl and generate on the card
 
 @pytest.mark.cuda

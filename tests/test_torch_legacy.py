@@ -14,8 +14,9 @@ legacy_tf.py) and resume from a .pkl, held to the JAX package on the CPU.
     pickle, and for its partial copy into a template whose motion encoder
     stays fresh.
   * The loop resumed from a .pkl starts from its weights, at step 0 and
-    cur_nimg 0; a shape that differs from the template and an LSTM (`rnn.*`)
-    raise.
+    cur_nimg 0; a shape that differs from the template raises. A pickle
+    whose G holds the LSTM motion encoder (`rnn.*`) imports as the JAX route
+    gives it, its two biases summed.
 
 No real reference pickle is needed: every pickle is built here.
 """
@@ -39,7 +40,7 @@ from stylegan_v_tpu_torch.training import loop as tloop
 
 import test_legacy_tf as jtf_tests
 from test_data import build_video_dataset_dir
-from test_torch_loop import lstm_pickle, tiny_setup
+from test_torch_loop import LSTM_KW, lstm_pickle, tiny_setup
 from test_torch_models import (FP32_TOL, assert_close, inputs, nchw, port_cfg, small_disc_cfg,
                                small_gen_cfg)
 from test_torch_train import one_torch_thread
@@ -268,9 +269,33 @@ def test_a_shape_the_template_does_not_have_raises(ref_pkl):
 
 
 def test_an_lstm_raises(tmp_path):
-    path = lstm_pickle(tmp_path / "lstm.pkl")
-    with pytest.raises(NotImplementedError, match="P9c"):
-        tleg.import_reference_snapshot(path)
+    """Since P9c a .pkl whose G holds the LSTM (`rnn.*`) imports: every key
+    equal to the bit to the JAX route's (its import, then the bridge), but
+    the LSTM's two biases, which the JAX package sums into one (bias_ih_l0
+    holds the sum, bias_hh_l0 zeros: the sums equal to the bit), and G_ema's
+    frames within FP32_TOL of the JAX module's. It raises into a template
+    whose LSTM has other widths."""
+    path, _ = lstm_pickle(tmp_path / "lstm.pkl")
+    got = tleg.import_reference_snapshot(path)["G_ema"]
+    jvars = jleg.import_reference_snapshot(path)["G_ema"]
+    want = jax_to_torch_generator(jvars)
+    assert got.keys() == want.keys()
+    rnn = "synthesis.motion_encoder.rnn."
+    biases = {rnn + "bias_ih_l0", rnn + "bias_hh_l0"}
+    assert_flat_equal({k: v for k, v in got.items() if k not in biases},
+                      {k: v for k, v in want.items() if k not in biases})
+    assert torch.equal(got[rnn + "bias_ih_l0"] + got[rnn + "bias_hh_l0"],
+                       want[rnn + "bias_ih_l0"] + want[rnn + "bias_hh_l0"])
+    cfg = small_gen_cfg(**LSTM_KW)
+    G = port_module(Generator, cfg, got)
+    z, t, mz = inputs(cfg, seed=6)
+    want_img = JGenerator(cfg).apply(jvars, z, None, t, motion_z=mz)
+    with torch.no_grad():
+        got_img = G(torch.from_numpy(z), None, torch.from_numpy(t), motion_z=torch.from_numpy(mz))
+    assert_close(got_img, np.transpose(np.asarray(want_img), (0, 3, 1, 2)), FP32_TOL)
+    wider = Generator(port_cfg(small_gen_cfg(**LSTM_KW, **{"motion.z_dim": 16})))
+    with pytest.raises(ValueError, match="the checkpoint holds"):
+        tleg.import_reference_snapshot(path, G=wider)
 
 
 # ------------------------------------------------------------ resume from a .pkl

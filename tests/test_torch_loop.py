@@ -347,24 +347,43 @@ def test_step_seed_depends_on_seed_and_step_only():
     assert len(seeds) == 300 and all(0 <= s < 2 ** 63 for s in seeds)
 
 
+# configs/model/mocogan.yaml's G: the autoregressive (LSTM) motion strategy
+LSTM_KW = {"motion.gen_strategy": "autoregressive", "motion.fourier": False,
+           "motion.motion_z_distance": 1, "input_type": "const",
+           "time_enc.cond_type": "concat_w"}
+
+
 def lstm_pickle(path):
-    """A reference pickle whose motion encoder holds an LSTM (`rnn.*`), which
-    the port does not have yet (ROADMAP P9c)."""
-    from stylegan_v_tpu_torch.models import Generator
+    """A reference pickle whose G and G_ema hold the LSTM motion encoder
+    (`rnn.*`), seeded, at small_gen_cfg's widths."""
     from stylegan_v_tpu_torch.tools.ref_pickle import write_reference_pickle
-    G = Generator(port_cfg(small_gen_cfg()))
-    G.synthesis.motion_encoder.rnn = torch.nn.LSTM(8, 8)
-    return write_reference_pickle(str(path), G=G, G_ema=G)
+    G = Generator(port_cfg(small_gen_cfg(**LSTM_KW)), generator=torch.Generator().manual_seed(4))
+    return write_reference_pickle(str(path), G=G, G_ema=G), G
 
 
 @pytest.mark.parametrize("option", ["mocogan", "pkl"])
 def test_unported_options_raise_before_a_step(tmp_path, option):
-    kw = {"mocogan": dict(disc_source="mocogan"),
-          "pkl": dict(resume=lstm_pickle(tmp_path / "network-snapshot.pkl"))}[option]
+    """MoCoGAN over two ranks (ROADMAP P9c-ranks: its BatchNorm statistics
+    would be each rank's) raises before anything is made, from a .pkl too.
+    [pkl]: since P9c, one rank resumes from a .pkl whose G holds the LSTM and
+    trains a step from its weights (G_ema's second LSTM bias, which never
+    trains, is still the pickle's)."""
+    path, source = lstm_pickle(tmp_path / "network-snapshot.pkl")
+    kw = {"mocogan": {}, "pkl": dict(resume=path)}[option]
     run = str(tmp_path / "run")
-    with pytest.raises(NotImplementedError, match="ROADMAP P9"):
-        tloop.training_loop(tiny_setup("unused", run, **kw), device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP P9c-ranks"):
+        tloop.training_loop(tiny_setup("unused", run, disc_source="mocogan", num_chips=2, **kw),
+                            device=torch.device("cpu"))
     assert not os.path.exists(run)
+    if option == "pkl":
+        ds = build_video_dataset_dir(str(tmp_path), num_videos=4, frames_per_video=20, res=32)
+        result = tloop.training_loop(
+            tiny_setup(ds, run, kimg=0.012, resume=path,
+                       gen_cfg=port_cfg(small_gen_cfg(**LSTM_KW))),
+            device=torch.device("cpu"), log=lambda *_: None)
+        assert result["state"].step == 1
+        key = "synthesis.motion_encoder.rnn.bias_hh_l0"
+        assert torch.equal(result["state"].G_ema.state_dict()[key], source.state_dict()[key])
 
 
 @pytest.mark.parametrize("option", ["metrics", "chips", "zero1"])

@@ -129,20 +129,28 @@ def make_batch(seed):
 # ------------------------------------------------------------ the JAX draws
 
 class JaxDraws:
-    """Replays the JAX package's random draws, to hand them to the port."""
+    """Replays the JAX package's random draws, to hand them to the port: for
+    G's config `cfg` (GCFG by default), a step of `batch` videos (the module's
+    B when the draws are made, by default) and the loss settings `loss` (LOSS)."""
 
-    def __init__(self, G, vars_G):
+    def __init__(self, G, vars_G, cfg=GCFG, batch=None, loss=LOSS):
         self.G, self.vars_G = G, vars_G
-        self.num_ws = G.apply(vars_G, jnp.zeros((1, GCFG.z_dim)), None,
+        self.cfg, self._batch, self.loss = cfg, batch, loss
+        self.frames, self.res = cfg.sampling.num_frames_per_video, cfg.img_resolution
+        self.num_ws = G.apply(vars_G, jnp.zeros((1, cfg.z_dim)), None,
                               method=lambda g, z, c: g.mapping(z, c)).shape[1]
         self._motion_z = jax.jit(self._capture_motion_z, static_argnums=2)
+
+    @property
+    def batch(self):
+        return B if self._batch is None else self._batch
 
     def _capture_motion_z(self, vars_G, k_syn, n):
         def call(g, ws, t):
             return g.synthesis(ws, t=t, c=None)
         rngs = {"motion": jax.random.fold_in(k_syn, 1), "noise": jax.random.fold_in(k_syn, 2)}
-        _, inter = self.G.apply(vars_G, jnp.zeros((n, self.num_ws, GCFG.w_dim)),
-                                jnp.zeros((n, F)), method=call, rngs=rngs,
+        _, inter = self.G.apply(vars_G, jnp.zeros((n, self.num_ws, self.cfg.w_dim)),
+                                jnp.zeros((n, self.frames)), method=call, rngs=rngs,
                                 capture_intermediates=True, mutable=["intermediates"])
         return inter["intermediates"]["synthesis"]["motion_encoder"]["__call__"][0]["motion_z"]
 
@@ -154,9 +162,9 @@ class JaxDraws:
         """run_mapping's style-mixing draws (loss.py:74-79)."""
         k_cut, k_prob, k_z = jax.random.split(k_mix, 3)
         cutoff = jax.random.randint(k_cut, (), 1, self.num_ws)
-        cutoff = jnp.where(jax.random.uniform(k_prob) < LOSS["style_mixing_prob"],
+        cutoff = jnp.where(jax.random.uniform(k_prob) < self.loss["style_mixing_prob"],
                            cutoff, self.num_ws)
-        return int(cutoff), np.array(jax.random.normal(k_z, (n, GCFG.z_dim)))
+        return int(cutoff), np.array(jax.random.normal(k_z, (n, self.cfg.z_dim)))
 
     def phase(self, rng, n, with_noise=False):
         """One phase call's draws from its rng: motion_z, mix, pl_noise (NCHW)."""
@@ -164,21 +172,23 @@ class JaxDraws:
         d = {"motion_z": self.motion_z(k_syn, n)}
         d["mix_cutoff"], d["mix_z"] = self.mix(k_mix, n)
         if with_noise:
-            d["pl_noise"] = nchw(jax.random.normal(k_third, (n * F, RES, RES, 3)))
+            d["pl_noise"] = nchw(jax.random.normal(k_third, (n * self.frames, self.res,
+                                                              self.res, 3)))
         return d
 
     def step(self, rng, rounds, do_gpl, augment=False, do_dr1=False):
         """All draws of train_step(state, batch, rng), as the port's `draws`."""
         keys = jax.random.split(rng, 8)
-        mb = B // rounds
-        bsz = mb // LOSS.get("pl_batch_shrink", 2)
+        mb = self.batch // rounds
+        bsz = mb // self.loss.get("pl_batch_shrink", 2)
 
         def gather(z_key, round_rng, n, with_noise=False):
             per_round = [self.phase(round_rng(r * mb), n, with_noise) for r in range(rounds)]
             d = {k: torch.cat([torch.as_tensor(np.array(p[k])) for p in per_round])
                  for k in ("motion_z", "mix_z") + (("pl_noise",) if with_noise else ())}
             d["mix_cutoff"] = torch.tensor([p["mix_cutoff"] for p in per_round])
-            d["z"] = torch.from_numpy(np.array(jax.random.normal(z_key, (B, GCFG.z_dim))))
+            d["z"] = torch.from_numpy(np.array(jax.random.normal(
+                z_key, (self.batch, self.cfg.z_dim))))
             return d
 
         draws = {
@@ -189,19 +199,26 @@ class JaxDraws:
             draws["Gpl"] = gather(keys[2], lambda i: jax.random.fold_in(keys[3], i), bsz,
                                   with_noise=True)
         if augment:
-            # each D call's augment key (train_step.py:268,317,320,345; loss.py:120,162)
-            def sources(key_of):
-                return [JaxKeyDraws(key_of(r * mb)) for r in range(rounds)]
-
-            fold = jax.random.fold_in
-            draws["Gmain"]["augment"] = sources(
-                lambda i: jax.random.split(fold(keys[1], i), 3)[2])
-            draws["Dgen"]["augment"] = sources(
-                lambda i: jax.random.split(fold(fold(keys[5], i), 0), 3)[2])
-            draws["Dreal"] = {"augment": sources(lambda i: fold(fold(keys[5], i), 1))}
-            if do_dr1:
-                draws["Dr1"] = {"augment": sources(lambda i: fold(keys[7], i))}
+            for name, ks in self.d_call_keys(rng, rounds, do_dr1).items():
+                draws.setdefault(name, {})["augment"] = [JaxKeyDraws(k) for k in ks]
         return draws
+
+    def d_call_keys(self, rng, rounds, do_dr1):
+        """The key each D call of train_step(state, batch, rng) hands run_D,
+        by phase, a list of one per round (train_step.py:268,317,320,345;
+        loss.py:120,162): the augment's key, from which D's noise is folded."""
+        keys, fold = jax.random.split(rng, 8), jax.random.fold_in
+        mb = self.batch // rounds
+
+        def per_round(key_of):
+            return [key_of(r * mb) for r in range(rounds)]
+
+        out = {"Gmain": per_round(lambda i: jax.random.split(fold(keys[1], i), 3)[2]),
+               "Dgen": per_round(lambda i: jax.random.split(fold(fold(keys[5], i), 0), 3)[2]),
+               "Dreal": per_round(lambda i: fold(fold(keys[5], i), 1))}
+        if do_dr1:
+            out["Dr1"] = per_round(lambda i: fold(keys[7], i))
+        return out
 
 
 # ------------------------------------------------------------------ fixtures
@@ -463,11 +480,29 @@ def test_steps_drawn_from_a_generator_are_reproducible(augment):
 
 @pytest.mark.parametrize("what", ["d_lr_scales"])
 def test_unported_options_raise(what):
+    """d_lr_scales, ported with MoCoGAN (ROADMAP P9c; tests/test_torch_mocogan.py
+    holds it to the JAX step): D's Adam takes a parameter group per scaled
+    child, in D.parameters() order, and a step runs. The step takes D's
+    learning rates from the state's groups: a state built without the scales
+    (this D carries no lr_scale_map) steps with one group and moves D."""
     G, D = small_port_models()
     lcfg = tloss_mod.LossConfig(**LOSS)
     tcfg = tts.TrainingConfig(**TRAIN)
-    with pytest.raises(NotImplementedError, match="P9"):
-        tts.make_train_step(G, D, lcfg, tcfg, d_lr_scales={"video": 0.1})
+    scales = {"b4": 0.5}
+    opt = tts.OptimizerConfig(**OPT)
+    state = tts.init_train_state(G, D, opt, opt, tcfg, d_lr_scales=scales)
+    groups = state.opt_D.param_groups
+    assert [g["lr"] for g in groups] == [groups[0]["lr"], groups[0]["lr"] * 0.5]
+    assert [p for g in groups for p in g["params"]] == list(D.parameters())
+    step = tts.make_train_step(G, D, lcfg, tcfg, d_lr_scales=scales)
+    _, tbatch = make_batch(3)
+    state, stats = step(state, tbatch, generator=torch.Generator().manual_seed(5))
+    assert state.step == 1 and all(bool(torch.isfinite(v)) for v in stats.values())
+    plain = tts.init_train_state(G, D, opt, opt, tcfg)
+    assert [len(g["params"]) for g in plain.opt_D.param_groups] == [len(list(D.parameters()))]
+    before = [p.detach().clone() for p in D.parameters()]
+    plain, _ = step(plain, tbatch, generator=torch.Generator().manual_seed(5))
+    assert plain.step == 1 and any(not torch.equal(a, p) for a, p in zip(before, D.parameters()))
 
 
 @pytest.mark.parametrize("what", ["augment_shards", "zero1", "mesh"])
