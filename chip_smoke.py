@@ -156,19 +156,44 @@ holds them against the port's plain PyTorch paths:
               logit streams in stats.jsonl; (e) generate on (d)'s last
               snapshot against generate_videos, clips/s, fvd2048_16f at phase
               14's counts, no kernel launch.
+ 18. cli:     the remaining CLIs on phase 16's FFS-256 .pkl, each through its
+              main(argv) as `python -m stylegan_v_tpu_torch.<name>` runs it:
+              (a) project on 8 target frames at 256^2 from G_ema at a known
+              (z, motion_z), the fallback loss for 100 steps with 4 motion
+              trials (the last loss below the search's best, finite latents,
+              K1 and K1-bwd launches per step as derived, ms a step), then 10
+              steps of the LPIPS branch with a scripted stand-in vgg16.pt;
+              (b) K1 and K1-bwd against their plain versions at the
+              pyramid's shapes, [8, 3, 256^2] down to 64^2 float32 (phases 3
+              and 7's checks and times), beside phases 3 and 7's; (c) at
+              phase 6's reduced width, card vs CPU: the projection loss and
+              its gradient in (w, motion_z), edit_loss and its gradient in
+              ws; (d) clip_edit.edit for 30 steps with a stand-in CLIP tower
+              and a scripted stand-in ArcFace: finite, the CLIP term falls,
+              no launch; (e) export_model --selftest at batch 4 x 16 frames,
+              the artifact in a fresh process that imports torch alone equal
+              to this process's to the bit, two seeds two videos, clips/s;
+              (f) frames_to_video_grid on phase 16's frame folders; (g)
+              `python -m stylegan_v_tpu_torch.launch --jobs 2` on phase 13's
+              zip, job 2 resuming job 1's snapshot, and batch_launch
+              --print-only over configs/experiments.yaml. transformers is
+              probed and printed, not used.
 
 Any failed check exits non-zero. The last two lines are the kernel record
 (each kernel's launches in phase 11, worst error, time, plain and library
 time, and its bound: bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s,
 whichever is larger; its launches per MoCoGAN step, K1's and K1-bwd's
 numbers at the MoCoGAN image D's skips and K4's and K4-bwd's at 48 channels,
-from phase 17) and {"ok": true, "device": {...}}. There is no CPU path:
+from phase 17; K1's and K1-bwd's launches per projection step and their
+numbers at the projection's pyramid, from phase 18) and {"ok": true,
+"device": {...}}. There is no CPU path:
 without a CUDA device the script fails.
 """
 from __future__ import annotations
 
 import copy
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -190,6 +215,7 @@ D_SKIP_SHAPES_16X3 = [((8 * n, c, h, w), dtype) for (n, c, h, w), dtype in D_SKI
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet (700 W)
 F32_FLOPS_PER_S = 67e12        # the same card's float32 rate outside the tensor cores
 L2_COLD_BYTES = 100e6          # rotate among copies of an input until they exceed twice the L2
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def check(ok: bool, what: str) -> None:
@@ -2110,6 +2136,7 @@ def legacy_generate(dev, smi, tmp, pkl):
     msgs.append("--moco-decomposition 2x2 grid.mp4, frames equal to the bit")
     print(f"[16 legacy] (c) `python -m stylegan_v_tpu_torch.generate`: " + "; ".join(msgs)
           + f"; on {smi}", flush=True)
+    return LEGACY_CLIPS / t_syn
 
 
 RANK_LAUNCHES = "SMOKE_RANK_LAUNCHES"   # (d): where each spawned rank writes its launches
@@ -2343,7 +2370,8 @@ def legacy_metrics(dev, zip_path, tmp, pkl, models):
 def phase_legacy(dev, smi, zip_path, tmp, models):
     """Phase 16: a reference .pkl written from seeded FFS-256 modules with
     phase 13's configs; (a) load, (b) resume, (c) generate, (d) frame shards,
-    (e) metrics; no kernel launch in (c)-(e)."""
+    (e) metrics; no kernel launch in (c)-(e). Returns the .pkl's path and
+    (c)'s clips/s of synthesis."""
     import os
     from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
                                           downfirdn2d_x2_bwd)
@@ -2363,11 +2391,12 @@ def phase_legacy(dev, smi, zip_path, tmp, models):
     kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
     for k in kernels:
         k.launches = 0
+    returned = {}
     for tag, fn, args in (("c", legacy_generate, (dev, smi, tmp, pkl)),
                           ("d", legacy_shards, (dev, tmp, pkl)),
                           ("e", legacy_metrics, (dev, zip_path, tmp, pkl, models))):
         t0 = time.perf_counter()
-        fn(*args)
+        returned[tag] = fn(*args)
         parts[tag] = time.perf_counter() - t0
     launches = tuple(k.launches for k in kernels)
     check(launches == (0, 0, 0, 0), f"[16 legacy] K1, K1-bwd, K4, K4-bwd launched {launches} "
@@ -2376,6 +2405,7 @@ def phase_legacy(dev, smi, zip_path, tmp, models):
           f"none in (d)'s ranks, above): "
           f"{launches}; the parts took " + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items())
           + f"; phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return pkl, returned["c"]
 
 
 # ---------------------------------------------------------------- phase 17
@@ -2895,7 +2925,548 @@ def phase_mocogan(dev, smi, zip_path, tmp, models, k4_9ch):
     return launches, k1, k1_bwd, k4, k4_bwd
 
 
-def kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco):
+# ---------------------------------------------------------------- phase 18
+# The remaining CLIs (stylegan_v_tpu_torch/{project,clip_edit,export_model,
+# frames_to_video_grid,launch,batch_launch}.py) on phase 16's FFS-256 .pkl.
+PROJ_SHAPE = (8, 256)            # (a): target frames (one video) and resolution
+PROJ_STEPS, PROJ_TRIALS, PROJ_LPIPS_STEPS = 100, 4, 10
+# (a): K1 and K1-bwd launches per projection step, derived from the code. The
+# fallback loss takes three 2x downsamples of the frames (the K1 case of
+# upfirdn2d: a 4x4 filter, down 2, padding 1, even sizes): 3 K1, and 3 K1-bwd
+# in the backward. G's upsamples are not the K1 case, and their gradient is
+# upfirdn2d's own (_UpFirDn2d.backward calls _UpFirDn2d, never the K1 route),
+# so G's backward adds none. Once a run: the target's pyramid, 3 K1; each
+# motion trial's loss, 3 K1. The LPIPS objective launches none.
+PROJ_LAUNCHES_PER_STEP = (3, 3)
+# (b): K1's inputs in the pyramid, [8, 3, 256^2] down to [8, 3, 64^2] (K1-bwd
+# takes their outputs, 128^2 down to 32^2), float32 as the loss runs them
+PYRAMID_SHAPES = [((PROJ_SHAPE[0], 3, PROJ_SHAPE[1] >> i, PROJ_SHAPE[1] >> i), "float32")
+                  for i in range(3)]
+EDIT_STEPS, EDIT_FRAMES = 30, 8  # (d)
+EXPORT_SHAPE = (4, 16)           # (e): batch, video length of the artifact
+EXPORT_TIMED_CALLS = 5
+# (g): each launched job's overrides on phase 13's zip: job 1 trains 1 kimg (21
+# steps of 16 videos x 3 frames), job 2 resumes at its end and takes one step
+LAUNCH_ARGS = ["training.batch_size=16", "training.kimg=1", "training.metrics=[]"]
+
+
+def stand_in_vgg():
+    """(a)'s stand-in for the reference's vgg16.pt: its call signature (img
+    0..255 NCHW, resize_images=, return_lpips=), a seeded conv, ReLU, mean
+    and a normalised 8-dim feature (tests/test_project_cli.py's FakeVGG)."""
+    import torch
+
+    class StandInVGG(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv = torch.nn.Conv2d(3, 8, 4, stride=4)
+            gen = torch.Generator().manual_seed(18)
+            with torch.no_grad():
+                for p in self.parameters():
+                    p.copy_(0.2 * torch.randn(p.shape, generator=gen))
+
+        def forward(self, x, resize_images: bool = False, return_lpips: bool = True):
+            y = torch.nn.functional.relu(self.conv(x / 255.0)).mean(dim=(2, 3))
+            return y / torch.sqrt(torch.sum(y * y, dim=1, keepdim=True) + 1e-8)
+    return StandInVGG().eval()
+
+
+def stand_in_clip(seed):
+    """(c), (d): a stand-in for CLIP's image tower behind clip_edit's
+    preprocessing (area resize to 224, CLIP's normalisation): a seeded 16x16
+    stride-16 conv, ReLU, mean and a linear map to 16 dims."""
+    import torch
+    import torch.nn.functional as F
+    from stylegan_v_tpu_torch.clip_edit import CLIP_MEAN, CLIP_STD
+
+    class StandInClip(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv = torch.nn.Conv2d(3, 8, 16, stride=16)
+            self.fc = torch.nn.Linear(8, 16)
+            gen = torch.Generator().manual_seed(seed)
+            with torch.no_grad():
+                for p in self.parameters():
+                    p.copy_(0.2 * torch.randn(p.shape, generator=gen))
+            self.register_buffer("mean", torch.tensor(CLIP_MEAN).view(1, 3, 1, 1))
+            self.register_buffer("std", torch.tensor(CLIP_STD).view(1, 3, 1, 1))
+
+        def forward(self, x):
+            img = F.interpolate(x * 0.5 + 0.5, size=(224, 224), mode="area")
+            return self.fc(F.relu(self.conv((img - self.mean) / self.std)).mean(dim=(2, 3)))
+    return StandInClip().eval().requires_grad_(False)
+
+
+def stand_in_arcface(path):
+    """(c), (d): a scripted stand-in for the ir_se50 ArcFace export at `path`:
+    a seeded 16x16 stride-16 conv and a mean, [N, 3, 112, 112] -> [N, 8]."""
+    import torch
+
+    class StandInArcFace(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv = torch.nn.Conv2d(3, 8, 16, stride=16)
+            gen = torch.Generator().manual_seed(21)
+            with torch.no_grad():
+                for p in self.parameters():
+                    p.copy_(0.2 * torch.randn(p.shape, generator=gen))
+
+        def forward(self, x):
+            return self.conv(x).mean(dim=(2, 3))
+    torch.jit.script(StandInArcFace().eval()).save(path)
+    return path
+
+
+def _kernels():
+    """The four kernel wrappers, whose `launches` count their CUDA launches."""
+    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
+                                          downfirdn2d_x2_bwd)
+    return (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+
+
+def cli_project(dev, smi, tmp, pkl):
+    """Phase 18 (a): `python -m stylegan_v_tpu_torch.project` in process on the
+    .pkl, targets from its G_ema at a known (z, motion_z): the fallback loss
+    for PROJ_STEPS steps with launches asserted, then the LPIPS branch with a
+    scripted stand-in vgg16.pt. Returns ms a step of the fallback loss."""
+    import contextlib
+    import io
+    import os
+    import numpy as np
+    import PIL.Image
+    import torch
+    from stylegan_v_tpu_torch import generate, project
+    from stylegan_v_tpu_torch.utils.misc import float32_precision
+
+    tag = "[18 cli (a)]"
+    frames_n, res = PROJ_SHAPE
+    with contextlib.redirect_stdout(io.StringIO()):
+        G = generate.load_any_checkpoint(pkl, dev)
+    check(G.cfg.img_resolution == res, f"{tag} the .pkl's G is {G.cfg.img_resolution}^2")
+    g = torch.Generator(device=dev).manual_seed(18)
+    z = torch.randn(1, G.cfg.z_dim, generator=g, device=dev)
+    mz = G.synthesis.motion_encoder.sample_motion_z(1, g, max_t=float(frames_n))
+    t = torch.arange(frames_n, dtype=torch.float32, device=dev)[None]
+    with torch.no_grad(), float32_precision(False):
+        frames = G(z, None, t, motion_z=mz, noise_mode="none")
+    target = os.path.join(tmp, "proj_target")
+    os.makedirs(target)
+    u8 = (frames * 127.5 + 128).clamp(0, 255).to(torch.uint8).permute(0, 2, 3, 1).cpu().numpy()
+    for i, im in enumerate(u8):
+        PIL.Image.fromarray(im).save(os.path.join(target, f"{i:06d}.png"))
+    del G, frames
+    kernels = _kernels()
+
+    def run(out_dir, steps, extra):
+        for k in kernels:
+            k.launches = 0
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            result = project.main(["--network", pkl, "--target-dir", target, "-o", out_dir,
+                                   "--num-steps", str(steps), "--num-frames", str(frames_n),
+                                   "--motion-init-trials", str(PROJ_TRIALS), "--seed", "18",
+                                   "--device", str(dev)] + extra)
+        torch.cuda.synchronize()
+        launches = tuple(k.launches for k in kernels)
+        lat = np.load(os.path.join(out_dir, "projected_latents.npz"))
+        losses = result["losses"]
+        check(len(losses) == steps and np.isfinite(losses).all()
+              and np.isfinite(lat["w"]).all() and np.isfinite(lat["motion_z"]).all()
+              and os.path.exists(os.path.join(out_dir, "projected.mp4")),
+              f"{tag} {extra or 'fallback'}: non-finite losses or latents, or no mp4")
+        check(losses[-1] < result["init_loss"],
+              f"{tag} {extra or 'fallback'}: the last loss {losses[-1]} is not below the "
+              f"motion search's best {result['init_loss']}")
+        return result, launches, printed.getvalue()
+
+    empty = os.path.join(tmp, "proj_no_detectors")
+    os.makedirs(empty)
+    t0 = time.perf_counter()
+    result, launches, printed = run(os.path.join(tmp, "proj_out"), PROJ_STEPS,
+                                    ["--detector-dir", empty])
+    t_cli = time.perf_counter() - t0
+    check("vgg16.pt not found" in printed, f"{tag} the fallback loss did not run: {printed[:200]}")
+    per_run = 3 + 3 * PROJ_TRIALS
+    want = (per_run + PROJ_LAUNCHES_PER_STEP[0] * PROJ_STEPS,
+            PROJ_LAUNCHES_PER_STEP[1] * PROJ_STEPS, 0, 0)
+    check(launches == want, f"{tag} K1, K1-bwd, K4, K4-bwd launched {launches} times, expected "
+                            f"{want} ({per_run} K1 for the target's pyramid and the motion "
+                            f"trials, then {PROJ_LAUNCHES_PER_STEP} a step)")
+    ms_step = result["seconds"] / PROJ_STEPS * 1e3
+
+    det = os.path.join(tmp, "proj_detectors")
+    os.makedirs(det)
+    torch.jit.script(stand_in_vgg()).save(os.path.join(det, "vgg16.pt"))
+    lp, lp_launches, lp_printed = run(os.path.join(tmp, "proj_out_lpips"), PROJ_LPIPS_STEPS,
+                                      ["--detector-dir", det])
+    check("Using VGG16-LPIPS perceptual loss" in lp_printed and lp_launches == (0, 0, 0, 0),
+          f"{tag} LPIPS branch: launches {lp_launches}, output {lp_printed[:200]}")
+    print(f"{tag} `python -m stylegan_v_tpu_torch.project` on the .pkl, {frames_n} target "
+          f"frames at {res}^2 from its G_ema, fallback loss: motion search best of "
+          f"{PROJ_TRIALS} {result['init_loss']:.5f}, loss after {PROJ_STEPS} steps "
+          f"{result['losses'][-1]:.5f} (step 1 {result['losses'][1]:.5f}), latents finite; "
+          f"K1, K1-bwd, K4, K4-bwd launches {launches} = {per_run} + {PROJ_STEPS} x "
+          f"{PROJ_LAUNCHES_PER_STEP} as derived; {ms_step:.2f} ms a step (host clock over the "
+          f"steps, synchronised at the end), the CLI {t_cli:.1f} s with the load; LPIPS with a "
+          f"scripted stand-in vgg16.pt: {lp['init_loss']:.5f} -> {lp['losses'][-1]:.5f} in "
+          f"{PROJ_LPIPS_STEPS} steps ({lp['seconds'] / PROJ_LPIPS_STEPS * 1e3:.2f} ms a step), "
+          f"no launch; on {smi}", flush=True)
+    return ms_step
+
+
+def cli_kernels(dev, k1_pass, k1_bwd_pass):
+    """Phase 18 (b): K1 and K1-bwd against their plain versions at the
+    pyramid's shapes (phases 3 and 7's checks, times, library call and bound),
+    printed beside phase 3 and 7's one D pass at 16 x 3."""
+    from stylegan_v_tpu_torch.ops import (downfirdn2d_x2, downfirdn2d_x2_bwd,
+                                          downfirdn2d_x2_bwd_plain, downfirdn2d_x2_plain)
+    from stylegan_v_tpu_torch.utils.misc import float32_precision
+    sets = ((f"{PROJ_SHAPE[0]}x3 pyramid", PYRAMID_SHAPES),)
+    with float32_precision(False):
+        k1 = phase_kernel(dev, "[18 cli (b)] K1", "down", downfirdn2d_x2, downfirdn2d_x2_plain,
+                          sets)
+        k1_bwd = phase_kernel(dev, "[18 cli (b)] K1-bwd", "up", downfirdn2d_x2_bwd,
+                              downfirdn2d_x2_bwd_plain, sets)
+    for name, rec, d_pass, phase in (("K1", k1, k1_pass, 3), ("K1-bwd", k1_bwd, k1_bwd_pass, 7)):
+        m, d = rec[1], d_pass[1]
+        print(f"[18 cli (b)] {name} over the projection's three pyramid levels (one side a "
+              f"step): {m['ms']:.4f} ms, {m['bound_ms'] / m['ms']:.3f} of its "
+              f"{m['bound_ms']:.4f} ms bound, plain {m['plain_ms']:.4f} ms, library "
+              f"{m['library_ms']:.4f} ms, worst error {rec[0]:.3g}; phase {phase}'s D pass at "
+              f"16 x 3: {d['ms']:.4f} ms, {d['bound_ms'] / d['ms']:.3f} of "
+              f"{d['bound_ms']:.4f} ms", flush=True)
+    return k1, k1_bwd
+
+
+def cli_parity(dev, tmp):
+    """Phase 18 (c): at phase 6's reduced width, card against CPU at the same
+    weights, targets and draws: the projection loss and its gradient in (w,
+    motion_z); edit_loss and its gradient in ws, with the stand-in CLIP and
+    ArcFace; each within PARITY_TOL of its scale."""
+    import os
+    import torch
+    import torch.nn.functional as F
+    from stylegan_v_tpu_torch import clip_edit, project
+    from stylegan_v_tpu_torch.models.motion import MotionMappingNetwork
+    from stylegan_v_tpu_torch.utils.misc import float32_precision
+
+    tag = "[18 cli (c)]"
+    G, _, _, _, _, gen = reduced_models()
+    G.requires_grad_(False)
+    frames_n = 4
+    L = MotionMappingNetwork.required_traj_len(G.cfg, float(frames_n))
+    target = torch.rand(frames_n, 3, 32, 32, generator=gen) * 2 - 1
+    w = 0.5 * torch.randn(1, G.num_ws, G.cfg.w_dim, generator=gen)
+    mz = torch.randn(1, L, G.cfg.motion.z_dim, generator=gen)
+    ws0 = 0.5 * torch.randn(1, G.num_ws, G.cfg.w_dim, generator=gen)
+    ws = ws0 + 0.1 * torch.randn(ws0.shape, generator=gen)
+    text = F.normalize(torch.randn(16, generator=gen), dim=0)
+    t = torch.arange(frames_n, dtype=torch.float32)[None]
+    embed = stand_in_clip(22)
+    arc_path = stand_in_arcface(os.path.join(tmp, "arcface_parity.pt"))
+    kernels = _kernels()[:2]
+
+    def run(device):
+        Gd = copy.deepcopy(G).to(device)
+        wd, mzd = w.to(device).requires_grad_(True), mz.to(device).requires_grad_(True)
+        loss = project.projection_loss(Gd, target.to(device))(wd, mzd)
+        gw, gmz = torch.autograd.grad(loss, [wd, mzd])
+        e, arc = copy.deepcopy(embed).to(device), clip_edit.make_arcface_embed(arc_path, device)
+        td, mzt = t.to(device), mz.to(device)
+
+        def synth(x):
+            return Gd.synthesis(x, t=td, motion_z=mzt, noise_mode="none")
+        ws0d, wsd = ws0.to(device), ws.to(device).requires_grad_(True)
+        with torch.no_grad():
+            base = synth(ws0d)
+            base_id = arc(base)
+        eloss, terms = clip_edit.edit_loss(synth, wsd, ws0d, e, text.to(device), base, base_id,
+                                           arc, 0.008, 0.5)
+        gws, = torch.autograd.grad(eloss, [wsd])
+        out = {"projection loss": loss, "d/dw": gw, "d/dmotion_z": gmz, "edit loss": eloss,
+               "clip term": terms[0], "l2 term": terms[1], "id term": terms[2], "d/dws": gws}
+        return {k: v.detach().cpu() for k, v in out.items()}
+
+    before = tuple(k.launches for k in kernels)
+    with float32_precision(False):
+        want = run(torch.device("cpu"))
+        check(tuple(k.launches for k in kernels) == before,
+              f"{tag} the CPU run launched a kernel")
+        got = run(dev)
+        torch.cuda.synchronize()
+    ran = tuple(k.launches - b for k, b in zip(kernels, before))
+    check(ran == (6, 3), f"{tag} the card run launched K1, K1-bwd {ran} times, expected (6, 3): "
+                         "the target's pyramid and the frames', and the frames' backward")
+    msgs = []
+    for k, v in want.items():
+        scale = float(v.abs().max())
+        err = float((got[k] - v).abs().max())
+        check(bool(torch.isfinite(got[k]).all()) and err <= PARITY_TOL * scale,
+              f"{tag} card vs CPU {k}: max err {err} > {PARITY_TOL} * {scale}")
+        msgs.append(f"{k} {err:.3g} (scale {scale:.3g})")
+    print(f"{tag} 32^2 reduced width, card (K1, K1-bwd launched {ran}) vs CPU, max abs err "
+          f"within {PARITY_TOL} x scale: " + "; ".join(msgs), flush=True)
+
+
+def cli_edit(dev, smi, tmp, pkl):
+    """Phase 18 (d): clip_edit.edit on the .pkl's G_ema on the card for
+    EDIT_STEPS steps, the stand-in CLIP and a scripted stand-in ArcFace:
+    finite, the CLIP term falls, no kernel launch."""
+    import contextlib
+    import io
+    import os
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from stylegan_v_tpu_torch import clip_edit, generate
+    from stylegan_v_tpu_torch.utils.misc import float32_precision
+
+    tag = "[18 cli (d)]"
+    with contextlib.redirect_stdout(io.StringIO()):
+        G = generate.load_any_checkpoint(pkl, dev)
+    embed = stand_in_clip(19).to(dev)
+    text = F.normalize(torch.randn(16, generator=torch.Generator().manual_seed(20)), dim=0)
+    arc = clip_edit.make_arcface_embed(stand_in_arcface(os.path.join(tmp, "arcface.pt")), dev)
+    kernels = _kernels()
+    for k in kernels:
+        k.launches = 0
+    with float32_precision(False), contextlib.redirect_stdout(io.StringIO()):
+        result = clip_edit.edit(G, embed, text.to(dev), arc, num_steps=EDIT_STEPS,
+                                num_frames=EDIT_FRAMES, seed=18)
+    torch.cuda.synchronize()
+    launches = tuple(k.launches for k in kernels)
+    hist = np.asarray(result["history"])
+    check(hist.shape == (EDIT_STEPS, 4) and np.isfinite(hist).all()
+          and bool(torch.isfinite(result["ws"]).all())
+          and bool(torch.isfinite(result["frames"]).all()), f"{tag} non-finite edit")
+    check(hist[-1, 1] < hist[0, 1], f"{tag} the CLIP term did not fall: {hist[:, 1].tolist()}")
+    check(launches == (0, 0, 0, 0), f"{tag} K1, K1-bwd, K4, K4-bwd launched {launches} times, "
+                                    "expected none (synthesis, the stand-ins: no K1 case)")
+    print(f"{tag} clip_edit.edit on the .pkl's G_ema, {EDIT_FRAMES} frames at "
+          f"{G.cfg.img_resolution}^2, stand-in CLIP tower and scripted stand-in ArcFace, "
+          f"{EDIT_STEPS} steps: CLIP term {hist[0, 1]:.5f} -> {hist[-1, 1]:.5f}, l2 "
+          f"{hist[-1, 2]:.5f}, id {hist[-1, 3]:.5f}, max |ws - ws_orig| "
+          f"{float((result['ws'] - result['ws_orig']).abs().max()):.4f}; "
+          f"{result['seconds'] / EDIT_STEPS * 1e3:.2f} ms a step; launches {launches}; on {smi}",
+          flush=True)
+
+
+FRESH_ARTIFACT = """
+import json, sys, torch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.use_deterministic_algorithms(True, warn_only=True)
+program = torch.export.load(sys.argv[1]).module()
+inputs = torch.load(sys.argv[2])
+z, t = inputs["z"].to(sys.argv[5]), inputs["t"].to(sys.argv[5])
+seeds = [torch.tensor(s, dtype=torch.int32, device=sys.argv[5]) for s in inputs["seeds"]]
+with torch.no_grad():
+    frames = [program(z, t, s).cpu() for s in seeds]
+    for _ in range(2):
+        program(z, t, seeds[0])
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(int(sys.argv[4])):
+        program(z, t, seeds[0])
+    end.record()
+    end.synchronize()
+torch.save(frames, sys.argv[3])
+print(json.dumps({"ms": start.elapsed_time(end) / int(sys.argv[4]),
+                  "ours": sorted(m for m in sys.modules if m.startswith("stylegan_v_tpu"))}))
+"""
+
+
+def cli_export(dev, smi, tmp, pkl, gen_rate):
+    """Phase 18 (e): `python -m stylegan_v_tpu_torch.export_model --selftest` in
+    process on the .pkl; the artifact loaded in a fresh process that imports
+    torch alone equal to the in-process artifact's frames, two seeds two
+    videos, clips/s of the loaded artifact beside phase 16's generate."""
+    import contextlib
+    import io
+    import os
+    import numpy as np
+    import torch
+    from stylegan_v_tpu_torch import export_model
+    from stylegan_v_tpu_torch.utils.misc import float32_precision
+
+    tag = "[18 cli (e)]"
+    B, T = EXPORT_SHAPE
+    out = os.path.join(tmp, "ffs256.pt2")
+    kernels = _kernels()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        meta = export_model.main(["--ckpt", pkl, "--out", out, "--batch", str(B),
+                                  "--video-len", str(T), "--selftest", "--device", str(dev)])
+    t_export = time.perf_counter() - t0
+    res = PROJ_SHAPE[1]
+    check(meta["output"] == [B, T, 3, res, res] and meta["device"] == str(dev),
+          f"{tag} sidecar {meta}")
+    rng = np.random.RandomState(18)
+    inputs = {"z": torch.from_numpy(rng.randn(B, meta["inputs"]["z"][1]).astype(np.float32)),
+              "t": torch.arange(T, dtype=torch.float32)[None].repeat(B, 1), "seeds": [5, 6]}
+    torch.save(inputs, os.path.join(tmp, "export_inputs.pt"))
+    program = torch.export.load(out).module()
+    with torch.no_grad(), deterministic(), float32_precision(False):
+        here = [program(inputs["z"].to(dev), inputs["t"].to(dev),
+                        torch.tensor(s, dtype=torch.int32, device=dev)).cpu()
+                for s in inputs["seeds"]]
+    launches = tuple(k.launches for k in kernels)
+    check(launches == (0, 0, 0, 0), f"{tag} export and its calls launched {launches}")
+    check(all(bool(torch.isfinite(f).all()) for f in here)
+          and float((here[0] - here[1]).abs().max()) > 1e-3,
+          f"{tag} the artifact's frames are not finite, or two seeds gave one video")
+    del program
+    torch.cuda.empty_cache()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    frames_path = os.path.join(tmp, "export_frames.pt")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", FRESH_ARTIFACT, out,
+                           os.path.join(tmp, "export_inputs.pt"), frames_path,
+                           str(EXPORT_TIMED_CALLS), str(dev)], cwd=tmp, env=env,
+                          capture_output=True, text=True, timeout=600)
+    t_fresh = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{tag} the torch-only process failed: {proc.stderr[-3000:]}")
+    info = json.loads(proc.stdout.strip().splitlines()[-1])
+    fresh = torch.load(frames_path)
+    check(not info["ours"], f"{tag} the torch-only process imported {info['ours']}")
+    err = max(float((a - b).abs().max()) for a, b in zip(fresh, here))
+    check(all(torch.equal(a, b) for a, b in zip(fresh, here)),
+          f"{tag} the torch-only process's frames differ from this process's: max err {err}")
+    clips = B / (info["ms"] * 1e-3)
+    print(f"{tag} `python -m stylegan_v_tpu_torch.export_model --selftest` on the .pkl, batch "
+          f"{B} x {T} frames: {os.path.getsize(out) / 2**20:.1f} MiB ExportedProgram of ATen "
+          f"ops, traced and saved in {t_export:.1f} s with the selftest (max abs err "
+          f"{meta['selftest_max_abs_err']:.3g}, tol 0.05 with bf16 blocks); loaded in a process "
+          f"that imports torch alone ({t_fresh:.1f} s with its start): frames equal to this "
+          f"process's to the bit at seeds 5 and 6, which differ by "
+          f"{float((here[0] - here[1]).abs().max()):.3f}; {clips:.2f} clips/s of {T} frames "
+          f"({info['ms']:.2f} ms a call, CUDA events over {EXPORT_TIMED_CALLS}) against phase "
+          f"16's generate {gen_rate:.2f} clips/s; launches {launches}; on {smi}", flush=True)
+    return clips
+
+
+def cli_grid(tmp):
+    """Phase 18 (f): frames_to_video_grid on phase 16 (c)'s frame folders, the
+    mp4 read back with the grid's frame count and size."""
+    import contextlib
+    import io
+    import os
+    import cv2
+    from stylegan_v_tpu_torch import frames_to_video_grid
+
+    tag = "[18 cli (f)]"
+    src, out = os.path.join(tmp, "gen_pkl"), os.path.join(tmp, "grid.mp4")
+    with contextlib.redirect_stdout(io.StringIO()):
+        grid = frames_to_video_grid.main(["-s", src, "-o", out, "--num_videos", "9"])
+    cap = cv2.VideoCapture(out)
+    shapes = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        shapes.append(frame.shape)
+    cap.release()
+    check(len(shapes) == grid.shape[0] == 16 and set(shapes) == {grid.shape[1:]},
+          f"{tag} grid.mp4 read back {len(shapes)} frames {set(shapes)}, expected 16 of "
+          f"{grid.shape[1:]}")
+    print(f"{tag} `python -m stylegan_v_tpu_torch.frames_to_video_grid` on 9 of phase 16's "
+          f"frame folders: grid.mp4 reads back {len(shapes)} frames of {shapes[0]}", flush=True)
+
+
+def cli_launch(dev, zip_path, tmp):
+    """Phase 18 (g): `python -m stylegan_v_tpu_torch.launch --allow-dirty --jobs 2`
+    on phase 13's zip (job 1: 1 kimg, 21 steps; job 2 resumes at its end and
+    takes one step), then batch_launch --print-only over configs/experiments.yaml."""
+    import contextlib
+    import io
+    import os
+    import yaml
+    from stylegan_v_tpu_torch import batch_launch
+
+    tag = "[18 cli (g)]"
+    run = os.path.join(tmp, "run_launch")
+    cmd = [sys.executable, "-m", "stylegan_v_tpu_torch.launch", f"dataset.path={zip_path}",
+           *LAUNCH_ARGS, f"project_release_dir={run}", "--jobs", "2", "--allow-dirty",
+           "--device", str(dev)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=900)
+    t_launch = time.perf_counter() - t0
+    with open(os.path.join(tmp, "launch_output.txt"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    check(proc.returncode == 0 and "[launch] job 1 exited with 0" in proc.stdout
+          and "[launch] job 2 exited with 0" in proc.stdout,
+          f"{tag} launch failed ({proc.returncode}): {(proc.stdout + proc.stderr)[-3000:]}")
+    sh = open(os.path.join(run, "training_cmd.sh")).read().splitlines()
+    jobs = [line for line in sh if "-m stylegan_v_tpu_torch.train --cfg-path" in line]
+    check(len(jobs) == 2 and jobs[1] == jobs[0] + " training.resume=latest",
+          f"{tag} training_cmd.sh: {sh}")
+    log = open(os.path.join(run, "log.txt")).read()
+    snap = os.path.join(run, "network-snapshot-000001.pt")
+    meta = json.load(open(os.path.join(run, "network-snapshot-000001.meta.json")))
+    check(log.count("Resuming from") == 1 and f"Resuming from {snap}" in log
+          and meta["cur_nimg"] == 22 * 16 * 3,
+          f"{tag} job 2 did not resume job 1's snapshot: cur_nimg {meta['cur_nimg']}")
+
+    sweep = yaml.safe_load(open(os.path.join(REPO, "configs", "experiments.yaml")))
+    lines = 0
+    for group, spec in sweep.items():
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            cmds = batch_launch.main(["--group", group, "--datasets", "ffs,sky_timelapse",
+                                      "--print-only", "--device", str(dev)])
+        got = printed.getvalue().strip().splitlines()
+        check(len(cmds) == len(got) == 2 * len(spec["experiments"])
+              and all(c[1:3] == ["-m", "stylegan_v_tpu_torch.launch"] for c in cmds),
+              f"{tag} batch_launch --group {group}: {got}")
+        lines += len(got)
+    print(f"{tag} `python -m stylegan_v_tpu_torch.launch --allow-dirty --jobs 2` on phase 13's "
+          f"zip in {t_launch:.1f} s: training_cmd.sh holds both jobs, job 2 resumed "
+          f"network-snapshot-000001 (1008 frames) and ended at {meta['cur_nimg']}; "
+          f"batch_launch --print-only over configs/experiments.yaml's {len(sweep)} groups x 2 "
+          f"datasets: {lines} launch lines", flush=True)
+
+
+def phase_cli(dev, smi, zip_path, tmp, pkl, gen_rate, k1_pass, k1_bwd_pass):
+    """Phase 18: the remaining CLIs on phase 16's .pkl, (a)-(g), each CLI with
+    its own TF32 default (off), (b) and (c) with TF32 off. Returns (b)'s K1
+    and K1-bwd records (phase_kernel's) at the pyramid's shapes."""
+    import torch
+
+    t_phase, parts = time.perf_counter(), {}
+    probe = package_version("transformers")
+    print(f"[18 cli] transformers on this machine: {probe} (phase 18 does not use it: "
+          f"stand-ins take CLIP's place)", flush=True)
+    steps = (("a", cli_project, (dev, smi, tmp, pkl)),
+             ("b", cli_kernels, (dev, k1_pass, k1_bwd_pass)),
+             ("c", cli_parity, (dev, tmp)),
+             ("d", cli_edit, (dev, smi, tmp, pkl)),
+             ("e", cli_export, (dev, smi, tmp, pkl, gen_rate)),
+             ("f", cli_grid, (tmp,)),
+             ("g", cli_launch, (dev, zip_path, tmp)))
+    returned = {}
+    for tag, fn, args in steps:
+        t0 = time.perf_counter()
+        returned[tag] = fn(*args)
+        parts[tag] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    print(f"[18 cli] the parts took " + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items())
+          + f"; phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return returned["b"]
+
+
+def package_version(name):
+    """The installed version of package `name`, or "absent"."""
+    import importlib.metadata
+    import importlib.util
+    if importlib.util.find_spec(name) is None:
+        return "absent"
+    return f"{name} {importlib.metadata.version(name)}"
+
+
+def kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco, cli):
     """The kernel record: each kernel's launches in the ADA run (phase 11),
     worst error against its plain version, and its time, its plain version's
     and its library call's beside its bound: K1 and K1-bwd summed over one D
@@ -2905,7 +3476,9 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco):
     records at the image D's skips, K4's and K4-bwd's at 48 channels): each
     kernel's launches per MoCoGAN step, K1's and K1-bwd's worst error, times
     and bound summed over the image D's skips at a round's 8 x 16 frames, and
-    K4's and K4-bwd's at the MoCoGAN pipe's warp."""
+    K4's and K4-bwd's at the MoCoGAN pipe's warp. `cli` is phase 18's (b)
+    records of K1 and K1-bwd at the projection's pyramid: their launches per
+    projection step and their numbers there."""
     warp = "stylegan_v_tpu/ops/grid_sample.py:33 (XLA gather; no Pallas kernel)"
     conv = "depthwise, stride 2, padding 1, in the input's dtype"
     near = "not the same function (border half pixel)"
@@ -2942,6 +3515,13 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco):
                                   "library_ms": m["library_ms"], "bound_ms": m["bound_ms"],
                                   "bound_by": m["bound_by"],
                                   "share_of_bound": m["bound_ms"] / m["ms"]}
+    for rec, (err, m), n in ((records[0], cli[0], PROJ_LAUNCHES_PER_STEP[0]),
+                             (records[1], cli[1], PROJ_LAUNCHES_PER_STEP[1])):
+        rec["projection_launches_per_step"] = n
+        rec["projection_pyramid"] = {"max_abs_err": err, "ms": m["ms"],
+                                     "plain_ms": m["plain_ms"], "library_ms": m["library_ms"],
+                                     "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                                     "share_of_bound": m["bound_ms"] / m["ms"]}
     for rec, m in ((records[2], moco_k4), (records[3], moco_k4_bwd)):
         rec["mocogan_48ch"] = {"max_abs_err": m[0], "ms": m[1], "plain_ms": m[2],
                                "library_ms": m[3], "bound_ms": m[4], "bound_by": m[5],
@@ -2987,10 +3567,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_parallel(dev, smi, zip_path, tmp)       # the steps' own TF32 default
         torch.cuda.empty_cache()
-        phase_legacy(dev, smi, zip_path, tmp, detectors)   # the loop's own TF32 default
+        # the loop's own TF32 default
+        pkl, gen_rate = phase_legacy(dev, smi, zip_path, tmp, detectors)
         torch.cuda.empty_cache()
         moco = phase_mocogan(dev, smi, zip_path, tmp, detectors, (k4, k4_bwd))
-    records = kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco)
+        torch.cuda.empty_cache()
+        cli = phase_cli(dev, smi, zip_path, tmp, pkl, gen_rate, k1, k1_bwd)
+    records = kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco, cli)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
