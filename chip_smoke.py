@@ -3028,7 +3028,8 @@ def cli_project(dev, smi, tmp, pkl):
     """Phase 18 (a): `python -m stylegan_v_tpu_torch.project` in process on the
     .pkl, targets from its G_ema at a known (z, motion_z): the fallback loss
     for PROJ_STEPS steps with launches asserted, then the LPIPS branch with a
-    scripted stand-in vgg16.pt. Returns ms a step of the fallback loss."""
+    scripted stand-in vgg16.pt. Returns ms a step of the fallback loss and
+    K1's and K1-bwd's launches a step as counted in its run."""
     import contextlib
     import io
     import os
@@ -3111,7 +3112,7 @@ def cli_project(dev, smi, tmp, pkl):
           f"scripted stand-in vgg16.pt: {lp['init_loss']:.5f} -> {lp['losses'][-1]:.5f} in "
           f"{PROJ_LPIPS_STEPS} steps ({lp['seconds'] / PROJ_LPIPS_STEPS * 1e3:.2f} ms a step), "
           f"no launch; on {smi}", flush=True)
-    return ms_step
+    return ms_step, ((launches[0] - per_run) / PROJ_STEPS, launches[1] / PROJ_STEPS)
 
 
 def cli_kernels(dev, k1_pass, k1_bwd_pass):
@@ -3432,7 +3433,8 @@ def cli_launch(dev, zip_path, tmp):
 def phase_cli(dev, smi, zip_path, tmp, pkl, gen_rate, k1_pass, k1_bwd_pass):
     """Phase 18: the remaining CLIs on phase 16's .pkl, (a)-(g), each CLI with
     its own TF32 default (off), (b) and (c) with TF32 off. Returns (b)'s K1
-    and K1-bwd records (phase_kernel's) at the pyramid's shapes."""
+    and K1-bwd records (phase_kernel's) at the pyramid's shapes, and (a)'s
+    K1 and K1-bwd launches a projection step as counted."""
     import torch
 
     t_phase, parts = time.perf_counter(), {}
@@ -3454,7 +3456,7 @@ def phase_cli(dev, smi, zip_path, tmp, pkl, gen_rate, k1_pass, k1_bwd_pass):
         torch.cuda.empty_cache()
     print(f"[18 cli] the parts took " + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items())
           + f"; phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return returned["b"]
+    return returned["b"], returned["a"][1]
 
 
 def package_version(name):
@@ -3476,9 +3478,10 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco, cli):
     records at the image D's skips, K4's and K4-bwd's at 48 channels): each
     kernel's launches per MoCoGAN step, K1's and K1-bwd's worst error, times
     and bound summed over the image D's skips at a round's 8 x 16 frames, and
-    K4's and K4-bwd's at the MoCoGAN pipe's warp. `cli` is phase 18's (b)
-    records of K1 and K1-bwd at the projection's pyramid: their launches per
-    projection step and their numbers there."""
+    K4's and K4-bwd's at the MoCoGAN pipe's warp. `cli` is phase 18's ((b)'s
+    records of K1 and K1-bwd at the projection's pyramid, (a)'s launches of
+    each per projection step as counted): their launches per projection step
+    and their numbers there."""
     warp = "stylegan_v_tpu/ops/grid_sample.py:33 (XLA gather; no Pallas kernel)"
     conv = "depthwise, stride 2, padding 1, in the input's dtype"
     near = "not the same function (border half pixel)"
@@ -3515,8 +3518,9 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco, cli):
                                   "library_ms": m["library_ms"], "bound_ms": m["bound_ms"],
                                   "bound_by": m["bound_by"],
                                   "share_of_bound": m["bound_ms"] / m["ms"]}
-    for rec, (err, m), n in ((records[0], cli[0], PROJ_LAUNCHES_PER_STEP[0]),
-                             (records[1], cli[1], PROJ_LAUNCHES_PER_STEP[1])):
+    (cli_k1, cli_k1_bwd), proj_launches = cli
+    for rec, (err, m), n in ((records[0], cli_k1, proj_launches[0]),
+                             (records[1], cli_k1_bwd, proj_launches[1])):
         rec["projection_launches_per_step"] = n
         rec["projection_pyramid"] = {"max_abs_err": err, "ms": m["ms"],
                                      "plain_ms": m["plain_ms"], "library_ms": m["library_ms"],

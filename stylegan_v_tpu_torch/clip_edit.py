@@ -24,7 +24,6 @@ Writes edited.mp4 and edited_latents.npz (ws, ws_orig).
 from __future__ import annotations
 
 import argparse
-import math
 import os
 import time
 from typing import Callable, Dict, List, Optional
@@ -33,30 +32,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .utils.latent_opt import get_lr, make_adam, set_lr
+
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
-
-
-def get_lr(t: float, initial_lr: float, rampdown: float = 0.25,
-           rampup: float = 0.05) -> float:
-    """Cosine ramp schedule (reference clip_edit.py:44-49)."""
-    lr_ramp = min(1.0, (1.0 - t) / rampdown)
-    lr_ramp = 0.5 - 0.5 * math.cos(lr_ramp * math.pi)
-    lr_ramp = lr_ramp * min(1.0, t / rampup)
-    return initial_lr * lr_ramp
-
-
-def make_adam(params) -> torch.optim.Adam:
-    """Adam for a schedule that scales the update, not the gradient (Adam's
-    direction is invariant to the gradient's scale; reference
-    project.py:131-134): set_lr before each step. It equals
-    optax.chain(scale_by_adam(), scale(-1)) times the lr, eps 1e-8 on both."""
-    return torch.optim.Adam(params, lr=0.0, betas=(0.9, 0.999), eps=1e-8)
-
-
-def set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
-    for group in opt.param_groups:
-        group["lr"] = lr
 
 
 def make_clip_embed(clip_path: str, device):

@@ -38,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from .ops import downsample2d, setup_filter
+from .utils.latent_opt import get_lr, make_adam, set_lr
 
 PYRAMID_FILTER = [1, 3, 3, 1]
 PYRAMID_LEVELS = 3
@@ -150,7 +151,6 @@ def project(G, target: torch.Tensor, num_steps: int = 1000, lr: float = 0.1,
     Returns w [1, num_ws, w_dim], motion_z [1, L, z_dim], the search's best
     loss (`init_loss`), each step's loss (`losses`) and the optimisation's
     host seconds, which end on a synchronising read of the losses."""
-    from .clip_edit import get_lr, make_adam, set_lr
     from .models.motion import MotionMappingNetwork
     from .training.augment import GeneratorDraws
 

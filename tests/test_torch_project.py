@@ -8,6 +8,10 @@ small configs.
   * One step of the fallback objective at the same weights (io/bridge.py):
     the loss and its gradient with respect to (w, motion_z) against JAX's
     value_and_grad, at 1e-4 of scale, as the port's G is held elsewhere.
+  * The LPIPS objective on one scripted stand-in vgg16.pt shared by both
+    sides (JAX's through its host bridge): the feature fn and its gradient
+    at 384^2 (the area resize to 256), and one step's loss and gradient
+    with respect to (w, motion_z), at 1e-4 of scale.
   * The optimizer: torch Adam whose group lr is set each step against
     optax.chain(scale_by_adam(), scale(-1)) times the lr on the same
     gradients, three steps, at 1e-6 of scale.
@@ -36,7 +40,7 @@ import project as jproject  # noqa: E402
 from stylegan_v_tpu.models import Generator as JGenerator  # noqa: E402
 from stylegan_v_tpu.models.motion import MotionMappingNetwork as JMotion  # noqa: E402
 from stylegan_v_tpu_torch import project as tproject  # noqa: E402
-from stylegan_v_tpu_torch.clip_edit import get_lr, make_adam, set_lr  # noqa: E402
+from stylegan_v_tpu_torch.utils.latent_opt import get_lr, make_adam, set_lr  # noqa: E402
 from stylegan_v_tpu_torch.io.checkpoint import save_snapshot  # noqa: E402
 from stylegan_v_tpu_torch.models import Discriminator, Generator  # noqa: E402
 from stylegan_v_tpu_torch.ops import fir_kernels  # noqa: E402
@@ -92,19 +96,32 @@ def test_multiscale_loss_matches_jax(k1_calls):
     close(tproject.multiscale_loss(x, levels), want, 1e-5)
 
 
-def jax_projection_loss(cfg, variables, target_nhwc):
+def jax_projection_loss(cfg, variables, target_nhwc, lpips=None):
+    """scripts/project.py's synth and loss_fn (LPIPS through `lpips`, its
+    make_lpips_features, else the fallback), under value_and_grad."""
     G = JGenerator(cfg)
-    t = jnp.arange(target_nhwc.shape[0], dtype=jnp.float32)[None]
+    target = jnp.asarray(target_nhwc)
+    t = jnp.arange(target.shape[0], dtype=jnp.float32)[None]
 
-    def loss(w, mz):             # scripts/project.py's synth and fallback loss_fn
+    def synth(w, mz):
         def call(g, ws, t):
             return g.synthesis(ws, t=t, motion_z=mz, noise_mode="none")
-        img = G.apply(variables, w, t, method=call, rngs={"motion": jax.random.PRNGKey(0)})
-        return jproject.multiscale_loss(img, jnp.asarray(target_nhwc))
+        return G.apply(variables, w, t, method=call, rngs={"motion": jax.random.PRNGKey(0)})
+
+    if lpips is not None:
+        target_features = jax.lax.stop_gradient(lpips(target))
+
+        def loss(w, mz):
+            return jnp.sum(jnp.square(lpips(synth(w, mz)) - target_features))
+    else:
+        def loss(w, mz):
+            return jproject.multiscale_loss(synth(w, mz), target)
     return jax.jit(jax.value_and_grad(loss, argnums=(0, 1)))
 
 
-def test_projection_step_matches_jax():
+def projection_step_against_jax(lpips_path=None):
+    """The projection loss and its (w, motion_z) gradient at one step, the
+    port's against JAX's at the same weights, at 1e-4 of scale."""
     cfg = small_gen_cfg()
     rng = np.random.RandomState(1)
     L = JMotion.required_traj_len(cfg, float(FRAMES))
@@ -117,14 +134,49 @@ def test_projection_step_matches_jax():
     w = (0.5 * rng.randn(1, num_ws, cfg.w_dim)).astype(np.float32)
     target = rng.uniform(-1, 1, (FRAMES, 32, 32, 3)).astype(np.float32)
 
-    want, (want_w, want_mz) = jax_projection_loss(cfg, variables, target)(w, mz)
+    jax_lpips = tlpips = None
+    if lpips_path is not None:
+        jax_lpips = jproject.make_lpips_features(lpips_path, 32)
+        tlpips = tproject.make_lpips_features(lpips_path, "cpu")
+    want, (want_w, want_mz) = jax_projection_loss(cfg, variables, target, jax_lpips)(w, mz)
     wt = torch.from_numpy(w).requires_grad_(True)
     mzt = torch.from_numpy(mz).requires_grad_(True)
-    got = tproject.projection_loss(G, nchw(target))(wt, mzt)
+    got = tproject.projection_loss(G, nchw(target), tlpips)(wt, mzt)
     got.backward()
     close(got, want, 1e-4)
     close(wt.grad, want_w, 1e-4)
     close(mzt.grad, want_mz, 1e-4)
+
+
+def test_projection_step_matches_jax():
+    projection_step_against_jax()
+
+
+@pytest.fixture(scope="module")
+def fake_vgg_path(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("vgg") / "vgg16.pt")
+    torch.jit.script(FakeVGG().eval()).save(path)
+    return path
+
+
+def test_lpips_features_match_jax(fake_vgg_path):
+    """Above 256 both sides area-resize to 256 before the features (at a
+    factor of 1.5, where area and bilinear differ)."""
+    x = np.random.RandomState(3).uniform(-1, 1, (2, 384, 384, 3)).astype(np.float32)
+    jax_fn = jproject.make_lpips_features(fake_vgg_path, 384)
+    probe = np.random.RandomState(4).randn(2, 8).astype(np.float32)
+    want, want_grad = jax.value_and_grad(lambda v: jnp.sum(jax_fn(v) * probe))(jnp.asarray(x))
+    xt = nchw(x).requires_grad_(True)
+    feats = tproject.make_lpips_features(fake_vgg_path, "cpu")(xt)
+    close(feats, np.asarray(jax_fn(jnp.asarray(x))), 1e-4)
+    got = torch.sum(feats * torch.from_numpy(probe))
+    got.backward()
+    close(got, want, 1e-4)
+    close(xt.grad, np.transpose(np.asarray(want_grad), (0, 3, 1, 2)), 1e-4)
+
+
+def test_lpips_projection_step_matches_jax(fake_vgg_path):
+    projection_step_against_jax(fake_vgg_path)
 
 
 def test_scheduled_adam_matches_optax():
