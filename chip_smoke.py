@@ -140,7 +140,8 @@ holds them against the port's plain PyTorch paths:
               stat (the video ones too) and parameter finite, D's Adam groups
               at 1x and 0.1x (video_discr), K1/K1-bwd/K4/K4-bwd launches per
               step (phase 11's per round times the rounds), TF32 off in D,
-              ms/step, frames/s, peak memory; (b) K1 and K1-bwd against their
+              no batch-norm all_reduce (one process), ms/step, frames/s, peak
+              memory; (b) K1 and K1-bwd against their
               plain versions at the image D's six skip inputs of the step
               (a round's 8 x 16 frames; phases 3 and 7's checks and times),
               K4 and K4-bwd at the pipe's 48-channel warp (phase 10's checks
@@ -178,6 +179,31 @@ holds them against the port's plain PyTorch paths:
               zip, job 2 resuming job 1's snapshot, and batch_launch
               --print-only over configs/experiments.yaml. transformers is
               probed and printed, not used.
+ 19. moco-ranks: phase 17's slice over two ranks sharing the card over gloo,
+              spawned as in phase 15: 16 videos x 16 frames a step globally
+              in 2 rounds of 8, 4 videos a rank a round, the video D's batch
+              norms over both ranks: (a) four steps with deterministic
+              kernels (R1 first and last), step 1's all-reduced Gmain and
+              Dmain gradients against the one-process step on the same
+              global batch and draws (phase 17's step) within 3x their noise
+              floor (phase 15's rule; checked at the phase's end), every
+              loss, stat (the video ones too) and parameter finite,
+              augment_p and D's Adam groups (1x, 0.1x) equal on both ranks,
+              check_replica_consistency passing; (b) each rank's K1,
+              K1-bwd, K4, K4-bwd launches per step equal to phase 17's, and
+              its batch-norm all_reduces per step equal to the count derived
+              from the code (MOCO_BN_COLLECTIVES); (c) ZeRO-1 on the first
+              two steps equal to (a)'s state to the bit, optimizer bytes per
+              rank; (d) the loop through the entry point's spawn path
+              (`model=mocogan num_gpus=2 --device cuda:0 --dist-backend
+              gloo`) on phase 13's zip: 4 steps and a snapshot, then
+              resume=latest, one step and a snapshot, both holding D's
+              groups at 1x and 0.1x; (e) K1 and K1-bwd at one rank's image D
+              skips (4 x 16 frames) and K4 and K4-bwd at [4, 48, 536, 536]
+              against their plain versions, with phase 17 (b)'s checks and
+              times; (f) ms/step of the two ranks (one card: not a scaling
+              number), the gradient all-reduce's ms, the batch-norm
+              all_reduces' count and ms a step, peak memory per rank.
 
 Any failed check exits non-zero. The last two lines are the kernel record
 (each kernel's launches in phase 11, worst error, time, plain and library
@@ -185,7 +211,10 @@ time, and its bound: bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s,
 whichever is larger; its launches per MoCoGAN step, K1's and K1-bwd's
 numbers at the MoCoGAN image D's skips and K4's and K4-bwd's at 48 channels,
 from phase 17; K1's and K1-bwd's launches per projection step and their
-numbers at the projection's pyramid, from phase 18) and {"ok": true,
+numbers at the projection's pyramid, from phase 18; each kernel's launches
+per rank per MoCoGAN step over two ranks, K1's and K1-bwd's numbers at one
+rank's image D skips and K4's and K4-bwd's at its 48-channel warp, from
+phase 19) and {"ok": true,
 "device": {...}}. There is no CPU path:
 without a CUDA device the script fails.
 """
@@ -2452,6 +2481,7 @@ def moco_step(dev, smi):
     from stylegan_v_tpu_torch.models.discriminator import DiscriminatorBlock
     from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
                                           downfirdn2d_x2_bwd)
+    from stylegan_v_tpu_torch.parallel.distributed import all_reduce_sum
     from stylegan_v_tpu_torch.tools import moco_memory
     from stylegan_v_tpu_torch.utils.misc import float32_precision
 
@@ -2489,6 +2519,7 @@ def moco_step(dev, smi):
     torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
+    all_reduce_sum.calls = 0
     times, measured = {True: [], False: []}, {}
     before_video = [p.detach().clone() for p in groups[1]["params"]]
     try:
@@ -2510,6 +2541,8 @@ def moco_step(dev, smi):
         for h in hooks:
             h.remove()
     check(seen == {(False, False)}, f"{tag} (cudnn, matmul) allow_tf32 inside D: {seen}")
+    check(all_reduce_sum.calls == 0, f"{tag} one process issued {all_reduce_sum.calls} "
+                                     "batch-norm all_reduces")
     skips = list(skips.values())
     check(len(skips) == MOCO_LAUNCHES_PER_STEP[False][0] // (3 * MOCO_ROUNDS)
           and all(n == MOCO_BATCH_GPU * F for (n, *_), _ in skips),
@@ -3459,6 +3492,425 @@ def phase_cli(dev, smi, zip_path, tmp, pkl, gen_rate, k1_pass, k1_bwd_pass):
     return returned["b"], returned["a"][1]
 
 
+# ---------------------------------------------------------------- phase 19
+# MoCoGAN over two ranks sharing the card over gloo (nccl refuses two ranks on
+# one device): phase 17's slice, 16 videos x 16 frames a step globally in
+# MOCO_ROUNDS rounds of MOCO_BATCH_GPU global videos, MOCO_RANK_VIDEOS a rank a
+# round, spawned as phase 15's ranks are.
+MOCO_RANK_VIDEOS = MOCO_BATCH_GPU // PAR_RANKS
+MOCO_RANK_WARP = (MOCO_RANK_VIDEOS, 3 * MOCO_SHAPE[1], MOCO_SHAPE[2])   # [4, 48] at 256^2
+MOCO_RANK_SEEDS = (31, 32, 33, 34)       # each step's draws: a generator seeded alike everywhere
+# The video D's batch-norm all_reduces a rank issues in a step, derived from the
+# code (models/mocogan.py:_BatchNorm3d, training/train_step.py): each of a
+# round's Gmain, Dgen and Dreal D calls runs the video D forward, two
+# all_reduces a batch norm (the sum, then the squared deviations around the
+# global mean), and its backward, one for each; Dr1 runs the forward alone (R1
+# differentiates the image logits only). The video D has five batch norms at
+# 256^2 (bn1 ... bn5).
+MOCO_NORMS = 5
+MOCO_BN_COLLECTIVES = {r1: MOCO_ROUNDS * (3 * 2 * (2 * MOCO_NORMS) + (2 * MOCO_NORMS if r1 else 0))
+                       for r1 in (False, True)}
+
+
+def _moco_local(dev, world, D):
+    """This rank's rows of the slice's global batch, and its plan."""
+    import torch
+    from stylegan_v_tpu_torch.parallel import distributed as tdist
+    from stylegan_v_tpu_torch.tools import moco_memory
+    B = MOCO_SHAPE[0]
+    plan = tdist.row_plan(B, MOCO_ROUNDS, tdist.mbstd_group(D, MOCO_BATCH_GPU, world.size),
+                          world.size, world.rank)
+    batch = moco_memory.slice_batch(dev)
+    return {k: v[torch.as_tensor(plan.batch, device=dev)] for k, v in batch.items()}, plan
+
+
+def _moco_reference_step(dev, perturb: bool = False):
+    """Step 1 of phase 19 in one process on the global batch (phase 17's step,
+    deterministic kernels): Gmain's and Dmain's gradients and the stats; with
+    `perturb`, from G's and D's weights scaled by (1 + 1e-7 N(0, 1))."""
+    import torch
+    from stylegan_v_tpu_torch.tools import moco_memory
+    state, step = moco_memory.slice_step(moco_setup(), dev, augment_p=ADA_P)
+    if perturb:
+        g = torch.Generator(device=dev).manual_seed(99)
+        with torch.no_grad():
+            for p in list(state.G.parameters()) + list(state.D.parameters()):
+                p.mul_(1 + 1e-7 * torch.randn(p.shape, generator=g, device=dev))
+    grads = _capture_grads(state)
+    with deterministic():
+        _, stats = step(state, moco_memory.slice_batch(dev),
+                        generator=torch.Generator(device=dev).manual_seed(MOCO_RANK_SEEDS[0]),
+                        do_dr1=PAR_PLAN[0])
+    return grads, {k: float(v) for k, v in stats.items()}
+
+
+def moco_reference(dev, tmp):
+    """Phase 19 (a)'s yardstick: the one-process step on the global batch, step
+    1's Gmain and Dmain gradients and stats, saved for the ranks, and the noise
+    floor of those gradients (phase 15's, PAR_FLOOR_FACTOR)."""
+    import os
+    import torch
+    grads, stats = _moco_reference_step(dev)
+    torch.cuda.empty_cache()
+    floor = grad_errors(_moco_reference_step(dev, perturb=True)[0], grads)
+    torch.save({"G": grads["G"], "D": grads["D"], "stats": stats},
+               os.path.join(tmp, "moco_reference.pt"))
+    torch.cuda.empty_cache()
+    return floor, stats
+
+
+def _bn_collectives_ms(shapes, world, dev, repeats: int = 3) -> float:
+    """The ms of one step's video D batch-norm all_reduces alone: the recorded
+    tensor shapes, all_reduce_sum'd in turn, after a synchronize."""
+    import torch
+    from stylegan_v_tpu_torch.parallel import distributed as tdist
+    xs = [torch.ones(s, device=dev) for s in shapes]
+    for x in xs[:4]:
+        tdist.all_reduce_sum(x, world)                 # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        for x in xs:
+            tdist.all_reduce_sum(x, world)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / repeats * 1e3
+
+
+def moco_rank(rank, world_size, init_method, tmp, device):
+    """Phase 19 (a)-(c) on one rank (spawned): four steps of the slice (R1
+    first and last) against the one-process gradients, launches and batch-norm
+    all_reduces per step, times, the consistency check, then ZeRO-1 on the
+    first two steps. Writes its findings as JSON."""
+    import json as _json
+    import os
+    import torch
+    import torch.distributed as dist
+    from stylegan_v_tpu_torch.models.discriminator import DiscriminatorBlock
+    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
+                                          downfirdn2d_x2_bwd)
+    from stylegan_v_tpu_torch.parallel import distributed as tdist
+    from stylegan_v_tpu_torch.parallel.zero import opt_state_bytes_per_device
+    from stylegan_v_tpu_torch.tools import moco_memory
+    from stylegan_v_tpu_torch.utils.summary import (check_replica_consistency,
+                                                    train_state_tree, tree_content_hash)
+
+    tag = f"[19 moco-ranks] rank {rank}"
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")   # cuBLAS repeats too
+    dev = torch.device(device)
+    world = tdist.init_distributed("gloo", rank, world_size, init_method, dev, timeout_s=300)
+    det = deterministic()      # ZeRO-1's run repeats the plain run to the bit
+    det.__enter__()
+    try:
+        kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+        out = {"rank": rank}
+        digests = {}
+        shapes, skips = [], {}
+        forward = tdist._AllReduceSum.forward
+
+        def recording(ctx, x):          # the batch norms' all_reduce shapes, nothing else
+            shapes.append(tuple(x.shape))
+            return forward(ctx, x)
+
+        def skip_input(module, args):   # the first input each skip takes; args unchanged
+            skips.setdefault(module, (tuple(args[0].shape), str(args[0].dtype).split(".")[-1]))
+
+        for zero1 in (False, True):
+            setup = moco_memory.slice_setup(MOCO_BATCH_GPU, [f"training.zero1={zero1}"])
+            state, step = moco_memory.slice_step(setup, dev, augment_p=ADA_P)
+            local, plan = _moco_local(dev, world, state.D)
+            grads = _capture_grads(state)
+            hooks = [] if zero1 else [
+                m.skip.register_forward_pre_hook(skip_input)
+                for m in state.D.image_discr.modules()
+                if isinstance(m, DiscriminatorBlock) and hasattr(m, "skip")]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            launches, collectives, ms, step1_stats = [], [], [], None
+            # ZeRO-1 runs the first two steps, and is held to the plain state after them
+            for i, (do_dr1, seed) in enumerate(zip(PAR_PLAN[:2] if zero1 else PAR_PLAN,
+                                                   MOCO_RANK_SEEDS)):
+                for k in kernels:
+                    k.launches = 0
+                tdist.all_reduce_sum.calls = 0
+                if i == 1 and not zero1:
+                    tdist._AllReduceSum.forward = staticmethod(recording)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    state, stats = step(state, local, do_dr1=do_dr1,
+                                        generator=torch.Generator(device=dev).manual_seed(seed))
+                    torch.cuda.synchronize()
+                finally:
+                    tdist._AllReduceSum.forward = staticmethod(forward)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                launches.append([k.launches for k in kernels])
+                collectives.append(tdist.all_reduce_sum.calls)
+                step1_stats = step1_stats or {k: float(v) for k, v in stats.items()}
+                bad = [k for k, v in stats.items() if not bool(torch.isfinite(v).all())]
+                check(not bad, f"{tag}: non-finite stats {bad}")
+                check({"Loss/G/loss_video", "Loss/scores/fake_video",
+                       "Loss/scores/real_video"} <= set(stats), f"{tag}: stats {sorted(stats)}")
+                if i == 1:
+                    digests[zero1] = tree_content_hash({"G": state.G.state_dict(),
+                                                        "D": state.D.state_dict(),
+                                                        "G_ema": state.G_ema.state_dict()})
+            for h in hooks:
+                h.remove()
+            name = "zero1" if zero1 else "plain"
+            bad = [n for m in (state.G, state.D, state.G_ema)
+                   for n, p in m.named_parameters() if not bool(torch.isfinite(p).all())]
+            check(not bad, f"{tag} ({name}): non-finite parameters {bad[:5]}")
+            check_replica_consistency(train_state_tree(state), world)
+            p_all = [None] * world.size
+            dist.all_gather_object(p_all, float(state.augment_p))
+            out[name] = {"ms": ms, "launches": launches, "collectives": collectives,
+                         "augment_p": p_all, "step1_stats": step1_stats,
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                         "opt_bytes": opt_state_bytes_per_device(state),
+                         "lrs": [g["lr"] for g in state.opt_D.param_groups],
+                         "losses": {k: float(v) for k, v in stats.items()}}
+            if not zero1:
+                out["grad_err"] = grad_errors(
+                    grads, torch.load(os.path.join(tmp, "moco_reference.pt")))
+                out["skips"] = list(skips.values())
+                out["rows"] = plan.rows.tolist()
+                # a step's collectives alone: the flat gradient all-reduce of each
+                # network, and the batch norms' all_reduces of a step without R1
+                flat = {n: [p.detach().clone() for p in m.parameters()]
+                        for n, m in (("G", state.G), ("D", state.D))}
+                ar = {}
+                for n, ts in flat.items():
+                    tdist.all_reduce_mean_(ts, world)        # warm
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(3):
+                        tdist.all_reduce_mean_(ts, world)
+                    torch.cuda.synchronize()
+                    ar[n] = (time.perf_counter() - t0) / 3 * 1e3
+                out["allreduce_ms"] = ar
+                out["allreduce_bytes"] = {n: 4 * sum(t.numel() for t in ts)
+                                          for n, ts in flat.items()}
+                out["bn_shapes"] = shapes
+                out["bn_ms"] = _bn_collectives_ms(shapes, world, dev)
+                del flat
+            del state, step, grads
+            torch.cuda.empty_cache()
+        out["zero1_equal"] = digests[False] == digests[True]
+        with open(os.path.join(tmp, f"moco_rank{rank}.json"), "w") as f:
+            _json.dump(out, f)
+    finally:
+        det.__exit__()
+        tdist.destroy_distributed()
+
+
+def moco_ranks_steps(dev, smi, tmp):
+    """Phase 19 (a)-(c) and their part of (f): (a) the slice's step over two
+    ranks sharing the card, 4 videos a rank a round, four steps (R1 first and
+    last) with deterministic kernels; step 1's all-reduced Gmain and Dmain
+    gradients against the one-process step's on the same global batch and
+    draws (phase 17's step) within PAR_FLOOR_FACTOR times their noise floor,
+    everything finite, augment_p equal on both ranks, the ranks' state (the
+    video D's and D's Adam groups' lr included) consistent; (b) each rank's
+    K1 / K1-bwd / K4 / K4-bwd launches per step against phase 17's and its
+    batch-norm all_reduces against MOCO_BN_COLLECTIVES; (c) ZeRO-1 on the
+    first two steps, equal to (a)'s state after them to the bit; (f) the
+    two-rank times (one card: not a scaling number), the gradient
+    all-reduce's ms, the batch-norm all_reduces' ms, peak memory per rank.
+    Returns the ranks' findings and the gradient check, which the phase
+    makes last."""
+    import json as _json
+    import os
+    from stylegan_v_tpu_torch.parallel import distributed as tdist
+
+    tag = "[19 moco-ranks]"
+    t0 = time.perf_counter()
+    floor, ref_stats = moco_reference(dev, tmp)
+    t_ref = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tdist.launch(moco_rank, PAR_RANKS, args=(tmp, str(dev)))
+    t_ranks = time.perf_counter() - t0
+    ranks = [_json.load(open(os.path.join(tmp, f"moco_rank{r}.json"))) for r in range(PAR_RANKS)]
+    lr = ranks[0]["plain"]["lrs"][0]
+    for r in ranks:
+        for name in ("plain", "zero1"):
+            p = r[name]["augment_p"]
+            check(len(set(p)) == 1, f"{tag} augment_p differs across ranks: {p}")
+            check(r[name]["lrs"] == [lr, lr * 0.1], f"{tag} rank {r['rank']} ({name}): D's "
+                                                    f"Adam groups {r[name]['lrs']}")
+            for do_dr1, got, bn in zip(PAR_PLAN, r[name]["launches"], r[name]["collectives"]):
+                check(tuple(got) == MOCO_LAUNCHES_PER_STEP[do_dr1],
+                      f"{tag} rank {r['rank']} ({name}) launched K1, K1-bwd, K4, K4-bwd {got} "
+                      f"in a step with R1={do_dr1}, expected phase 17's "
+                      f"{MOCO_LAUNCHES_PER_STEP[do_dr1]}")
+                check(bn == MOCO_BN_COLLECTIVES[do_dr1],
+                      f"{tag} rank {r['rank']} ({name}) issued {bn} batch-norm all_reduces in a "
+                      f"step with R1={do_dr1}, derived {MOCO_BN_COLLECTIVES[do_dr1]}")
+        check(r["zero1_equal"], f"{tag} rank {r['rank']}: ZeRO-1's parameters differ from "
+                                "plain Adam's")
+        check(len(r["bn_shapes"]) == MOCO_BN_COLLECTIVES[False],
+              f"{tag} rank {r['rank']}: {len(r['bn_shapes'])} recorded batch-norm all_reduces")
+        check(all(n == MOCO_RANK_VIDEOS * MOCO_SHAPE[1] for (n, *_), _ in r["skips"])
+              and len(r["skips"]) == len(ranks[0]["skips"]),
+              f"{tag} rank {r['rank']}: the image D's skip inputs {r['skips']}")
+    r0 = ranks[0]
+    print(f"{tag} (a) two ranks on {dev} over gloo, phase 17's slice {MOCO_SHAPE[0]}x"
+          f"{MOCO_SHAPE[1]} at {MOCO_SHAPE[2]}^2 global in {MOCO_ROUNDS} rounds of "
+          f"{MOCO_BATCH_GPU} videos ({MOCO_RANK_VIDEOS} a rank, rows {[r['rows'] for r in ranks]}"
+          f"): step 1's Gmain / Dmain gradients against the one-process step: "
+          + ", ".join(f"rank {r['rank']} " + ", ".join(
+              f"{n} {l2:.3g} of its L2 norm, largest element {e:.3g} (scale {s:.3g})"
+              for n, (e, s, l2) in r["grad_err"].items()) for r in ranks)
+          + "; the floor (one process, weights x (1 + 1e-7 N)): " + ", ".join(
+              f"{n} {l2:.3g} of its L2 norm, largest element {e:.3g}"
+              for n, (e, s, l2) in floor.items())
+          + f"; step 1's stats, largest difference from the one-process step's: "
+          + ", ".join(f"{k} {abs(v - ref_stats[k]):.3g}"
+                      for k, v in r0['plain']['step1_stats'].items())
+          + f"; augment_p {r0['plain']['augment_p']}; D's Adam groups lr {r0['plain']['lrs']}; "
+          f"losses on rank 0 after the steps {r0['plain']['losses']}; consistency check "
+          f"passed", flush=True)
+    print(f"{tag} (b) K1, K1-bwd, K4, K4-bwd launches per step on each rank (R1 "
+          f"{list(PAR_PLAN)}): " + "; ".join(f"rank {r['rank']} {r['plain']['launches']}"
+                                             for r in ranks)
+          + f" (phase 17's {MOCO_LAUNCHES_PER_STEP[False]}, {MOCO_LAUNCHES_PER_STEP[True]}); "
+          f"batch-norm all_reduces per step " + "; ".join(
+              f"rank {r['rank']} {r['plain']['collectives']}" for r in ranks)
+          + f" (derived {MOCO_BN_COLLECTIVES[False]} without R1, {MOCO_BN_COLLECTIVES[True]} "
+          f"with), [C]-sized: {sorted(set(tuple(s) for s in r0['bn_shapes']))}", flush=True)
+    print(f"{tag} (c) ZeRO-1 after two steps equal to (a) after two to the bit; optimizer "
+          f"state per rank " + ", ".join(
+              f"rank {r['rank']} {r['zero1']['opt_bytes'] / 2**20:.1f} MiB (plain Adam "
+              f"{r['plain']['opt_bytes'] / 2**20:.1f} MiB)" for r in ranks), flush=True)
+    for r in ranks:
+        ms, ar = r["plain"]["ms"], r["allreduce_ms"]
+        print(f"{tag} (f) rank {r['rank']}: {ms[2]:.1f} ms/step without R1, {ms[3]:.1f} with "
+              f"R1 (first steps {ms[0]:.1f}, {ms[1]:.1f}; ZeRO-1's two steps "
+              f"{r['zero1']['ms'][0]:.1f}, {r['zero1']['ms'][1]:.1f}); two ranks share one "
+              f"card, so this is not a scaling number; the gradient all-reduce {ar['G']:.2f} ms "
+              f"for G ({r['allreduce_bytes']['G'] / 2**20:.1f} MiB), {ar['D']:.2f} ms for D "
+              f"({r['allreduce_bytes']['D'] / 2**20:.1f} MiB): {ar['G'] + ar['D']:.2f} ms a "
+              f"step without R1, {ar['G'] + 2 * ar['D']:.2f} with; the batch norms' "
+              f"{len(r['bn_shapes'])} all_reduces of a step without R1 alone "
+              f"{r['bn_ms']:.2f} ms; peak {r['plain']['peak_gib']:.2f} GiB (ZeRO-1 "
+              f"{r['zero1']['peak_gib']:.2f}); on {smi}", flush=True)
+    print(f"{tag} (a)-(c) took {t_ranks:.1f} s with the spawn, the one-process yardstick "
+          f"{t_ref:.1f} s", flush=True)
+
+    def grads_within_the_floor():
+        for r in ranks:
+            for name, (err, scale, l2) in r["grad_err"].items():
+                check(l2 <= PAR_FLOOR_FACTOR * floor[name][2],
+                      f"{tag} rank {r['rank']}: step 1's {name} gradient differs from the "
+                      f"one-process step by {l2:.3g} of its L2 norm > {PAR_FLOOR_FACTOR} x the "
+                      f"floor {floor[name][2]:.3g} (largest element {err:.3g}, scale {scale:.3g})")
+    return ranks, grads_within_the_floor
+
+
+def moco_ranks_loop(dev, zip_path, tmp):
+    """Phase 19 (d): the loop through the entry point's spawn path, model=
+    mocogan over two ranks on `dev` over gloo, phase 17's overrides, from
+    phase 13's zip: 4 steps (2 ticks) and a snapshot, then resume=latest for
+    one more step and a snapshot; only rank 0 writes; the snapshots' D Adam
+    groups 1x and 0.1x, and both ranks' groups equal (the consistency check
+    before each snapshot hashes them)."""
+    import contextlib
+    import io
+    import json as _json
+    import math
+    import os
+    from stylegan_v_tpu_torch import train as entry
+    from stylegan_v_tpu_torch.io.checkpoint import load_snapshot
+    from stylegan_v_tpu_torch.tools import moco_memory
+
+    tag = "[19 moco-ranks (d)]"
+    run = os.path.join(tmp, "run_moco_ranks")
+    base = [f"dataset.path={zip_path}"] + moco_memory.OVERRIDES + [
+        f"training.batch_gpu={MOCO_BATCH_GPU}", "num_gpus=2", "training.kimg=1",
+        "training.kimg_per_tick=0.5", "training.snap=2", "training.metrics=[]",
+        f"project_release_dir={run}", "--device", str(dev), "--dist-backend", "gloo"]
+    t_runs, lrs = [], []
+    sys.stdout.flush()
+    saved = os.dup(1)            # the ranks' stdout (inherited) goes to a file
+    try:
+        with open(os.path.join(tmp, "moco_ranks_stdout.txt"), "w") as f:
+            os.dup2(f.fileno(), 1)
+            for extra in ([], ["training.resume=latest"]):
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    entry.main(base + extra)
+                t_runs.append(time.perf_counter() - t0)
+                payload, meta = load_snapshot(os.path.join(run, "network-snapshot-000001.pt"))
+                lrs.append(([g["lr"] for g in payload["opt_D"]["param_groups"]],
+                            payload["step"], meta["cur_nimg"]))
+    finally:
+        os.dup2(saved, 1)
+        os.close(saved)
+    log = open(os.path.join(run, "log.txt")).read()
+    rows = [_json.loads(line) for line in open(os.path.join(run, "stats.jsonl"))]
+    ticks = [line for line in log.splitlines() if line.startswith("tick ")]
+    check([(s, n) for _, s, n in lrs] == [(4, 1024), (5, 1280)],
+          f"{tag} snapshots at (step, frames) {[(s, n) for _, s, n in lrs]}")
+    check(all(len(g) == 2 and g[1] == g[0] * 0.1 for g, _, _ in lrs),
+          f"{tag} the snapshots' D Adam groups {[g for g, _, _ in lrs]}")
+    check("Resuming from" in log and "2 ranks (gloo), 8 videos a rank a step" in log
+          and len(rows) == len(ticks) == 3,
+          f"{tag} {len(rows)} stats rows for {len(ticks)} ticks; the log: {log[-2000:]}")
+    for k in ("Loss/G/loss_video", "Loss/scores/fake_video", "Loss/scores/real_video"):
+        # a value a step from each rank: ticks of 2, 2 and 1 steps
+        check([row[k]["num"] for row in rows] == [4, 4, 2], f"{tag} {k} in the stats rows {rows}")
+    for row in rows:
+        check(all(math.isfinite(v["mean"]) for k, v in row.items() if k != "timestamp"),
+              f"{tag} a non-finite stat in {row}")
+    print(f"{tag} `python -m stylegan_v_tpu_torch.train` model=mocogan num_gpus=2 --device "
+          f"{dev} --dist-backend gloo from phase 13's zip, batch_gpu {MOCO_BATCH_GPU}: 4 steps "
+          f"and snapshot 000001, then resume=latest for one step and a snapshot; the "
+          f"snapshots' D Adam groups lr {[g for g, _, _ in lrs]}, equal on both ranks "
+          f"(consistency check); one stats row a tick ({len(rows)}, both logit streams from both "
+          f"ranks); in {t_runs[0]:.1f} and {t_runs[1]:.1f} s with their spawns; the log's "
+          f"ticks: {[' '.join(t.split()[:8]) for t in ticks]}", flush=True)
+
+
+def phase_moco_ranks(dev, smi, zip_path, tmp):
+    """Phase 19: MoCoGAN over two ranks at FFS-256, (a)-(f); the gradient check
+    of (a) last. Returns each kernel's launches per rank per step without and
+    with R1 as measured on rank 0 ((b): both ranks were checked), and (e)'s
+    records: K1's and K1-bwd's (phase_kernel's) at one rank's image D skips,
+    K4's and K4-bwd's (phase_warp's) at one rank's 48-channel warp."""
+    import torch
+    from stylegan_v_tpu_torch.ops import (downfirdn2d_x2, downfirdn2d_x2_bwd,
+                                          downfirdn2d_x2_bwd_plain, downfirdn2d_x2_plain)
+    from stylegan_v_tpu_torch.utils.misc import float32_precision
+
+    t_phase, parts = time.perf_counter(), {}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks, grads_within_the_floor = moco_ranks_steps(dev, smi, tmp)  # the step's own TF32 default
+    parts["a-c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moco_ranks_loop(dev, zip_path, tmp)                      # the loop's own TF32 default
+    parts["d"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    skips = [(tuple(s), d) for s, d in ranks[0]["skips"]]
+    sets = ((f"{MOCO_RANK_VIDEOS}x{MOCO_SHAPE[1]}", skips),)
+    tag = "[19 moco-ranks (e)]"
+    with float32_precision(False):
+        k1 = phase_kernel(dev, f"{tag} K1", "down", downfirdn2d_x2, downfirdn2d_x2_plain, sets)
+        torch.cuda.empty_cache()
+        k1_bwd = phase_kernel(dev, f"{tag} K1-bwd", "up", downfirdn2d_x2_bwd,
+                              downfirdn2d_x2_bwd_plain, sets)
+        torch.cuda.empty_cache()
+        k4, k4_bwd = phase_warp(dev, MOCO_RANK_WARP, upsamples=(2,), tag=tag, autograd=False)
+    parts["e"] = time.perf_counter() - t0
+    grads_within_the_floor()
+    launches = {r1: tuple(ranks[0]["plain"]["launches"][PAR_PLAN.index(r1)])
+                for r1 in (False, True)}
+    print(f"[19 moco-ranks] the parts took " + ", ".join(f"({k}) {v:.1f} s"
+                                                         for k, v in parts.items())
+          + f"; phase 19 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches, k1, k1_bwd, k4, k4_bwd
+
+
 def package_version(name):
     """The installed version of package `name`, or "absent"."""
     import importlib.metadata
@@ -3468,7 +3920,7 @@ def package_version(name):
     return f"{name} {importlib.metadata.version(name)}"
 
 
-def kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco, cli):
+def kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco, cli, moco_ranks):
     """The kernel record: each kernel's launches in the ADA run (phase 11),
     worst error against its plain version, and its time, its plain version's
     and its library call's beside its bound: K1 and K1-bwd summed over one D
@@ -3481,7 +3933,10 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco, cli):
     K4's and K4-bwd's at the MoCoGAN pipe's warp. `cli` is phase 18's ((b)'s
     records of K1 and K1-bwd at the projection's pyramid, (a)'s launches of
     each per projection step as counted): their launches per projection step
-    and their numbers there."""
+    and their numbers there. `moco_ranks` is phase 19's (each kernel's
+    launches per rank per step without and with R1 as measured, K1's and
+    K1-bwd's records at one rank's image D skips, K4's and K4-bwd's at one
+    rank's 48-channel warp)."""
     warp = "stylegan_v_tpu/ops/grid_sample.py:33 (XLA gather; no Pallas kernel)"
     conv = "depthwise, stride 2, padding 1, in the input's dtype"
     near = "not the same function (border half pixel)"
@@ -3530,6 +3985,19 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco, cli):
         rec["mocogan_48ch"] = {"max_abs_err": m[0], "ms": m[1], "plain_ms": m[2],
                                "library_ms": m[3], "bound_ms": m[4], "bound_by": m[5],
                                "share_of_bound": m[4] / m[1]}
+    rank_launches, rank_k1, rank_k1_bwd, rank_k4, rank_k4_bwd = moco_ranks
+    for i, rec in enumerate(records):
+        rec["mocogan_ranks_launches_per_step"] = {"without_r1": rank_launches[False][i],
+                                                  "with_r1": rank_launches[True][i]}
+    for rec, (err, m) in ((records[0], rank_k1), (records[1], rank_k1_bwd)):
+        rec["mocogan_ranks_image_d"] = {"max_abs_err": err, "ms": m["ms"],
+                                        "plain_ms": m["plain_ms"], "library_ms": m["library_ms"],
+                                        "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                                        "share_of_bound": m["bound_ms"] / m["ms"]}
+    for rec, m in ((records[2], rank_k4), (records[3], rank_k4_bwd)):
+        rec["mocogan_ranks_48ch"] = {"max_abs_err": m[0], "ms": m[1], "plain_ms": m[2],
+                                     "library_ms": m[3], "bound_ms": m[4], "bound_by": m[5],
+                                     "share_of_bound": m[4] / m[1]}
     return records
 
 
@@ -3577,7 +4045,9 @@ def main() -> int:
         moco = phase_mocogan(dev, smi, zip_path, tmp, detectors, (k4, k4_bwd))
         torch.cuda.empty_cache()
         cli = phase_cli(dev, smi, zip_path, tmp, pkl, gen_rate, k1, k1_bwd)
-    records = kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco, cli)
+        torch.cuda.empty_cache()
+        moco_ranks = phase_moco_ranks(dev, smi, zip_path, tmp)
+    records = kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco, cli, moco_ranks)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

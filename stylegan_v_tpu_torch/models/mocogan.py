@@ -12,7 +12,10 @@ image_logits and video_logits; the loss adds a softplus term for each
   * BatchNorm3d normalises with the batch's statistics (biased variance,
     eps 1e-5) and keeps no running buffers, as the JAX module: the
     reference consults its buffers only in eval mode, which training never
-    enters.
+    enters. Over W ranks (`batch_statistics_over`, which the train step
+    enters) the statistics are the global batch's, as the JAX module's are
+    under GSPMD: sums all-reduced with their gradient
+    (parallel/distributed.py:all_reduce_sum).
   * The video discriminator adds `noise_sigma * N(0, 1)` to every conv's
     input. The JAX module draws it with make_rng("noise"); here it comes
     from `noise`, a draw source (an object with randn(shape)) or a
@@ -28,13 +31,15 @@ video_discr.conv_out.weight.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Dict, Iterator, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.distributed import World, all_reduce_sum
 from .config import DiscriminatorConfig
 from .discriminator import Discriminator as ImageDiscriminator
 
@@ -76,7 +81,16 @@ class _Conv3d(nn.Module):
 
 class _BatchNorm3d(nn.Module):
     """Batch-statistics normalisation with affine parameters (gamma ~ N(1, 0.02),
-    beta = 0, the reference's weights_init); no running buffers."""
+    beta = 0, the reference's weights_init); no running buffers.
+
+    `world` (set by `batch_statistics_over`, None outside it): over W > 1
+    ranks, each holding n = B*T*H*W of the global W*n elements a channel,
+    the mean is all_reduce_sum(x.sum) / (W*n) and the biased variance a
+    second pass around it, all_reduce_sum(((x - mean)^2).sum) / (W*n), as
+    jnp.var computes it: two [C]-sized all_reduces a call, and two more in
+    the backward."""
+
+    world: Optional[World] = None
 
     def __init__(self, features: int, generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -86,10 +100,32 @@ class _BatchNorm3d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mean = x.mean(dim=(0, 2, 3, 4), keepdim=True)
-        var = x.var(dim=(0, 2, 3, 4), unbiased=False, keepdim=True)
+        world, dims = self.world, (0, 2, 3, 4)
+        if world is None or world.size == 1:
+            mean = x.mean(dim=dims, keepdim=True)
+            var = x.var(dim=dims, unbiased=False, keepdim=True)
+        else:
+            count = world.size * (x.numel() // x.shape[1])
+            mean = all_reduce_sum(x.sum(dim=dims, keepdim=True), world) / count
+            var = all_reduce_sum((x - mean).square().sum(dim=dims, keepdim=True), world) / count
         y = (x - mean) * torch.rsqrt(var + 1e-5)
         return y * self.weight[:, None, None, None] + self.bias[:, None, None, None]
+
+
+@contextlib.contextmanager
+def batch_statistics_over(module: nn.Module, world: World) -> Iterator[None]:
+    """Inside, every BatchNorm3d of `module` takes its statistics over the
+    ranks of `world` (its own rows for one rank); outside, over its input.
+    Also a decorator: the train step runs inside it."""
+    norms = [m for m in module.modules() if isinstance(m, _BatchNorm3d)]
+    saved = [m.world for m in norms]
+    for m in norms:
+        m.world = world
+    try:
+        yield
+    finally:
+        for m, w in zip(norms, saved):
+            m.world = w
 
 
 class MoCoGANVideoDiscriminator(nn.Module):

@@ -19,6 +19,10 @@ group:
     world size (the per-layer noise of synthesis too, one row a frame).
   * `all_reduce_mean_`, `broadcast_module_`, `broadcast_tensors_`: the
     collectives of the step and of start and resume, over one flat buffer.
+  * `all_reduce_sum`: a sum over the ranks that autograd differentiates (its
+    backward is the same sum of the gradient), for statistics that a forward
+    takes over the global batch: the MoCoGAN video D's batch norms
+    (models/mocogan.py), as the JAX package's GSPMD program takes them.
   * `launch`: runs a function in W spawned processes; a rank that raises ends
     the others, and the launch raises.
 
@@ -120,8 +124,27 @@ def rank_rows(N: int, G: int, W: int, r: int) -> np.ndarray:
                       dtype=np.int64)
 
 
-def mbstd_group(D, N: int) -> int:
-    """The minibatch-std group size D uses on an N-row batch (1 without the layer)."""
+def mbstd_group(D, N: int, W: int = 1) -> int:
+    """The minibatch-std group size, in videos, that `rank_rows` must keep
+    whole for D on an N-video round over W ranks (1 without the layer).
+
+    The MoCoGAN D's image D groups frames: it sees the B*F frames of B videos
+    (frame v*F + f) as a batch, with a fixed group of 4 (models/mocogan.py),
+    so its groups are frames {g*(N*F/4) + i}. With rank_rows(N, 4, W, r) over
+    videos (m = N/(4W)), rank r's frame (g*m + j)*F + f is local frame
+    g*(m*F) + (j*F + f), whose group member g and position j*F + f are those
+    of global frame (g*(N/4) + r*m + j)*F + f = g*(N*F/4) + (r*m*F + j*F + f):
+    the image D's local groups, of stride n_loc*F/4 = m*F, are the global
+    ones. So the group counted in videos is the image D's 4, and a round
+    whose N videos do not split into 4*W raises."""
+    image = getattr(D, "image_discr", None)
+    if image is not None:
+        G = image.b4.mbstd.group_size
+        if N % (G * W) != 0:
+            raise ValueError(f"the MoCoGAN image discriminator's minibatch-std group of {G} "
+                             f"frames needs a round of videos that splits into {G} x {W} "
+                             f"ranks; a round holds {N} videos")
+        return G
     mbstd = getattr(getattr(D, "b4", None), "mbstd", None)
     if mbstd is None:
         return 1
@@ -209,13 +232,15 @@ def rank_draws(draws: Dict[str, Dict[str, object]], plan: RowPlan,
                frames: int) -> Dict[str, Dict[str, object]]:
     """A rank's share of a step's global draws (training/train_step.py's
     `draws`): the per-video tensors' rows, Gpl's by `plan.gpl`, and every
-    augment source wrapped in RowsDraws; the per-round mix_cutoff is shared."""
+    augment and video D noise source ("d_noise") wrapped in RowsDraws, so
+    each draw of a rank's n rows is those rows of the global draw; the
+    per-round mix_cutoff is shared."""
     out = {}
     for phase, d in draws.items():
         rows = plan.gpl if phase == "Gpl" else plan.batch
         mine = {}
         for k, v in d.items():
-            if k == "augment":
+            if k in ("augment", "d_noise"):
                 mine[k] = [RowsDraws(s, plan.rows, plan.N) for s in v]
             elif k == "mix_cutoff":
                 mine[k] = v
@@ -244,6 +269,37 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor], world: World) -> None:
         n = t.numel()
         t.copy_(flat[offset:offset + n].view_as(t))
         offset += n
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum over the ranks of each rank's x; the gradient of a sum is the
+    sum of the gradients, so backward is this Function again (recorded, so
+    that it too can be differentiated)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        all_reduce_sum.calls += 1
+        y = x.detach().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        return _AllReduceSum.apply(grad)
+
+
+def all_reduce_sum(x: torch.Tensor, world: World) -> torch.Tensor:
+    """The sum over the ranks of each rank's `x` (a copy; `x` itself for one
+    rank), differentiable to any order: the gradient of each rank's loss
+    reaches every rank's x, as the reference's SyncBatchNorm carries it.
+    `all_reduce_sum.calls` counts the all_reduces it issued, the backward's
+    included."""
+    if world.size == 1:
+        return x
+    return _AllReduceSum.apply(x)
+
+
+all_reduce_sum.calls = 0
 
 
 def broadcast_tensors_(tensors: Iterable[torch.Tensor], world: World, src: int = 0) -> None:

@@ -45,9 +45,9 @@ the broadcast after resume gives every rank its weights.
 With `setup.disc_source == "mocogan"` D is the MoCoGAN discriminator
 (models/mocogan.py) and its Adam takes the video branch's learning-rate
 multiplier (D's `lr_scale_map`) as a parameter group, as the JAX loop builds it
-(stylegan_v_tpu/training/loop.py:102-114). Over several ranks it raises
-NotImplementedError before anything is made, naming its ROADMAP item
-(`check_ported`).
+(stylegan_v_tpu/training/loop.py:102-114). Over several ranks its video D's
+batch norms take the global batch's statistics (training/train_step.py), and
+every rank's Adam holds the same two groups.
 """
 from __future__ import annotations
 
@@ -89,14 +89,6 @@ def resolve_device(device=None) -> torch.device:
         raise RuntimeError("no CUDA device: training runs on the card; pass "
                            "device=torch.device('cpu') (--device cpu) to run on the CPU")
     return device
-
-
-def check_ported(setup: TrainSetup, world: World) -> None:
-    """Raise NotImplementedError for an option the port does not have yet."""
-    if setup.disc_source == "mocogan" and max(world.size, setup.num_chips) > 1:
-        raise NotImplementedError("the MoCoGAN discriminator over several ranks is not ported "
-                                  "yet (ROADMAP P9c-ranks): its BatchNorm statistics would be "
-                                  "each rank's")
 
 
 def build_discriminator(setup: TrainSetup, generator: torch.Generator) -> torch.nn.Module:
@@ -166,7 +158,6 @@ def training_loop(setup: TrainSetup, device=None,
     from, and the final TrainState. The whole run, the panels' synthesis
     included, keeps TF32 off unless setup.allow_tf32. Only rank 0 logs."""
     world = current_world() if world is None else world
-    check_ported(setup, world)
     check_world(setup, world)
     device = resolve_device(device)
     reference = None

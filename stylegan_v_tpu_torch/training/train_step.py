@@ -56,8 +56,17 @@ scrub, as in JAX), the mapping's w_avg (the mean of each round's w), Gpl's
 pl_mean (the mean path length) and the step's stats, once, before the ADA
 controller reads Loss/signs/real. Every phase's loss is a mean over equally
 many rows on every rank, so the mean over the ranks is the global batch's.
-With one rank nothing is reduced. The MoCoGAN D is refused over several
-ranks (ROADMAP P9c-ranks): its BatchNorm statistics would be each rank's.
+With one rank nothing is reduced. The MoCoGAN D's image D keeps its
+minibatch-std groups of 4 frames whole (mbstd_group counts them in videos),
+its video D's noise is the rank's rows of the global draw, and the video
+D's batch norms take the global batch's statistics inside the step
+(models/mocogan.py:batch_statistics_over): two all_reduces a norm in each D
+forward and two in its backward, which carry each rank's loss gradient to
+every rank's rows, so the flat gradient mean is the global loss's gradient.
+Every rank runs the same D calls and backwards in the same order, so they
+issue the same collectives: a Dr1 phase runs the video D's forward (its
+all_reduces) but R1 differentiates the image logits alone, so no backward
+reaches them, on any rank.
 
 Batch (torch tensors, [B, ...]: the global batch, or with W ranks this
 rank's B/W rows of it; moved to the modules' device):
@@ -76,6 +85,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 
 from ..models import Discriminator, Generator, MoCoGANDiscriminator
+from ..models.mocogan import batch_statistics_over
 from ..parallel.distributed import (RowsDraws, World, all_reduce_mean_, frame_rows, mbstd_group,
                                     rank_draws, row_plan, world as current_world)
 from ..parallel.zero import make_adam
@@ -273,10 +283,6 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
     world = current_world() if world is None else world
     W = world.size
     video_noise = isinstance(D, MoCoGANDiscriminator)
-    if video_noise and W > 1:
-        raise NotImplementedError("the MoCoGAN discriminator over several ranks is not "
-                                  "ported yet (ROADMAP P9c-ranks): its BatchNorm statistics "
-                                  "would be each rank's")
     loss = GANLoss(G, D, loss_cfg, augment_fn=augment_fn,
                    batch_mean=world.mean_over_ranks if W > 1 else None)
     params_G, params_D = list(G.parameters()), list(D.parameters())
@@ -291,7 +297,11 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
             f"batch {B} not divisible by batch_chip {tcfg.batch_chip}"
         return B // tcfg.batch_chip
 
+    if W > 1:      # a round whose rows do not split over the ranks raises here
+        mbstd_group(D, tcfg.batch_size // rounds_of(tcfg.batch_size), W)
+
     @float32_precision(allow_tf32)
+    @batch_statistics_over(D, world)
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None, do_gpl: bool = False,
                    do_dr1: bool = False, draws: Optional[Draws] = None):
@@ -307,7 +317,7 @@ def make_train_step(G: Generator, D: Discriminator, loss_cfg: LossConfig,
         noise = {}               # each phase's source of synthesis's per-layer noise
         if W > 1:
             N = B // rounds
-            plan = row_plan(B, rounds, mbstd_group(D, N), W, world.rank,
+            plan = row_plan(B, rounds, mbstd_group(D, N, W), W, world.rank,
                             loss_cfg.pl_batch_shrink if do_gpl else None)
             draws = rank_draws(draws, plan, num_frames)
             if generator is not None:

@@ -114,8 +114,8 @@ def tree_content_hash(tree, ignore_regex: Optional[str] = None) -> str:
 
 def train_state_tree(state) -> Dict:
     """What a TrainState replicates on every rank: G, D and G_ema (parameters
-    and buffers), Adam's moments unless ZeRO-1 partitions them, the device
-    scalars and the counters."""
+    and buffers), Adam's moments unless ZeRO-1 partitions them, each Adam
+    parameter group's lr, the device scalars and the counters."""
     from ..parallel.zero import is_zero
     tree = {"G": state.G.state_dict(), "D": state.D.state_dict(),
             "G_ema": state.G_ema.state_dict(), "pl_mean": state.pl_mean,
@@ -123,6 +123,7 @@ def train_state_tree(state) -> Dict:
             "step": state.step, "cur_nimg": state.cur_nimg}
     for name in ("opt_G", "opt_D"):
         opt = getattr(state, name)
+        tree[f"{name}_lr"] = [g["lr"] for g in opt.param_groups]
         if not is_zero(opt):            # ZeRO-1's moments are this rank's share
             tree[name] = {str(i): s for i, s in enumerate(opt.state.values())}
     return tree

@@ -363,27 +363,27 @@ def lstm_pickle(path):
 
 @pytest.mark.parametrize("option", ["mocogan", "pkl"])
 def test_unported_options_raise_before_a_step(tmp_path, option):
-    """MoCoGAN over two ranks (ROADMAP P9c-ranks: its BatchNorm statistics
-    would be each rank's) raises before anything is made, from a .pkl too.
-    [pkl]: since P9c, one rank resumes from a .pkl whose G holds the LSTM and
-    trains a step from its weights (G_ema's second LSTM bias, which never
-    trains, is still the pickle's)."""
-    path, source = lstm_pickle(tmp_path / "network-snapshot.pkl")
-    kw = {"mocogan": {}, "pkl": dict(resume=path)}[option]
+    """[mocogan]: MoCoGAN over two chips is ported (P9c-ranks;
+    tests/test_torch_mocogan_ranks.py trains it over two ranks), and one
+    process asked for two chips raises check_world's ValueError before
+    anything is made. [pkl]: since P9c, one rank resumes from a .pkl whose G
+    holds the LSTM and trains a step from its weights (G_ema's second LSTM
+    bias, which never trains, is still the pickle's)."""
     run = str(tmp_path / "run")
-    with pytest.raises(NotImplementedError, match="ROADMAP P9c-ranks"):
-        tloop.training_loop(tiny_setup("unused", run, disc_source="mocogan", num_chips=2, **kw),
-                            device=torch.device("cpu"))
-    assert not os.path.exists(run)
-    if option == "pkl":
-        ds = build_video_dataset_dir(str(tmp_path), num_videos=4, frames_per_video=20, res=32)
-        result = tloop.training_loop(
-            tiny_setup(ds, run, kimg=0.012, resume=path,
-                       gen_cfg=port_cfg(small_gen_cfg(**LSTM_KW))),
-            device=torch.device("cpu"), log=lambda *_: None)
-        assert result["state"].step == 1
-        key = "synthesis.motion_encoder.rnn.bias_hh_l0"
-        assert torch.equal(result["state"].G_ema.state_dict()[key], source.state_dict()[key])
+    if option == "mocogan":
+        with pytest.raises(ValueError, match="num_gpus=2"):
+            tloop.training_loop(tiny_setup("unused", run, disc_source="mocogan", num_chips=2),
+                                device=torch.device("cpu"))
+        assert not os.path.exists(run)
+        return
+    path, source = lstm_pickle(tmp_path / "network-snapshot.pkl")
+    ds = build_video_dataset_dir(str(tmp_path), num_videos=4, frames_per_video=20, res=32)
+    result = tloop.training_loop(
+        tiny_setup(ds, run, kimg=0.012, resume=path, gen_cfg=port_cfg(small_gen_cfg(**LSTM_KW))),
+        device=torch.device("cpu"), log=lambda *_: None)
+    assert result["state"].step == 1
+    key = "synthesis.motion_encoder.rnn.bias_hh_l0"
+    assert torch.equal(result["state"].G_ema.state_dict()[key], source.state_dict()[key])
 
 
 @pytest.mark.parametrize("option", ["metrics", "chips", "zero1"])
