@@ -11,8 +11,8 @@ holds them against the port's plain PyTorch paths:
               off for cuDNN and matmul (utils/misc.py:float32_precision);
               8 and 11 rely on the training step's own default.
   2. build:   the CUDA kernels (K1 downfirdn2d_x2, K1-bwd downfirdn2d_x2_bwd,
-              K4 affine_warp, K4-bwd affine_warp_bwd), one nvcc each for
-              sm_90a, all started together.
+              K4 affine_warp, K4-bwd affine_warp_bwd, K2 upfirdn2d), one nvcc
+              each for sm_90a, all started together.
   3. kernel:  K1 against its plain version at the six shapes of the
               Discriminator's resnet skips, at 2 videos x 3 frames and at the
               step's 16 x 3, float32 and bf16, plus an asymmetric filter at
@@ -21,9 +21,19 @@ holds them against the port's plain PyTorch paths:
               D's dtype at each shape, at 16 x 3 with a cold L2 (copies of
               the input rotated past 100 MB); GB/s and share of the HBM
               bound; the 16 x 3 sums are one D pass.
+  3b. k2:     K2 (the general upfirdn2d pass) against its plain version at
+              every distinct K2 call of one forward at the step's 16 x 3 (G's
+              up=2 convs and image skips, D's filters before its down=2
+              convs, the bgc pipe's 12-tap 2x up and 2x down, recorded from
+              that forward) and at each one's adjoint, float32 and bf16;
+              CUDA-event times of the kernel, its plain version and the one
+              PyTorch call that computes it (F.conv2d or F.conv_transpose2d,
+              depthwise, where one does) in turns, in the path's dtype, with
+              a cold L2; GB/s and share of the HBM bound.
   4. slice:   G(z, None, t) for 4 videos x 3 timestamps, then D on the
               frames, with weights from a seeded torch.Generator; the frames
-              and logits must be finite and K1 must launch 6 times.
+              and logits must be finite, K1 must launch 6 times and K2 18
+              (12 in G, 6 in D).
   5. speed:   synthesis frames/s at 32 videos x 8 frames.
   6. parity:  a reduced-width G->D on the card (with the kernel) against the
               same weights and inputs on the CPU (plain path).
@@ -71,7 +81,7 @@ holds them against the port's plain PyTorch paths:
               snapshots 000000 and 000001, then `training.resume=latest` for
               21 more; stats.jsonl schema and finiteness, the snapshot equal
               to the bit to the state in memory and to a state restored from
-              it on the card, the resumed run's start, K1/K1-bwd/K4/K4-bwd
+              it on the card, the resumed run's start, K1/K1-bwd/K4/K4-bwd/K2
               launches per run from phase 11's counts per step, TF32 off in
               every D call; loader-fed ms/step, frames/s amortised over the
               resumed run's ticks, data_fetch and peak memory beside phase
@@ -100,7 +110,7 @@ holds them against the port's plain PyTorch paths:
               and Dmain gradients against the one-process step on the same
               global batch and draws, every loss, stat and parameter finite,
               augment_p equal on both ranks, check_replica_consistency
-              passing; (b) each rank's K1, K1-bwd, K4, K4-bwd launches per
+              passing; (b) each rank's K1, K1-bwd, K4, K4-bwd, K2 launches per
               step against phase 11's; (c) ZeRO-1 on the first two steps,
               equal to (a)'s state after them to the bit, and the optimizer
               bytes per rank; (d) the
@@ -119,7 +129,7 @@ holds them against the port's plain PyTorch paths:
               bit, the motion encoder fresh, card vs CPU); (b) the loop through
               the entry point with --resume <the .pkl> on phase 13's zip, 21
               ADA steps: step 0's weights equal the .pkl's, the counters
-              fresh, K1/K1-bwd/K4/K4-bwd launches per step as phase 11's,
+              fresh, K1/K1-bwd/K4/K4-bwd/K2 launches per step as phase 11's,
               ms/step; then one tick under torchrun (nproc 1, nccl); (c)
               `python -m stylegan_v_tpu_torch.generate` on the .pkl (clips/s),
               on phase 14's run dir by its metric jsonl, and with
@@ -138,7 +148,7 @@ holds them against the port's plain PyTorch paths:
               configs/ as the entry point composes it: (a) one step with R1,
               three without, one more with R1 at augment_p 0.5, every loss,
               stat (the video ones too) and parameter finite, D's Adam groups
-              at 1x and 0.1x (video_discr), K1/K1-bwd/K4/K4-bwd launches per
+              at 1x and 0.1x (video_discr), K1/K1-bwd/K4/K4-bwd/K2 launches per
               step (phase 11's per round times the rounds), TF32 off in D,
               no batch-norm all_reduce (one process), ms/step, frames/s, peak
               memory; (b) K1 and K1-bwd against their
@@ -190,7 +200,7 @@ holds them against the port's plain PyTorch paths:
               loss, stat (the video ones too) and parameter finite,
               augment_p and D's Adam groups (1x, 0.1x) equal on both ranks,
               check_replica_consistency passing; (b) each rank's K1,
-              K1-bwd, K4, K4-bwd launches per step equal to phase 17's, and
+              K1-bwd, K4, K4-bwd, K2 launches per step equal to phase 17's, and
               its batch-norm all_reduces per step equal to the count derived
               from the code (MOCO_BN_COLLECTIVES); (c) ZeRO-1 on the first
               two steps equal to (a)'s state to the bit, optimizer bytes per
@@ -205,6 +215,12 @@ holds them against the port's plain PyTorch paths:
               number), the gradient all-reduce's ms, the batch-norm
               all_reduces' count and ms a step, peak memory per rank.
 
+K2's launches are asserted wherever K1's are: per step from the derived
+counts (LAUNCHES_PER_STEP, ADA_LAUNCHES_PER_STEP), per loop run with 12
+more for each snapshot grid's synthesis, and on the paths that run G alone
+(14, 16 (c)-(e), 17 (e), 18 (a), (d), (e)) as 12 for every synthesis
+forward and every backward through one (SynthesisCalls).
+
 Any failed check exits non-zero. The last two lines are the kernel record
 (each kernel's launches in phase 11, worst error, time, plain and library
 time, and its bound: bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s,
@@ -214,13 +230,15 @@ from phase 17; K1's and K1-bwd's launches per projection step and their
 numbers at the projection's pyramid, from phase 18; each kernel's launches
 per rank per MoCoGAN step over two ranks, K1's and K1-bwd's numbers at one
 rank's image D skips and K4's and K4-bwd's at its 48-channel warp, from
-phase 19) and {"ok": true,
+phase 19; K2's numbers at G's r = 256 up-conv, with the sums over phase
+3b's calls and every call's numbers) and {"ok": true,
 "device": {...}}. There is no CPU path:
 without a CUDA device the script fails.
 """
 from __future__ import annotations
 
 import copy
+import functools
 import json
 import os
 import subprocess
@@ -250,6 +268,75 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SystemExit(f"chip_smoke FAILED: {what}")
+
+
+KERNELS = "K1, K1-bwd, K4, K4-bwd, K2"     # the order of _kernels() and of every count
+
+
+def _kernels():
+    """The five kernel wrappers, whose `launches` count their CUDA launches:
+    K1, K1-bwd, K4, K4-bwd, K2 and K2."""
+    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
+                                          downfirdn2d_x2_bwd, upfirdn2d_k2)
+    return (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd, upfirdn2d_k2)
+
+
+def k2_per_synthesis(synthesis) -> int:
+    """K2 launches of one forward of a SynthesisNetwork, and of one backward
+    through it: two a block above 4^2, its up=2 conv's filter pass and its
+    image skip's upsample (12 at 256^2)."""
+    from stylegan_v_tpu_torch.models.generator import SynthesisBlock
+    return 2 * sum(1 for m in synthesis.modules()
+                   if isinstance(m, SynthesisBlock) and m.in_channels > 0)
+
+
+def k2_per_d(D) -> int:
+    """K2 launches of one forward of D, and of one backward through it: one a
+    block, the filter pass before its 3x3 down=2 conv (6 at 256^2); the
+    block's resnet skip is K1's case."""
+    from stylegan_v_tpu_torch.models.discriminator import DiscriminatorBlock
+    return sum(1 for m in D.modules() if isinstance(m, DiscriminatorBlock))
+
+
+class SynthesisCalls:
+    """While entered, the K2 launches that G's synthesis accounts for:
+    k2_per_synthesis for every SynthesisNetwork forward, and as many again
+    for every backward through one (a hook on its output). A global module
+    forward hook, so that models built inside a CLI count too."""
+
+    def __enter__(self):
+        import torch
+        from stylegan_v_tpu_torch.models.generator import SynthesisNetwork
+        self.forwards = self.backwards = self.k2 = 0
+
+        def hook(module, args, out):
+            if isinstance(module, SynthesisNetwork):
+                n = k2_per_synthesis(module)
+                self.forwards += 1
+                self.k2 += n
+                if isinstance(out, torch.Tensor) and out.requires_grad:
+                    out.register_hook(lambda grad, n=n: self._backward(n))
+
+        self.handle = torch.nn.modules.module.register_module_forward_hook(hook)
+        return self
+
+    def _backward(self, n):
+        self.backwards += 1
+        self.k2 += n
+
+    def __exit__(self, *exc):
+        self.handle.remove()
+
+
+def loop_launches(per_step, steps, synthesis_k2, rounds):
+    """The launches of a loop run of `steps` (R1 at every 16th index) from
+    the counts per step, but K2's: the steps' K2 apart from G's synthesis
+    (K2_SYNTHESIS_PER_STEP a round), plus synthesis_k2, the K2 that G's
+    synthesis accounts for in the run (SynthesisCalls: the steps' and the
+    snapshot grids')."""
+    want = [sum(per_step[i % 16 == 0][j] for i in steps) for j in range(5)]
+    want[4] += synthesis_k2 - K2_SYNTHESIS_PER_STEP * rounds * len(steps)
+    return tuple(want)
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -396,6 +483,178 @@ def phase_kernel(dev, tag, kind, kernel, plain, sets=None):
           f"{sums['bound_ms']:.4f} ms ({sums['bound_ms'] / sums['ms']:.1%} of it)", flush=True)
     return max_err, sums
 
+# K2's calls on the main path, by their parameters (f's dims, up, down, padding)
+K2_CALL_NAMES = {(2, (2, 2), (1, 1), (3, 2, 3, 2)): "G up=2 conv",
+                 (2, (2, 2), (1, 1), (2, 1, 2, 1)): "G image skip",
+                 (2, (1, 1), (1, 1), (2, 2, 2, 2)): "D down=2 conv's filter",
+                 (1, (2, 2), (1, 1), (6, 5, 6, 5)): "augment 2x up",
+                 (1, (1, 1), (2, 2), (-1, -1, -1, -1)): "augment 2x down"}
+
+
+def k2_main_path_calls(dev, G, D):
+    """Every distinct K2 call (x shape, dtype, upfirdn2d's arguments) of one
+    forward at the step's 16 x 3: G's synthesis, D on its frames and the bgc
+    pipe on the frames fused to [16, 9, 256^2], recorded where _UpFirDn2d
+    calls upfirdn2d_k2; each with its name."""
+    import importlib
+    import torch
+    from stylegan_v_tpu_torch.training import AUGPIPE_SPECS, AugmentConfig, make_augment_pipe
+
+    U = importlib.import_module("stylegan_v_tpu_torch.ops.upfirdn2d")
+    seen, orig = {}, U.upfirdn2d_k2
+
+    def record(x, f, up, down, padding, flip_filter=False, gain=1.0):
+        key = (tuple(x.shape), x.dtype, tuple(up), tuple(down), tuple(padding), flip_filter,
+               gain, tuple(f.shape))
+        seen.setdefault(key, (f, K2_CALL_NAMES.get((f.ndim, tuple(up), tuple(down),
+                                                      tuple(padding)), "other")))
+        return orig(x, f, up, down, padding, flip_filter, gain)
+
+    (B, F, res), g = TRAIN_SHAPE, torch.Generator(device=dev).manual_seed(5)
+    z = torch.randn(B, G.cfg.z_dim, generator=g, device=dev)
+    t = torch.arange(F, dtype=torch.float32, device=dev)[None].repeat(B, 1)
+    pipe = make_augment_pipe(AugmentConfig(**AUGPIPE_SPECS["bgc"], warp_upsample=2))
+    U.upfirdn2d_k2 = record
+    try:
+        with torch.no_grad():
+            frames = G(z, None, t, generator=g)
+            D(frames, None, t)
+            pipe(g, frames.reshape(B, F * 3, res, res), ADA_P)
+    finally:
+        U.upfirdn2d_k2 = orig
+    return [(name, shape, dtype, (f, list(up), list(down), list(pad), flip, gain))
+            for (shape, dtype, up, down, pad, flip, gain, _), (f, name) in seen.items()]
+
+
+def chained(fns, x):
+    """fns[-1](... fns[0](x))."""
+    for fn in fns:
+        x = fn(x)
+    return x
+
+
+def k2_library(p, x):
+    """The one PyTorch call that computes K2's pass p on x, or None: F.conv2d
+    where up is 1 and the padding symmetric on each axis (a negative one, a
+    crop, as a view of x), F.conv_transpose2d where down is 1 and the
+    padding is its crop. A yardstick only; the port never calls it."""
+    import torch.nn.functional as F
+    from stylegan_v_tpu_torch.ops.upfirdn2d_kernel import pass_out_hw
+    (ux, uy), (dx, dy), (px0, px1, py0, py1) = p.up, p.down, p.pad
+    C, (H, W), (fh, fw) = x.shape[1], x.shape[2:], p.k.shape
+    k = p.k.to(x.device, x.dtype)
+    if (ux, uy) == (1, 1) and px0 == px1 and py0 == py1:
+        w = k[None, None].expand(C, 1, fh, fw).contiguous()
+        cy, cx = max(-py0, 0), max(-px0, 0)
+        return lambda x: F.conv2d(x[:, :, cy:x.shape[2] - cy, cx:x.shape[3] - cx], w,
+                                  stride=(dy, dx), padding=(max(py0, 0), max(px0, 0)),
+                                  groups=C)
+    qy, qx = fh - 1 - py0, fw - 1 - px0     # y[o] = full[o + q] of the transposed conv
+    if ((dx, dy) == (1, 1) and qy >= 0 and qx >= 0
+            and ((H - 1) * uy + fh - 2 * qy, (W - 1) * ux + fw - 2 * qx) == pass_out_hw(p, H, W)):
+        w = k.flip([0, 1])[None, None].expand(C, 1, fh, fw).contiguous()
+        return lambda x: F.conv_transpose2d(x, w, stride=(uy, ux), padding=(qy, qx), groups=C)
+    return None
+
+
+def phase_k2(dev, G, D):
+    """Phase 3b: K2 against its plain version at every distinct K2 call of one
+    forward at 16 x 3 (G, D, the bgc pipe) and at each one's adjoint, float32
+    and bf16, then CUDA-event times in the path's dtype of the kernel, its
+    plain version and the one PyTorch call that computes it (where one does),
+    in turns with a cold L2, beside the bound: the call's input and output
+    bytes once at 3.35 TB/s (a separable call's intermediate, which its two
+    passes write and read back, is not the function's work), or the
+    multiply-adds of its passes that land on source samples at the float32
+    rate. Returns the worst error, G's r = 256 up-conv call's times and the
+    sums over the forward calls and over the adjoints."""
+    import torch
+    from stylegan_v_tpu_torch.ops import upfirdn2d_k2, upfirdn2d_k2_plain
+    from stylegan_v_tpu_torch.ops.upfirdn2d import adjoint_args
+    from stylegan_v_tpu_torch.ops.upfirdn2d_kernel import pass_out_hw, passes
+
+    tag = "[3b k2]"
+    t_phase = time.perf_counter()
+    entries = []
+    for name, shape, dtype, args in k2_main_path_calls(dev, G, D):
+        H, W = shape[2:]
+        for p in passes(*args):
+            H, W = pass_out_hw(p, H, W)
+        entries.append((name, shape, dtype, args))
+        entries.append((f"{name}, adjoint", (*shape[:2], H, W), dtype,
+                        adjoint_args(*args, shape[2:], (H, W))))
+    g = torch.Generator(device=dev).manual_seed(6)
+    max_err, rows = 0.0, []
+    for name, shape, path_dtype, args in entries:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            got, want = upfirdn2d_k2(x, *args), upfirdn2d_k2_plain(x, *args)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            tol = KERNEL_TOL[str(dtype).split(".")[-1]]
+            check(got.shape == want.shape and torch.allclose(got.float(), want.float(),
+                                                             rtol=tol, atol=tol),
+                  f"{tag} {name} {list(shape)} {dtype}: max err {e}")
+            max_err = max(max_err, e)
+            if dtype != path_dtype:
+                continue
+            flops, libs, y = 0, [], x
+            for p in passes(*args):
+                lib = k2_library(p, y)
+                out = upfirdn2d_k2_plain(y, p.k, list(p.up), list(p.down), list(p.pad), True,
+                                         1.0)
+                if lib is not None:
+                    e_lib = (lib(y).float() - out.float()).abs().max().item()
+                    check(e_lib <= tol * max(out.float().abs().max().item(), 1.0),
+                          f"{tag} {name}: the library call differs from the plain pass by "
+                          f"{e_lib}")
+                libs.append(lib)
+                flops += 2 * out.numel() * p.k.numel() // (p.up[0] * p.up[1])
+                y = out
+            nbytes = (x.numel() + y.numel()) * x.element_size()
+            xs = cold_copies(x)
+            fns = [rotating(lambda x: upfirdn2d_k2_plain(x, *args), xs),
+                   rotating(lambda x: upfirdn2d_k2(x, *args), xs)]
+            if all(lib is not None for lib in libs):
+                fns.append(rotating(functools.partial(chained, libs), xs))
+            for fn in fns:                                  # warm-up
+                fn(), fn()
+            times = in_turns(fns, 10)
+            plain_t, kern = times[:2]
+            lib_t = times[2] if len(times) > 2 else None
+            bound, by = bound_ms(nbytes, flops)
+            rows.append(dict(name=name, shape=list(shape), dtype=str(dtype).split(".")[-1],
+                             passes=len(libs), ms=kern, plain_ms=plain_t, library_ms=lib_t,
+                             bound_ms=bound, bound_by=by, share_of_bound=bound / kern))
+            lib_s = f"{lib_t:.4f} ms" if lib_t is not None else "none"
+            print(f"{tag} {name} {list(shape)} {rows[-1]['dtype']} ({len(libs)} pass"
+                  f"{'es' if len(libs) > 1 else ''}): kernel {kern:.4f} ms "
+                  f"({nbytes / (kern * 1e-3) / 1e9:.0f} GB/s, {bound / kern:.1%} of the "
+                  f"{bound:.4f} ms bound)  plain {plain_t:.4f} ms  library {lib_s}", flush=True)
+            del xs, fns
+    sums = {}
+    for which in ("forward", "adjoint"):
+        sel = [r for r in rows if r["name"].endswith("adjoint") == (which == "adjoint")]
+        with_lib = [r for r in sel if r["library_ms"] is not None]
+        sums[which] = {"calls": len(sel), "ms": sum(r["ms"] for r in sel),
+                       "plain_ms": sum(r["plain_ms"] for r in sel),
+                       "bound_ms": sum(r["bound_ms"] for r in sel),
+                       "calls_with_library": len(with_lib),
+                       "library_ms": sum(r["library_ms"] for r in with_lib),
+                       "ms_where_library": sum(r["ms"] for r in with_lib)}
+        m = sums[which]
+        print(f"{tag} the {m['calls']} {which} calls of one forward at 16x3 (cold L2): kernel "
+              f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
+              f"({m['bound_ms'] / m['ms']:.1%} of it); the {m['calls_with_library']} with a "
+              f"library call: kernel {m['ms_where_library']:.4f} ms, library "
+              f"{m['library_ms']:.4f} ms", flush=True)
+    head = max((r for r in rows if r["name"] == "G up=2 conv"), key=lambda r: r["shape"][2])
+    check(head["shape"] == [48, 128, 128, 128] and head["dtype"] == "bfloat16",
+          f"{tag} G's largest up-conv call {head}")
+    print(f"{tag} G's r = 256 up-conv [48, 128, 128^2] bf16: {head['share_of_bound']:.1%} of "
+          f"its bound; phase 3b took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return max_err, head, sums, rows
+
 
 def ffs256_models(dev):
     import torch
@@ -411,27 +670,30 @@ def ffs256_models(dev):
 
 def phase_slice(dev, G, D):
     import torch
-    from stylegan_v_tpu_torch.ops import downfirdn2d_x2
+    from stylegan_v_tpu_torch.ops import downfirdn2d_x2, upfirdn2d_k2
 
     g = torch.Generator(device=dev).manual_seed(1)
     z = torch.randn(4, G.cfg.z_dim, generator=g, device=dev)
     t = torch.tensor([[0.0, 5.0, 17.0], [3.0, 20.0, 60.0], [100.0, 101.0, 130.0],
                       [500.0, 700.0, 1000.0]], device=dev)
-    downfirdn2d_x2.launches = 0
+    downfirdn2d_x2.launches = upfirdn2d_k2.launches = 0
     with torch.no_grad():
         frames = G(z, None, t, generator=g)
         logits = D(frames, None, t)["image_logits"]
     torch.cuda.synchronize()
-    launches = downfirdn2d_x2.launches
+    launches, k2 = downfirdn2d_x2.launches, upfirdn2d_k2.launches
+    k2_want = k2_per_synthesis(G.synthesis) + k2_per_d(D)
     check(tuple(frames.shape) == (12, 3, 256, 256) and frames.dtype == torch.float32,
           f"frames {tuple(frames.shape)} {frames.dtype}")
     check(bool(torch.isfinite(frames).all()), "non-finite frames")
     check(tuple(logits.shape) == (4,) and bool(torch.isfinite(logits).all()),
           f"logits {logits.tolist()}")
     check(launches == 6, f"downfirdn2d_x2 launched {launches} times, expected 6")
+    check(k2 == k2_want == 18, f"upfirdn2d_k2 launched {k2} times, expected {k2_want} (18)")
     print(f"[4 slice] FFS-256 G->D: frames {list(frames.shape)} finite, std "
           f"{frames.std().item():.4f}; logits {[round(v, 4) for v in logits.tolist()]}; "
-          f"downfirdn2d_x2 launches {launches}", flush=True)
+          f"downfirdn2d_x2 launches {launches}, upfirdn2d_k2 launches {k2} (G 12, D 6)",
+          flush=True)
     return launches
 
 
@@ -484,7 +746,7 @@ def reduced_models():
 
 def phase_parity(dev):
     import torch
-    from stylegan_v_tpu_torch.ops import downfirdn2d_x2
+    from stylegan_v_tpu_torch.ops import downfirdn2d_x2, upfirdn2d_k2
 
     G, D, z, t, mz, _ = reduced_models()
 
@@ -493,11 +755,15 @@ def phase_parity(dev):
             frames = G(z.to(device), None, t.to(device), motion_z=mz.to(device))
             return frames.cpu(), D(frames, None, t.to(device))["image_logits"].cpu()
 
-    before = downfirdn2d_x2.launches
+    before = (downfirdn2d_x2.launches, upfirdn2d_k2.launches)
     ref_frames, ref_logits = run(G, D, torch.device("cpu"))
-    check(downfirdn2d_x2.launches == before, "the CPU run launched the kernel")
+    check((downfirdn2d_x2.launches, upfirdn2d_k2.launches) == before,
+          "the CPU run launched a kernel")
     frames, logits = run(copy.deepcopy(G).to(dev), copy.deepcopy(D).to(dev), dev)
-    check(downfirdn2d_x2.launches == before + 3, "the card run did not launch the kernel")
+    want = (before[0] + 3, before[1] + k2_per_synthesis(G.synthesis) + k2_per_d(D))
+    check((downfirdn2d_x2.launches, upfirdn2d_k2.launches) == want,
+          f"the card run launched K1, K2 {(downfirdn2d_x2.launches, upfirdn2d_k2.launches)} "
+          f"times, expected {want}")
     errs = []
     for name, got, want in [("frames", frames, ref_frames), ("logits", logits, ref_logits)]:
         scale = want.abs().max().item()
@@ -547,14 +813,29 @@ def phase_bwd(dev):
 # first-order grad into the real frames (6 K1-bwd), and that grad's backward,
 # which runs K1 for each of its 6 K1-bwd nodes and K1-bwd for each of the 6 K1
 # nodes of the forward: 30 and 30.
-LAUNCHES_PER_STEP = {False: (18, 18), True: (30, 30)}
+# K2 (csrc/upfirdn2d.cu, one launch a filter pass) runs 12 passes in a G
+# forward at 256^2 (k2_per_synthesis: 6 up=2 convs, 6 image skips) and 6 in a
+# D forward (k2_per_d: the filter before each 3x3 down=2 conv); a backward
+# through either runs as many again (the adjoint of a K2 pass is a K2 pass).
+# Without R1: Gmain's G forward, D forward and backward, G backward (12 + 6 +
+# 6 + 12), Dgen's G forward under no_grad and D forward and backward (12 + 6
+# + 6), Dreal's D forward and backward (6 + 6): 72. Dr1 adds a D forward (6),
+# the first-order grad into the frames (6) and that grad's backward, which
+# runs a K2 pass for each of those 12 nodes: 96. Of each step, 36 are G's
+# (K2_SYNTHESIS_PER_STEP: two forwards and one backward).
+LAUNCHES_PER_STEP = {False: (18, 18, 72), True: (30, 30, 96)}
+K2_SYNTHESIS_PER_STEP = 36
+K2_PER_SYNTHESIS_256 = 12
 # With the ADA pipe (phase 11), K4 runs in every D call of the step: Gmain,
 # Dgen and Dreal (3); K4-bwd in Gmain's backward into G (1): Dgen's frames come
 # from G under no_grad and Dreal's from data, so no gradient runs back through
 # their warps. Dr1 adds a K4 forward, the K4-bwd of the first-order grad into
 # the real frames, and that grad's backward, which runs K4 again: 5 and 2. The
 # warp's 12-tap filters never take K1's case, so K1 and K1-bwd stay as above.
-ADA_LAUNCHES_PER_STEP = {False: (18, 18, 3, 1), True: (30, 30, 5, 2)}
+# They are K2's: each warp has 4 K2 passes beside it (a 2x up and a 2x down,
+# each a row and a column pass of 12 taps), so the pipe adds 4 a K4 and 4 a
+# K4-bwd: 72 + 16 = 88 without R1, 96 + 28 = 124 with.
+ADA_LAUNCHES_PER_STEP = {False: (18, 18, 3, 1, 88), True: (30, 30, 5, 2, 124)}
 TRAIN_SHAPE = (16, 3, 256)     # videos, frames, resolution: bench.py:bench_train_step's
 ADA_P = 0.5                    # the step's cost does not depend on p; at 0.5 transforms fire
 WARP_BATCH = (16, 9, 256)      # the pipe's input at TRAIN_SHAPE: videos, 3 frames x RGB, size
@@ -566,16 +847,16 @@ def phase_train(dev, smi, G, D, augment, no_aug=None):
     run's kernels and (ms without R1, ms with R1, amortised ms, frames/s, peak GiB)."""
     import torch
     from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
-                                          downfirdn2d_x2_bwd)
+                                          downfirdn2d_x2_bwd, upfirdn2d_k2)
     from stylegan_v_tpu_torch.training import (AUGPIPE_SPECS, AugmentConfig, LossConfig,
                                                OptimizerConfig, TrainingConfig,
                                                init_train_state, make_augment_pipe,
                                                make_train_step)
 
     kernels = [downfirdn2d_x2, downfirdn2d_x2_bwd] + ([affine_warp, affine_warp_bwd]
-                                                      if augment else [])
+                                                      if augment else []) + [upfirdn2d_k2]
     expected = ADA_LAUNCHES_PER_STEP if augment else LAUNCHES_PER_STEP
-    names = ", ".join(("K1", "K1-bwd", "K4", "K4-bwd")[:len(kernels)])
+    names = ", ".join(("K1", "K1-bwd") + (("K4", "K4-bwd") if augment else ()) + ("K2",))
     tag = "[11 ada]" if augment else "[8 train]"
     (B, F, res), r1_every = TRAIN_SHAPE, 16
     tcfg = TrainingConfig(batch_size=B, ada_target=0.6)
@@ -646,7 +927,7 @@ def phase_train(dev, smi, G, D, augment, no_aug=None):
 
 def phase_grads(dev):
     import torch
-    from stylegan_v_tpu_torch.ops import downfirdn2d_x2, downfirdn2d_x2_bwd
+    from stylegan_v_tpu_torch.ops import downfirdn2d_x2, downfirdn2d_x2_bwd, upfirdn2d_k2
     from stylegan_v_tpu_torch.training import GANLoss, LossConfig
 
     G, D, z, t, mz, gen = reduced_models()
@@ -679,13 +960,13 @@ def phase_grads(dev):
                  for (n, p), g in zip(m.named_parameters(), gs)}
                 for m, gs in ((G, gG), (D, gD))]
 
-    before = (downfirdn2d_x2.launches, downfirdn2d_x2_bwd.launches)
+    kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, upfirdn2d_k2)
+    before = tuple(k.launches for k in kernels)
     want = grads(copy.deepcopy(G), copy.deepcopy(D), torch.device("cpu"))
-    check((downfirdn2d_x2.launches, downfirdn2d_x2_bwd.launches) == before,
-          "the CPU run launched a kernel")
+    check(tuple(k.launches for k in kernels) == before, "the CPU run launched a kernel")
     got = grads(copy.deepcopy(G).to(dev), copy.deepcopy(D).to(dev), dev)
-    ran = (downfirdn2d_x2.launches - before[0], downfirdn2d_x2_bwd.launches - before[1])
-    check(min(ran) > 0, f"the card run launched K1, K1-bwd {ran} times")
+    ran = tuple(k.launches - b for k, b in zip(kernels, before))
+    check(min(ran) > 0, f"the card run launched K1, K1-bwd, K2 {ran} times")
     msgs = []
     for name, g, w in (("Gmain dG", got[0], want[0]), ("Dr1 dD", got[1], want[1])):
         scale = max(v.abs().max().item() for v in w.values())
@@ -694,7 +975,7 @@ def phase_grads(dev):
               and err <= PARITY_TOL * scale,
               f"card vs CPU {name}: max err {err} at {worst} > {PARITY_TOL} * {scale}")
         msgs.append(f"{name} max_abs_err {err:.3g} at {worst} (scale {scale:.3g})")
-    print(f"[9 grads] reduced width, card (K1, K1-bwd launched {ran}) vs CPU, tol "
+    print(f"[9 grads] reduced width, card (K1, K1-bwd, K2 launched {ran}) vs CPU, tol "
           f"{PARITY_TOL} x scale: " + "; ".join(msgs), flush=True)
 
 
@@ -917,7 +1198,7 @@ def phase_aug_parity(dev):
     input takes the CPU run's augmented values on the card (the gradient still
     runs through the card's pipe), as phase 9 pins the frames."""
     import torch
-    from stylegan_v_tpu_torch.ops import affine_warp, affine_warp_bwd
+    from stylegan_v_tpu_torch.ops import affine_warp, affine_warp_bwd, upfirdn2d_k2
     from stylegan_v_tpu_torch.training import (AUGPIPE_SPECS, AugmentConfig, GANLoss,
                                                LossConfig, make_augment_pipe)
 
@@ -953,16 +1234,20 @@ def phase_aug_parity(dev):
                                     for (n, p), g in zip(m.named_parameters(), gs)}
                                    for m, gs in ((G, gG), (D, gD))]
 
-    before = (affine_warp.launches, affine_warp_bwd.launches)
+    kernels = (affine_warp, affine_warp_bwd, upfirdn2d_k2)
+    before = tuple(k.launches for k in kernels)
     want = run(copy.deepcopy(G), copy.deepcopy(D), torch.device("cpu"))
-    check((affine_warp.launches, affine_warp_bwd.launches) == before,
-          "the CPU run launched a kernel")
+    check(tuple(k.launches for k in kernels) == before, "the CPU run launched a kernel")
     for src in draws.values():
         src.replay()
     got = run(copy.deepcopy(G).to(dev), copy.deepcopy(D).to(dev), dev)
-    ran = (affine_warp.launches - before[0], affine_warp_bwd.launches - before[1])
-    # the pipe 1 K4; Gmain 1 K4 + 1 K4-bwd; Dr1 1 K4 + 1 K4-bwd + 1 K4 (R1's backward)
-    check(ran == (4, 2), f"the card run launched K4, K4-bwd {ran} times, expected (4, 2)")
+    ran = tuple(k.launches - b for k, b in zip(kernels, before))
+    # the pipe 1 K4; Gmain 1 K4 + 1 K4-bwd; Dr1 1 K4 + 1 K4-bwd + 1 K4 (R1's backward).
+    # K2: 4 beside each K4 and K4-bwd (24), G forward and backward (2 kG), D forward
+    # and backward in Gmain, forward, first-order grad and its backward in Dr1 (6 kD)
+    k2 = 24 + 2 * k2_per_synthesis(G.synthesis) + 6 * k2_per_d(D)
+    check(ran == (4, 2, k2),
+          f"the card run launched K4, K4-bwd, K2 {ran} times, expected (4, 2, {k2})")
     msgs = []
     for name, g, w in (("pipe output", got[0], want[0]), ("Gmain dG", got[1], want[1]),
                        ("Dr1 dD", got[2], want[2])):
@@ -972,7 +1257,7 @@ def phase_aug_parity(dev):
               and err <= PARITY_TOL * scale,
               f"card vs CPU with ADA {name}: max err {err} at {worst} > {PARITY_TOL} * {scale}")
         msgs.append(f"{name} max_abs_err {err:.3g} (scale {scale:.3g})")
-    print(f"[12 augpar] reduced width, bgc at p {ADA_P}, card (K4, K4-bwd launched {ran}) vs "
+    print(f"[12 augpar] reduced width, bgc at p {ADA_P}, card (K4, K4-bwd, K2 launched {ran}) vs "
           f"CPU, tol {PARITY_TOL} x scale: " + "; ".join(msgs), flush=True)
 
 
@@ -1088,14 +1373,12 @@ def phase_loop(dev, smi, prestaged, tmp):
     import torch
     from stylegan_v_tpu_torch import train as entry
     from stylegan_v_tpu_torch.models import Discriminator
-    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
-                                          downfirdn2d_x2_bwd)
 
     # the loop's host packages: Pillow for the .jpg grids, cv2 for the .mp4, PyYAML
     # for the configs (the card had all three when probed)
     missing = [m for m in ("PIL", "cv2", "yaml") if importlib.util.find_spec(m) is None]
     check(not missing, f"[13 loop] the loop's host packages are missing: {missing}")
-    kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+    kernels = _kernels()
     tf32 = (torch.backends.cudnn, torch.backends.cuda.matmul)
     seen = set()
 
@@ -1111,17 +1394,18 @@ def phase_loop(dev, smi, prestaged, tmp):
             "training.kimg_per_tick=0.25", "training.snap=2", "training.metrics=[]",
             f"project_release_dir={run}"]
     hook = torch.nn.modules.module.register_module_forward_hook(d_hook)
-    results, counts, peaks, out = [], [], [], io.StringIO()
+    results, counts, synthesis, peaks, out = [], [], [], [], io.StringIO()
     try:
         for extra in ([], ["training.resume=latest", "training.kimg=2"]):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             for k in kernels:
                 k.launches = 0
-            with contextlib.redirect_stdout(out):       # the loop's log, in log.txt too
-                results.append(entry.main(args + extra))
+            with contextlib.redirect_stdout(out), SynthesisCalls() as syn:
+                results.append(entry.main(args + extra))    # the loop's log, in log.txt too
             torch.cuda.synchronize()
             counts.append(tuple(k.launches for k in kernels))
+            synthesis.append(syn.k2)
             peaks.append(torch.cuda.max_memory_allocated() / 2**30)
             if not extra:
                 n_saved = check_snapshot(dev, run, results[0]["state"])
@@ -1140,11 +1424,11 @@ def phase_loop(dev, smi, prestaged, tmp):
           f"[13 loop] resumed at {second['start_nimg']} frames, step {second['start_step']}")
     check((second["cur_nimg"], second["state"].step) == (2016, 42),
           f"[13 loop] resumed run ended at {second['cur_nimg']}, step {second['state'].step}")
-    for (lo, hi), got in zip(LOOP_RUNS, counts):
-        want = tuple(sum(ADA_LAUNCHES_PER_STEP[i % 16 == 0][j] for i in range(lo, hi))
-                     for j in range(4))
-        check(got == want, f"[13 loop] steps {lo}-{hi - 1} launched K1, K1-bwd, K4, K4-bwd "
-                           f"{got} times, expected {want} (R1 at every 16th step index)")
+    for (lo, hi), got, syn_k2 in zip(LOOP_RUNS, counts, synthesis):
+        want = loop_launches(ADA_LAUNCHES_PER_STEP, range(lo, hi), syn_k2, 1)
+        check(got == want, f"[13 loop] steps {lo}-{hi - 1} launched {KERNELS} {got} times, "
+                           f"expected {want} (R1 at every 16th step index; K2 also 12 a "
+                           f"snapshot grid's synthesis)")
     check(seen == {(False, False)}, f"[13 loop] (cudnn, matmul) allow_tf32 in D: {seen}")
 
     # the artifacts
@@ -1195,8 +1479,8 @@ def phase_loop(dev, smi, prestaged, tmp):
           f"stylegan_v_tpu_torch.train` auto preset, batch 16x3, bgc ADA, R1 every 16: "
           f"{LOOP_RUNS[0][1]} steps, then {LOOP_RUNS[1][1] - LOOP_RUNS[1][0]} resumed from "
           f"latest at step 21 / 1008 frames; snapshot 000001 equal to the bit to the state "
-          f"in memory and to its restore on the card ({n_saved} tensors); launches K1, K1-bwd, "
-          f"K4, K4-bwd per run {counts[0]} and {counts[1]}; (cudnn, matmul) allow_tf32 in D "
+          f"in memory and to its restore on the card ({n_saved} tensors); launches {KERNELS} "
+          f"per run {counts[0]} and {counts[1]}; (cudnn, matmul) allow_tf32 in D "
           f"{sorted(seen)}. Loader-fed (resumed run): {ms_main:.1f} ms/step without R1 (mean "
           f"Timing/Gmain_Dmain over {n_main} steps), {ms_r1:.1f} ms with R1 ({n_r1} step), "
           f"{fps:.1f} frames/s amortised over ticks 2-4 ({steps} steps, their R1 and a "
@@ -1292,8 +1576,6 @@ def phase_metrics(dev, smi, G_ema, zip_path, tmp, models):
     from stylegan_v_tpu_torch.metrics.frechet_inception_distance import compute_fid
     from stylegan_v_tpu_torch.metrics.inception_score import compute_is, compute_isv
     from stylegan_v_tpu_torch.metrics.kernel_inception_distance import compute_kid
-    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
-                                          downfirdn2d_x2_bwd)
 
     t_phase = time.perf_counter()
     i3d, inception, c3d = phase_detectors(dev, models)
@@ -1302,9 +1584,10 @@ def phase_metrics(dev, smi, G_ema, zip_path, tmp, models):
     for name, (fn, model) in fns.items():
         metric_utils.register_detector(name, lambda fn=fn, model=model, **kw: fn(model, **kw),
                                        cache_tag=f"chip-smoke-random-{name}-s14")
-    kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+    kernels = _kernels()
     for k in kernels:
         k.launches = 0
+    syn = SynthesisCalls().__enter__()      # (b)-(e): the synthesis K2 accounts for
     cache = os.path.join(tmp, "metric-stats")
     common = dict(G=G_ema, dataset_kwargs=dict(path=zip_path, xflip=True), device=dev,
                   cache_dir=cache)
@@ -1398,6 +1681,7 @@ def phase_metrics(dev, smi, G_ema, zip_path, tmp, models):
     check(st.num_items == FVD_TIMED_CLIPS and bool(np.isfinite(st.get_mean_cov()[1]).all()),
           f"[14 metrics] timed extraction: {st.num_items} clips")
     launches = tuple(k.launches for k in kernels)
+    syn.__exit__()
     flops = conv_flops(i3d, (1, 3, 16, 224, 224)) * FVD_TIMED_CLIPS
     print(f"[14 metrics] (e) generator-side FVD extraction, {FVD_TIMED_CLIPS} clips x 16 frames "
           f"at 256^2 in {len(spans['synthesis'])} batches of 8 clips: "
@@ -1409,11 +1693,13 @@ def phase_metrics(dev, smi, G_ema, zip_path, tmp, models):
           f"float32 peak), the rest {wall * 1e3 - sum(ms.values()):.1f} ms; peak {peak:.2f} GiB; "
           f"on {smi}", flush=True)
 
-    # (g) the metric path launches none of the port's kernels
-    check(launches == (0, 0, 0, 0), f"[14 metrics] K1, K1-bwd, K4, K4-bwd launched {launches} "
-                                     "times on the metric path, expected none")
-    print(f"[14 metrics] (g) K1, K1-bwd, K4, K4-bwd launches during (b)-(e): {launches}",
-          flush=True)
+    # (g) the metric path launches K2 in G's synthesis only, none of the other kernels
+    want = (0, 0, 0, 0, syn.k2)
+    check(launches == want and syn.backwards == 0,
+          f"[14 metrics] {KERNELS} launched {launches} times on the metric path, expected "
+          f"{want} (K2: 12 a synthesis, {syn.forwards} synthesis calls)")
+    print(f"[14 metrics] (g) {KERNELS} launches during (b)-(e): {launches}, K2 12 for each "
+          f"of {syn.forwards} synthesis calls", flush=True)
 
     # (f) the loop through the entry point, scoring fvd2048_16f at each of two snapshots
     run = os.path.join(tmp, "run_metrics")
@@ -1575,8 +1861,6 @@ def par_rank(rank, world_size, init_method, tmp, device):
     import os
     import torch
     import torch.distributed as dist
-    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
-                                          downfirdn2d_x2_bwd)
     from stylegan_v_tpu_torch.parallel import distributed as tdist
     from stylegan_v_tpu_torch.parallel.zero import opt_state_bytes_per_device
     from stylegan_v_tpu_torch.utils.summary import (check_replica_consistency,
@@ -1589,7 +1873,7 @@ def par_rank(rank, world_size, init_method, tmp, device):
     det = deterministic()
     det.__enter__()
     try:
-        kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+        kernels = _kernels()
         batch = _par_batch(dev)
         B = TRAIN_SHAPE[0]
         plan = None
@@ -1681,7 +1965,7 @@ def par_steps(dev, smi, tmp):
     deterministic kernels; step 1's all-reduced Gmain and Dmain gradients
     against the one-process step's within PAR_FLOOR_FACTOR times their noise
     floor, everything finite, augment_p equal on both ranks, the ranks'
-    state consistent; (b) each rank's K1 / K1-bwd / K4 / K4-bwd launches per
+    state consistent; (b) each rank's K1 / K1-bwd / K4 / K4-bwd / K2 launches per
     step against phase 11's; (c) ZeRO-1 on the first two steps, equal to
     (a)'s state after them to the bit; (f) the two-rank times (the ranks share one card: not a scaling
     number), the all-reduce's ms, peak memory per rank."""
@@ -1707,7 +1991,7 @@ def par_steps(dev, smi, tmp):
             check(len(set(p)) == 1, f"[15 ranks] augment_p differs across ranks: {p}")
             for do_dr1, got in zip(PAR_PLAN, r[tag]["launches"]):
                 check(tuple(got) == ADA_LAUNCHES_PER_STEP[do_dr1],
-                      f"[15 ranks] rank {r['rank']} ({tag}) launched K1, K1-bwd, K4, K4-bwd "
+                      f"[15 ranks] rank {r['rank']} ({tag}) launched K1, K1-bwd, K4, K4-bwd, K2 "
                       f"{got} in a step with R1={do_dr1}, expected "
                       f"{ADA_LAUNCHES_PER_STEP[do_dr1]}")
         check(r["zero1_equal"], f"[15 ranks] rank {r['rank']}: ZeRO-1's parameters differ "
@@ -1727,7 +2011,7 @@ def par_steps(dev, smi, tmp):
                       for k, v in r0['plain']['step1_stats'].items())
           + f"; augment_p {r0['plain']['augment_p']}; losses on rank 0 after the steps "
           f"{r0['plain']['losses']}; consistency check passed", flush=True)
-    print(f"[15 ranks] (b) K1, K1-bwd, K4, K4-bwd launches per step on each rank (R1 "
+    print(f"[15 ranks] (b) K1, K1-bwd, K4, K4-bwd, K2 launches per step on each rank (R1 "
           f"{list(PAR_PLAN)}): " + "; ".join(f"rank {r['rank']} {r['plain']['launches']}"
                                              for r in ranks), flush=True)
     print(f"[15 ranks] (c) ZeRO-1 after two steps equal to (a) after two to the bit; "
@@ -1989,12 +2273,10 @@ def legacy_resume(dev, smi, zip_path, tmp, pkl, src):
     import os
     import torch
     from stylegan_v_tpu_torch import train as entry
-    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
-                                          downfirdn2d_x2_bwd)
     from stylegan_v_tpu_torch.parallel.distributed import free_port
     from stylegan_v_tpu_torch.training import loop as tloop
 
-    kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+    kernels = _kernels()
     start, steps = {}, []
     make = tloop.make_train_step
 
@@ -2040,7 +2322,7 @@ def legacy_resume(dev, smi, zip_path, tmp, pkl, src):
           f"{start['adam']} Adam states; ended at {result['cur_nimg']} after {len(steps)} steps")
     for i, (do_dr1, got, _) in enumerate(steps):
         check(got == ADA_LAUNCHES_PER_STEP[do_dr1] and do_dr1 == (i % 16 == 0),
-              f"[16 legacy] step {i} (R1 {do_dr1}) launched K1, K1-bwd, K4, K4-bwd {got}, "
+              f"[16 legacy] step {i} (R1 {do_dr1}) launched K1, K1-bwd, K4, K4-bwd, K2 {got}, "
               f"expected {ADA_LAUNCHES_PER_STEP[do_dr1]}")
     check("Importing reference snapshot" in open(os.path.join(run_dir, "log.txt")).read(),
           "[16 legacy] the log does not say it imported the .pkl")
@@ -2069,7 +2351,7 @@ def legacy_resume(dev, smi, zip_path, tmp, pkl, src):
     print(f"[16 legacy] (b) `python -m stylegan_v_tpu_torch.train ... --resume <the .pkl>` on "
           f"phase 13's zip, in process: step 0's G, G_ema and D equal the .pkl's to the bit, "
           f"step 0 / cur_nimg 0 / no Adam state; 21 ADA steps at 16x3 (R1 at 0 and 16) with "
-          f"K1, K1-bwd, K4, K4-bwd launches per step as phase 11's; "
+          f"K1, K1-bwd, K4, K4-bwd, K2 launches per step as phase 11's; "
           f"{sum(ms) / len(ms):.1f} ms/step without R1 (mean of {len(ms)} synchronised steps "
           f"after the first two), {', '.join(f'{m:.1f}' for m in ms_r1)} ms with R1; the run "
           f"{t_run:.1f} s with its setup and a snapshot. `python -m torch.distributed.run "
@@ -2171,22 +2453,22 @@ def legacy_generate(dev, smi, tmp, pkl):
 RANK_LAUNCHES = "SMOKE_RANK_LAUNCHES"   # (d): where each spawned rank writes its launches
 
 
-def _write_rank_launches():
-    """At a spawned rank's exit: its K1, K1-bwd, K4 and K4-bwd launches, to a
-    file of its own in $SMOKE_RANK_LAUNCHES."""
+def _write_rank_launches(syn):
+    """At a spawned rank's exit: its K1, K1-bwd, K4, K4-bwd and K2 launches and
+    the K2 that its synthesis accounts for (SynthesisCalls syn, entered when
+    the rank imported this script), to a file of its own in
+    $SMOKE_RANK_LAUNCHES."""
     import os
-    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
-                                          downfirdn2d_x2_bwd)
+    syn.__exit__()
     with open(os.path.join(os.environ[RANK_LAUNCHES], f"{os.getpid()}.json"), "w") as f:
-        json.dump([k.launches for k in (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp,
-                                        affine_warp_bwd)], f)
+        json.dump([[k.launches for k in _kernels()], syn.k2], f)
 
 
 if __name__ == "__mp_main__":          # a spawned rank imports this script under that name
     import os as _os
     if _os.environ.get(RANK_LAUNCHES):
         import atexit
-        atexit.register(_write_rank_launches)
+        atexit.register(_write_rank_launches, SynthesisCalls().__enter__())
 
 
 def read_frame_folders(out, V, T):
@@ -2249,7 +2531,7 @@ def legacy_shards(dev, tmp, pkl):
     rank_launches = [json.load(open(os.path.join(launches_dir, f)))
                      for f in sorted(os.listdir(launches_dir))]
     check(returned is None and len(gather) == 1 and len(rank_launches) == 2
-          and all(n == [0, 0, 0, 0] for n in rank_launches),
+          and all(n == [0, 0, 0, 0, k2] and k2 > 0 for n, k2 in rank_launches),
           f"[16 legacy] generate --frame-shards 2: returned {type(returned)}, launches a rank "
           f"{rank_launches}, printed {printed[-2000:]!r}")
     got = read_frame_folders(out, V, T)
@@ -2288,7 +2570,7 @@ def legacy_shards(dev, tmp, pkl):
           f"{V * T} frames {int((diff_whole > 0).sum())} differ, worst by "
           f"{int(diff_whole.max())}, where the two one-process runs differ in "
           f"{int((floor > 0).sum())}, worst by {int(floor.max())} (bf16 at the top four "
-          f"resolutions); K1, K1-bwd, K4, K4-bwd launches in each rank {rank_launches}; "
+          f"resolutions); K1, K1-bwd, K4, K4-bwd, K2 launches in each rank {rank_launches}; "
           f"rank 0's all_gather of the frames (float32 via the host) {gather[0]} ms; the CLI "
           f"{t_cli:.1f} s with the spawn", flush=True)
 
@@ -2402,8 +2684,6 @@ def phase_legacy(dev, smi, zip_path, tmp, models):
     (e) metrics; no kernel launch in (c)-(e). Returns the .pkl's path and
     (c)'s clips/s of synthesis."""
     import os
-    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
-                                          downfirdn2d_x2_bwd)
     from stylegan_v_tpu_torch.tools.ref_pickle import write_reference_pickle
 
     t_phase = time.perf_counter()
@@ -2417,22 +2697,26 @@ def phase_legacy(dev, smi, zip_path, tmp, models):
     t0 = time.perf_counter()
     legacy_resume(dev, smi, zip_path, tmp, pkl, src)
     parts["b"] = time.perf_counter() - t0
-    kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+    kernels = _kernels()
     for k in kernels:
         k.launches = 0
     returned = {}
-    for tag, fn, args in (("c", legacy_generate, (dev, smi, tmp, pkl)),
-                          ("d", legacy_shards, (dev, tmp, pkl)),
-                          ("e", legacy_metrics, (dev, zip_path, tmp, pkl, models))):
-        t0 = time.perf_counter()
-        returned[tag] = fn(*args)
-        parts[tag] = time.perf_counter() - t0
+    with SynthesisCalls() as syn:
+        for tag, fn, args in (("c", legacy_generate, (dev, smi, tmp, pkl)),
+                              ("d", legacy_shards, (dev, tmp, pkl)),
+                              ("e", legacy_metrics, (dev, zip_path, tmp, pkl, models))):
+            t0 = time.perf_counter()
+            returned[tag] = fn(*args)
+            parts[tag] = time.perf_counter() - t0
     launches = tuple(k.launches for k in kernels)
-    check(launches == (0, 0, 0, 0), f"[16 legacy] K1, K1-bwd, K4, K4-bwd launched {launches} "
-                                     "times in (c)-(e), expected none")
-    print(f"[16 legacy] K1, K1-bwd, K4, K4-bwd launches during (c)-(e) in this process (and "
-          f"none in (d)'s ranks, above): "
-          f"{launches}; the parts took " + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items())
+    want = (0, 0, 0, 0, syn.k2)
+    check(launches == want and syn.backwards == 0,
+          f"[16 legacy] {KERNELS} launched {launches} times in (c)-(e), expected {want} (K2: "
+          f"12 for each of {syn.forwards} synthesis calls)")
+    print(f"[16 legacy] {KERNELS} launches during (c)-(e) in this process (and in (d)'s "
+          f"ranks, above, K2 alone, 12 a synthesis): "
+          f"{launches}, K2 12 for each of {syn.forwards} synthesis calls; the parts took "
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items())
           + f"; phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return pkl, returned["c"]
 
@@ -2479,8 +2763,6 @@ def moco_step(dev, smi):
     import torch
     from stylegan_v_tpu_torch.models import MoCoGANDiscriminator
     from stylegan_v_tpu_torch.models.discriminator import DiscriminatorBlock
-    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
-                                          downfirdn2d_x2_bwd)
     from stylegan_v_tpu_torch.parallel.distributed import all_reduce_sum
     from stylegan_v_tpu_torch.tools import moco_memory
     from stylegan_v_tpu_torch.utils.misc import float32_precision
@@ -2502,7 +2784,7 @@ def moco_step(dev, smi):
     check(len(groups) == 2 and groups[1]["lr"] == groups[0]["lr"] * scales["video_discr"]
           and {id(p) for p in groups[1]["params"]} == video,
           f"{tag} D's Adam groups: {[(g['lr'], len(g['params'])) for g in groups]}")
-    kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+    kernels = _kernels()
     B, F, res = MOCO_SHAPE
     batch = moco_memory.slice_batch(dev)
     g = torch.Generator(device=dev).manual_seed(18)
@@ -2531,7 +2813,7 @@ def moco_step(dev, smi):
             times[do_dr1].append(time.perf_counter() - t0)
             got = measured[do_dr1] = tuple(k.launches - n for k, n in zip(kernels, before))
             check(got == MOCO_LAUNCHES_PER_STEP[do_dr1],
-                  f"{tag} step (do_dr1={do_dr1}) launched K1, K1-bwd, K4, K4-bwd {got} times, "
+                  f"{tag} step (do_dr1={do_dr1}) launched K1, K1-bwd, K4, K4-bwd, K2 {got} times, "
                   f"expected {MOCO_LAUNCHES_PER_STEP[do_dr1]}")
             bad = [k for k, v in stats.items() if not bool(torch.isfinite(v).all())]
             check(not bad, f"{tag} non-finite stats {bad}")
@@ -2598,8 +2880,8 @@ def moco_step(dev, smi):
           f"{times[True][0] * 1e3:.1f}); amortised at R1 every 16: {ms_step:.1f} ms/step, "
           f"{fps:.1f} frames/s; peak {peak:.2f} GiB; D's Adam groups lr "
           f"{[g['lr'] for g in groups]} (video_discr {scales['video_discr']}x); losses "
-          f"{', '.join(f'{k} {v.item():.4f}' for k, v in stats.items())}; K1, K1-bwd, K4, "
-          f"K4-bwd launches per step {measured[False]} without R1, "
+          f"{', '.join(f'{k} {v.item():.4f}' for k, v in stats.items())}; {KERNELS} "
+          f"launches per step {measured[False]} without R1, "
           f"{measured[True]} with (phase 11's {ADA_LAUNCHES_PER_STEP[False]}, "
           f"{ADA_LAUNCHES_PER_STEP[True]}); the image D's skip inputs {skips}; allow_tf32 "
           f"inside D {sorted(seen)}; on {smi}", flush=True)
@@ -2759,12 +3041,10 @@ def moco_loop(dev, smi, zip_path, tmp, step_ms):
     from stylegan_v_tpu_torch import train as entry
     from stylegan_v_tpu_torch.io.checkpoint import load_snapshot, snapshot_payload
     from stylegan_v_tpu_torch.models import MoCoGANDiscriminator
-    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
-                                          downfirdn2d_x2_bwd)
     from stylegan_v_tpu_torch.tools import moco_memory
 
     tag = "[17 moco (d)]"
-    kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+    kernels = _kernels()
     tf32 = (torch.backends.cudnn, torch.backends.cuda.matmul)
     seen = set()
 
@@ -2777,17 +3057,18 @@ def moco_loop(dev, smi, zip_path, tmp, step_ms):
         f"training.batch_gpu={MOCO_BATCH_GPU}", "training.kimg=1", "training.kimg_per_tick=0.5",
         "training.snap=2", "training.metrics=[]", f"project_release_dir={run}"]
     hook = torch.nn.modules.module.register_module_forward_hook(d_hook)
-    results, counts, secs, out = [], [], [], io.StringIO()
+    results, counts, synthesis, secs, out = [], [], [], [], io.StringIO()
     try:
         for extra in ([], ["training.resume=latest", "training.kimg=2"]):
             for k in kernels:
                 k.launches = 0
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(out):
+            with contextlib.redirect_stdout(out), SynthesisCalls() as syn:
                 results.append(entry.main(args + extra))
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
             counts.append(tuple(k.launches for k in kernels))
+            synthesis.append(syn.k2)
             if not extra:       # the first run's last snapshot, to the bit
                 payload, meta = load_snapshot(os.path.join(run, "network-snapshot-000001.pt"))
                 check(meta["cur_nimg"] == 1024, f"{tag} snapshot 000001 at {meta['cur_nimg']}")
@@ -2807,11 +3088,11 @@ def moco_loop(dev, smi, zip_path, tmp, step_ms):
     check(isinstance(state.D, MoCoGANDiscriminator) and len(groups) == 2
           and groups[1]["lr"] == groups[0]["lr"] * 0.1,
           f"{tag} the resumed D's Adam groups: {[g['lr'] for g in groups]}")
-    for (lo, hi), got in zip(MOCO_LOOP_RUNS, counts):
-        want = tuple(sum(MOCO_LAUNCHES_PER_STEP[i % 16 == 0][j] for i in range(lo, hi))
-                     for j in range(4))
-        check(got == want, f"{tag} steps {lo}-{hi - 1} launched K1, K1-bwd, K4, K4-bwd {got} "
-                           f"times, expected {want} (R1 at every 16th step index)")
+    for (lo, hi), got, syn_k2 in zip(MOCO_LOOP_RUNS, counts, synthesis):
+        want = loop_launches(MOCO_LAUNCHES_PER_STEP, range(lo, hi), syn_k2, MOCO_ROUNDS)
+        check(got == want, f"{tag} steps {lo}-{hi - 1} launched {KERNELS} {got} times, "
+                           f"expected {want} (R1 at every 16th step index; K2 also 12 a "
+                           f"snapshot grid's synthesis)")
     check(seen == {(False, False)}, f"{tag} (cudnn, matmul) allow_tf32 in D: {seen}")
     files = set(os.listdir(run))
     check({f"network-snapshot-{k:06d}.pt" for k in (1, 2)} <= files,
@@ -2831,7 +3112,7 @@ def moco_loop(dev, smi, zip_path, tmp, step_ms):
           f"4 steps ({secs[0]:.1f} s with the setup and snapshots), snapshot 000001 equal to "
           f"the bit to the state in memory ({n_saved} tensors), resumed from latest at step 4 "
           f"for 4 more ({secs[1]:.1f} s); the resumed D's Adam groups lr "
-          f"{[g['lr'] for g in groups]}; launches K1, K1-bwd, K4, K4-bwd per run {counts[0]} "
+          f"{[g['lr'] for g in groups]}; launches K1, K1-bwd, K4, K4-bwd, K2 per run {counts[0]} "
           f"and {counts[1]}; allow_tf32 in D {sorted(seen)}; loader-fed Timing/Gmain_Dmain "
           f"{', '.join(f'{m:.1f}' for m in ms)} ms in the resumed ticks (pre-staged (a): "
           f"{step_ms:.1f} ms); on {smi}", flush=True)
@@ -2850,15 +3131,14 @@ def moco_sample(dev, smi, zip_path, tmp, run, models):
     import torch
     from stylegan_v_tpu_torch import generate
     from stylegan_v_tpu_torch.metrics import metric_main
-    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
-                                          downfirdn2d_x2_bwd)
     from stylegan_v_tpu_torch.training.video_io import generate_videos
     from stylegan_v_tpu_torch.utils.misc import float32_precision
 
     tag = "[17 moco (e)]"
-    kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+    kernels = _kernels()
     for k in kernels:
         k.launches = 0
+    syn = SynthesisCalls().__enter__()
     path = os.path.join(run, "network-snapshot-000002.pt")
     argv = ["--network", path, "-o", os.path.join(tmp, "gen_moco"), "--num-videos",
             str(MOCO_CLIPS), "--video-len", "16"]
@@ -2899,8 +3179,11 @@ def moco_sample(dev, smi, zip_path, tmp, run, models):
     t_fvd = time.perf_counter() - t0
     check(math.isfinite(fvd), f"{tag} {SMOKE_FVD} {fvd!r}")
     launches = tuple(k.launches for k in kernels)
-    check(launches == (0, 0, 0, 0), f"{tag} K1, K1-bwd, K4, K4-bwd launched {launches} times "
-                                    "in generate and the metric, expected none")
+    syn.__exit__()
+    want = (0, 0, 0, 0, syn.k2)
+    check(launches == want and syn.backwards == 0,
+          f"{tag} {KERNELS} launched {launches} times in generate and the metric, expected "
+          f"{want} (K2: 12 for each of {syn.forwards} synthesis calls)")
     print(f"{tag} generate on snapshot 000002 (LSTM G_ema), {MOCO_CLIPS} clips x 16 frames at "
           f"{res}^2: equal to generate_videos to the bit; {MOCO_CLIPS / t_syn:.2f} clips/s of "
           f"synthesis (warm, {t_syn:.3f} s), the CLI {t_cli:.2f} s with the load; {SMOKE_FVD} "
@@ -3050,13 +3333,6 @@ def stand_in_arcface(path):
     return path
 
 
-def _kernels():
-    """The four kernel wrappers, whose `launches` count their CUDA launches."""
-    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
-                                          downfirdn2d_x2_bwd)
-    return (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
-
-
 def cli_project(dev, smi, tmp, pkl):
     """Phase 18 (a): `python -m stylegan_v_tpu_torch.project` in process on the
     .pkl, targets from its G_ema at a known (z, motion_z): the fallback loss
@@ -3095,13 +3371,17 @@ def cli_project(dev, smi, tmp, pkl):
         for k in kernels:
             k.launches = 0
         printed = io.StringIO()
-        with contextlib.redirect_stdout(printed):
+        with contextlib.redirect_stdout(printed), SynthesisCalls() as syn:
             result = project.main(["--network", pkl, "--target-dir", target, "-o", out_dir,
                                    "--num-steps", str(steps), "--num-frames", str(frames_n),
                                    "--motion-init-trials", str(PROJ_TRIALS), "--seed", "18",
                                    "--device", str(dev)] + extra)
         torch.cuda.synchronize()
         launches = tuple(k.launches for k in kernels)
+        check(launches[4] == syn.k2 and syn.backwards == steps,
+              f"{tag} {extra or 'fallback'}: K2 launched {launches[4]} times, G's synthesis "
+              f"accounts for {syn.k2} ({syn.forwards} forwards, {syn.backwards} backwards, "
+              f"12 each) in {steps} steps")
         lat = np.load(os.path.join(out_dir, "projected_latents.npz"))
         losses = result["losses"]
         check(len(losses) == steps and np.isfinite(losses).all()
@@ -3122,8 +3402,8 @@ def cli_project(dev, smi, tmp, pkl):
     check("vgg16.pt not found" in printed, f"{tag} the fallback loss did not run: {printed[:200]}")
     per_run = 3 + 3 * PROJ_TRIALS
     want = (per_run + PROJ_LAUNCHES_PER_STEP[0] * PROJ_STEPS,
-            PROJ_LAUNCHES_PER_STEP[1] * PROJ_STEPS, 0, 0)
-    check(launches == want, f"{tag} K1, K1-bwd, K4, K4-bwd launched {launches} times, expected "
+            PROJ_LAUNCHES_PER_STEP[1] * PROJ_STEPS, 0, 0, launches[4])
+    check(launches == want, f"{tag} K1, K1-bwd, K4, K4-bwd, K2 launched {launches} times, expected "
                             f"{want} ({per_run} K1 for the target's pyramid and the motion "
                             f"trials, then {PROJ_LAUNCHES_PER_STEP} a step)")
     ms_step = result["seconds"] / PROJ_STEPS * 1e3
@@ -3133,13 +3413,13 @@ def cli_project(dev, smi, tmp, pkl):
     torch.jit.script(stand_in_vgg()).save(os.path.join(det, "vgg16.pt"))
     lp, lp_launches, lp_printed = run(os.path.join(tmp, "proj_out_lpips"), PROJ_LPIPS_STEPS,
                                       ["--detector-dir", det])
-    check("Using VGG16-LPIPS perceptual loss" in lp_printed and lp_launches == (0, 0, 0, 0),
+    check("Using VGG16-LPIPS perceptual loss" in lp_printed and lp_launches[:4] == (0,) * 4,
           f"{tag} LPIPS branch: launches {lp_launches}, output {lp_printed[:200]}")
     print(f"{tag} `python -m stylegan_v_tpu_torch.project` on the .pkl, {frames_n} target "
           f"frames at {res}^2 from its G_ema, fallback loss: motion search best of "
           f"{PROJ_TRIALS} {result['init_loss']:.5f}, loss after {PROJ_STEPS} steps "
           f"{result['losses'][-1]:.5f} (step 1 {result['losses'][1]:.5f}), latents finite; "
-          f"K1, K1-bwd, K4, K4-bwd launches {launches} = {per_run} + {PROJ_STEPS} x "
+          f"K1, K1-bwd, K4, K4-bwd, K2 launches {launches} = {per_run} + {PROJ_STEPS} x "
           f"{PROJ_LAUNCHES_PER_STEP} as derived; {ms_step:.2f} ms a step (host clock over the "
           f"steps, synchronised at the end), the CLI {t_cli:.1f} s with the load; LPIPS with a "
           f"scripted stand-in vgg16.pt: {lp['init_loss']:.5f} -> {lp['losses'][-1]:.5f} in "
@@ -3264,7 +3544,8 @@ def cli_edit(dev, smi, tmp, pkl):
     kernels = _kernels()
     for k in kernels:
         k.launches = 0
-    with float32_precision(False), contextlib.redirect_stdout(io.StringIO()):
+    with float32_precision(False), contextlib.redirect_stdout(io.StringIO()), \
+            SynthesisCalls() as syn:
         result = clip_edit.edit(G, embed, text.to(dev), arc, num_steps=EDIT_STEPS,
                                 num_frames=EDIT_FRAMES, seed=18)
     torch.cuda.synchronize()
@@ -3274,8 +3555,11 @@ def cli_edit(dev, smi, tmp, pkl):
           and bool(torch.isfinite(result["ws"]).all())
           and bool(torch.isfinite(result["frames"]).all()), f"{tag} non-finite edit")
     check(hist[-1, 1] < hist[0, 1], f"{tag} the CLIP term did not fall: {hist[:, 1].tolist()}")
-    check(launches == (0, 0, 0, 0), f"{tag} K1, K1-bwd, K4, K4-bwd launched {launches} times, "
-                                    "expected none (synthesis, the stand-ins: no K1 case)")
+    want = (0, 0, 0, 0, syn.k2)
+    check(launches == want and syn.backwards == EDIT_STEPS,
+          f"{tag} {KERNELS} launched {launches} times, expected {want} (the stand-ins: no K1 "
+          f"case; K2 12 for each of {syn.forwards} synthesis forwards and {syn.backwards} "
+          f"backwards)")
     print(f"{tag} clip_edit.edit on the .pkl's G_ema, {EDIT_FRAMES} frames at "
           f"{G.cfg.img_resolution}^2, stand-in CLIP tower and scripted stand-in ArcFace, "
           f"{EDIT_STEPS} steps: CLIP term {hist[0, 1]:.5f} -> {hist[-1, 1]:.5f}, l2 "
@@ -3349,7 +3633,12 @@ def cli_export(dev, smi, tmp, pkl, gen_rate):
                         torch.tensor(s, dtype=torch.int32, device=dev)).cpu()
                 for s in inputs["seeds"]]
     launches = tuple(k.launches for k in kernels)
-    check(launches == (0, 0, 0, 0), f"{tag} export and its calls launched {launches}")
+    # the trace and the artifact's calls run the ATen route; the selftest's
+    # direct forward, one synthesis at 256^2, runs K2
+    want = (0, 0, 0, 0, K2_PER_SYNTHESIS_256)
+    check(launches == want and meta["fir_route"] == export_model.FIR_ROUTE == "aten",
+          f"{tag} export and its calls launched {KERNELS} {launches}, expected {want}; the "
+          f"sidecar's fir_route {meta.get('fir_route')!r}")
     check(all(bool(torch.isfinite(f).all()) for f in here)
           and float((here[0] - here[1]).abs().max()) > 1e-3,
           f"{tag} the artifact's frames are not finite, or two seeds gave one video")
@@ -3586,8 +3875,6 @@ def moco_rank(rank, world_size, init_method, tmp, device):
     import torch
     import torch.distributed as dist
     from stylegan_v_tpu_torch.models.discriminator import DiscriminatorBlock
-    from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
-                                          downfirdn2d_x2_bwd)
     from stylegan_v_tpu_torch.parallel import distributed as tdist
     from stylegan_v_tpu_torch.parallel.zero import opt_state_bytes_per_device
     from stylegan_v_tpu_torch.tools import moco_memory
@@ -3601,7 +3888,7 @@ def moco_rank(rank, world_size, init_method, tmp, device):
     det = deterministic()      # ZeRO-1's run repeats the plain run to the bit
     det.__enter__()
     try:
-        kernels = (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd)
+        kernels = _kernels()
         out = {"rank": rank}
         digests = {}
         shapes, skips = [], {}
@@ -3711,7 +3998,7 @@ def moco_ranks_steps(dev, smi, tmp):
     draws (phase 17's step) within PAR_FLOOR_FACTOR times their noise floor,
     everything finite, augment_p equal on both ranks, the ranks' state (the
     video D's and D's Adam groups' lr included) consistent; (b) each rank's
-    K1 / K1-bwd / K4 / K4-bwd launches per step against phase 17's and its
+    K1 / K1-bwd / K4 / K4-bwd / K2 launches per step against phase 17's and its
     batch-norm all_reduces against MOCO_BN_COLLECTIVES; (c) ZeRO-1 on the
     first two steps, equal to (a)'s state after them to the bit; (f) the
     two-rank times (one card: not a scaling number), the gradient
@@ -3739,7 +4026,7 @@ def moco_ranks_steps(dev, smi, tmp):
                                                     f"Adam groups {r[name]['lrs']}")
             for do_dr1, got, bn in zip(PAR_PLAN, r[name]["launches"], r[name]["collectives"]):
                 check(tuple(got) == MOCO_LAUNCHES_PER_STEP[do_dr1],
-                      f"{tag} rank {r['rank']} ({name}) launched K1, K1-bwd, K4, K4-bwd {got} "
+                      f"{tag} rank {r['rank']} ({name}) launched K1, K1-bwd, K4, K4-bwd, K2 {got} "
                       f"in a step with R1={do_dr1}, expected phase 17's "
                       f"{MOCO_LAUNCHES_PER_STEP[do_dr1]}")
                 check(bn == MOCO_BN_COLLECTIVES[do_dr1],
@@ -3769,7 +4056,7 @@ def moco_ranks_steps(dev, smi, tmp):
           + f"; augment_p {r0['plain']['augment_p']}; D's Adam groups lr {r0['plain']['lrs']}; "
           f"losses on rank 0 after the steps {r0['plain']['losses']}; consistency check "
           f"passed", flush=True)
-    print(f"{tag} (b) K1, K1-bwd, K4, K4-bwd launches per step on each rank (R1 "
+    print(f"{tag} (b) K1, K1-bwd, K4, K4-bwd, K2 launches per step on each rank (R1 "
           f"{list(PAR_PLAN)}): " + "; ".join(f"rank {r['rank']} {r['plain']['launches']}"
                                              for r in ranks)
           + f" (phase 17's {MOCO_LAUNCHES_PER_STEP[False]}, {MOCO_LAUNCHES_PER_STEP[True]}); "
@@ -3920,7 +4207,7 @@ def package_version(name):
     return f"{name} {importlib.metadata.version(name)}"
 
 
-def kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco, cli, moco_ranks):
+def kernel_records(k1, k1_bwd, k4, k4_bwd, k2, launches, moco, cli, moco_ranks):
     """The kernel record: each kernel's launches in the ADA run (phase 11),
     worst error against its plain version, and its time, its plain version's
     and its library call's beside its bound: K1 and K1-bwd summed over one D
@@ -3936,7 +4223,9 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco, cli, moco_ranks):
     and their numbers there. `moco_ranks` is phase 19's (each kernel's
     launches per rank per step without and with R1 as measured, K1's and
     K1-bwd's records at one rank's image D skips, K4's and K4-bwd's at one
-    rank's 48-channel warp)."""
+    rank's 48-channel warp). `k2` is phase 3b's: K2's record is G's r = 256
+    up-conv call at 16 x 3, with the sums over one forward's calls and their
+    adjoints, and every call's numbers."""
     warp = "stylegan_v_tpu/ops/grid_sample.py:33 (XLA gather; no Pallas kernel)"
     conv = "depthwise, stride 2, padding 1, in the input's dtype"
     near = "not the same function (border half pixel)"
@@ -3964,6 +4253,20 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco, cli, moco_ranks):
                         "share_of_bound": times["bound_ms"] / times["ms"]})
     # K4's reference design (every tap from device memory), timed in the same run
     records[2].update(reference_design_ms=k4[6])
+    err, head, sums, rows = k2
+    records.append({"name": "upfirdn2d", "route": "cuda",
+                    "source": "stylegan_v_tpu_torch/csrc/upfirdn2d.cu",
+                    "replaces": "stylegan_v_tpu/ops/upfirdn2d.py:74 (_depthwise_pass, from "
+                                ":101 upfirdn2d: an XLA convolution; no Pallas kernel)",
+                    "launches": launches[4], "max_abs_err": err, "ms": head["ms"],
+                    "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                    "bound_by": head["bound_by"],
+                    "library_call": "F.conv_transpose2d (depthwise, stride 2, padding 0, in "
+                                    "the input's dtype)",
+                    "library_ms": head["library_ms"],
+                    "share_of_bound": head["share_of_bound"],
+                    "shape": "G's r = 256 up=2 conv, [48, 128, 128, 128] bf16 -> 258^2",
+                    "one_forward_16x3": sums, "calls": rows})
     moco_launches, moco_k1, moco_k1_bwd, moco_k4, moco_k4_bwd = moco
     for i, rec in enumerate(records):
         rec["mocogan_launches_per_step"] = {"without_r1": moco_launches[False][i],
@@ -4015,6 +4318,8 @@ def main() -> int:
     with float32_precision(False):
         k1 = phase_kernel(dev, "[3 kernel]", "down", downfirdn2d_x2, downfirdn2d_x2_plain)
         G, D = ffs256_models(dev)
+        k2 = phase_k2(dev, G, D)
+        torch.cuda.empty_cache()
         phase_slice(dev, G, D)
         phase_speed(dev, G, smi)
         phase_parity(dev)
@@ -4047,7 +4352,7 @@ def main() -> int:
         cli = phase_cli(dev, smi, zip_path, tmp, pkl, gen_rate, k1, k1_bwd)
         torch.cuda.empty_cache()
         moco_ranks = phase_moco_ranks(dev, smi, zip_path, tmp)
-    records = kernel_records(k1, k1_bwd, k4, k4_bwd, launches, moco, cli, moco_ranks)
+    records = kernel_records(k1, k1_bwd, k4, k4_bwd, k2, launches, moco, cli, moco_ranks)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

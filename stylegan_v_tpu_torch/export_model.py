@@ -23,6 +23,13 @@ to --max-t (default: video-len), the sidecar's `t_max`; per-layer noise is
 the constant buffers (noise_mode="const"). The sidecar <out>.json records
 the I/O contract. --selftest loads the artifact back and compares it with
 the direct forward.
+
+FIR route: a ctypes kernel launch cannot be traced, so the artifact's
+upfirdn2d passes (G's up-convs and image skips, K2 everywhere else in the
+port) are traced as their plain ATen version (F.pad and a depthwise
+F.conv2d a pass), inside `ops.upfirdn2d_kernel.aten_route()`. That is the
+artifact's one route (FIR_ROUTE, recorded in the sidecar as `fir_route`);
+the direct forward that --selftest compares it with runs K2 on a card.
 """
 from __future__ import annotations
 
@@ -37,6 +44,7 @@ import torch
 from torch import nn
 
 U32 = 0xFFFFFFFF
+FIR_ROUTE = "aten"     # the upfirdn2d passes of the artifact: plain ATen ops, not K2
 
 
 def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
@@ -103,7 +111,9 @@ class ServedConditional(Served):
 def build_export(G, batch: int, video_len: int, truncation: float,
                  max_t: Optional[float] = None):
     """Returns (exported, served): the ExportedProgram and the module it was
-    traced from (for parity selftests), on G's device."""
+    traced from (for parity selftests), on G's device. The upfirdn2d passes
+    are traced on the FIR_ROUTE, the plain ATen ops (see the module note)."""
+    from .ops.upfirdn2d_kernel import aten_route
     device = next(G.parameters()).device
     cfg = G.cfg
     served = (ServedConditional if cfg.c_dim > 0 else Served)(
@@ -113,7 +123,7 @@ def build_export(G, batch: int, video_len: int, truncation: float,
     seed = torch.tensor(0, dtype=torch.int32, device=device)
     args = (z, torch.zeros(batch, cfg.c_dim, device=device), t, seed) if cfg.c_dim > 0 \
         else (z, t, seed)
-    with torch.no_grad():
+    with torch.no_grad(), aten_route():
         exported = torch.export.export(served, args).run_decompositions()
     check_portable(exported)
     return exported, served
@@ -195,6 +205,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
         "t_max": float(args.video_len if args.max_t is None else args.max_t),
         "truncation": args.truncation,
         "device": str(device),
+        "fir_route": FIR_ROUTE,
     }
     with open(args.out + ".json", "w") as f:
         json.dump(meta, f, indent=1)
@@ -208,8 +219,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
             got = loaded(*inputs)
             want = served(*inputs)     # the direct forward the artifact was traced from
         err = float((got - want).abs().max())
-        # bf16 synthesis blocks may round otherwise in the decomposed graph;
-        # float32 models agree to float-association noise
+        # The artifact's FIR passes are ATen convolutions and the direct
+        # forward's are K2 on a card: both sum in float32 and round once to
+        # the layer's dtype, in another order. bf16 synthesis blocks may
+        # round otherwise in the decomposed graph; float32 models agree to
+        # float-association noise
         tol = 1e-4 if cfg.num_bf16_res == 0 else 0.05
         if not err < tol:
             raise AssertionError(f"selftest mismatch: {err} (tol {tol})")

@@ -21,3 +21,4 @@ from .upfirdn2d import (  # noqa: F401
     upfirdn2d,
     upsample2d,
 )
+from .upfirdn2d_kernel import upfirdn2d_k2, upfirdn2d_k2_plain  # noqa: F401

@@ -10,17 +10,20 @@ Semantics (reference upfirdn2d.py:120-158):
   3. Convolve with the FIR filter f (flip_filter=False means true convolution).
   4. Downsample by keeping every down-th pixel (starting at 0).
 
-Exactly one case goes through the hand-written kernel pair: up=1, down=2, a
-4x4 filter and padding [1,1,1,1], with even H and W. It runs
+Every pass goes through a hand-written kernel on a CUDA tensor (and its
+plain version on a CPU tensor). One case takes the kernel pair K1 / K1-bwd:
+up=1, down=2, a 4x4 filter and padding [1,1,1,1], with even H and W. It runs
 `fir_kernels._DownFirX2`, whose forward is K1 (`downfirdn2d_x2`) and whose
-backward is K1-bwd, on a CUDA tensor as kernels and on a CPU tensor as their
-plain versions. Every other case is plain PyTorch inside `_UpFirDn2d`, whose
+backward is K1-bwd. Every other case runs `_UpFirDn2d`, whose forward is K2
+(`upfirdn2d_kernel.upfirdn2d_k2`, one launch a filter pass) and whose
 backward is upfirdn2d again with the filter flipped, up and down swapped
-and the padding mirrored (reference upfirdn2d.py:187-230), so every order
-of derivative is a forward FIR pass. Left to autograd, the second order of
-a depthwise conv goes through PyTorch's generic grouped-convolution double
-backward, which loops over the channels: R1 at 16 videos x 3 frames took
-12 s a step that way on an H100.
+and the padding mirrored (reference upfirdn2d.py:187-230), i.e. K2 again,
+so every order of derivative is a forward FIR pass. Left to autograd, the
+second order of a depthwise conv goes through PyTorch's generic
+grouped-convolution double backward, which loops over the channels: R1 at
+16 videos x 3 frames took 12 s a step that way on an H100. Inside
+`upfirdn2d_kernel.aten_route()` (the export's route, and only the export's)
+every case runs the plain version's ATen ops instead.
 
 Filters are host constants: `setup_filter` returns a float32 CPU tensor, and
 each call copies it to the device without a stream sync.
@@ -31,10 +34,10 @@ from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..utils.misc import parse_padding, parse_scaling
 from .fir_kernels import _DownFirX2
+from .upfirdn2d_kernel import aten_route_active, k2_refusal, upfirdn2d_k2, upfirdn2d_k2_plain
 
 Filter = Union[torch.Tensor, np.ndarray, Sequence[float], None]
 
@@ -73,26 +76,6 @@ def _filter_size(f: Filter):
     return int(fa.shape[-1]), int(fa.shape[0])
 
 
-def _depthwise_pass(x: torch.Tensor, k: torch.Tensor, up: Sequence[int],
-                    down: Sequence[int], pad: Sequence[int]) -> torch.Tensor:
-    """One (zero-insert, pad, filter, decimate) pass; k is already flipped and gained.
-
-    The reshape-style upsample yields n*up samples, i.e. the trailing up-1
-    zeros that the JAX version folds into its high padding.
-    """
-    upx, upy = up
-    downx, downy = down
-    px0, px1, py0, py1 = pad
-    N, C, H, W = x.shape
-    if upx > 1 or upy > 1:
-        x = x.reshape(N, C, H, 1, W, 1)
-        x = F.pad(x, [0, upx - 1, 0, 0, 0, upy - 1])
-        x = x.reshape(N, C, H * upy, W * upx)
-    x = F.pad(x, [px0, px1, py0, py1])
-    kernel = k.to(x.device, x.dtype, non_blocking=True)[None, None].expand(C, 1, *k.shape)
-    return F.conv2d(x, kernel, stride=(downy, downx), groups=C)
-
-
 def _is_k1_case(x: torch.Tensor, f: torch.Tensor, up, down, padding) -> bool:
     return (f.shape == (4, 4) and up == [1, 1] and down == [2, 2]
             and padding == [1, 1, 1, 1] and x.shape[2] % 2 == 0 and x.shape[3] % 2 == 0)
@@ -118,6 +101,8 @@ def upfirdn2d(x: torch.Tensor, f: Filter, up=1, down=1, padding=0,
     f = torch.ones(1, 1) if f is None else torch.as_tensor(f, dtype=torch.float32)
     assert f.ndim in (1, 2)
 
+    if aten_route_active():
+        return upfirdn2d_k2_plain(x, f, up, down, padding, flip_filter, gain)
     if _is_k1_case(x, f, up, down, padding):
         # The kernel flips its filter (true convolution); pre-flip to correlate.
         fk = f.flip([0, 1]) if flip_filter else f
@@ -132,32 +117,25 @@ class _UpFirDn2d(torch.autograd.Function):
     def forward(ctx, x, f, up, down, padding, flip_filter, gain):
         ctx.args = f, up, down, padding, flip_filter, gain
         ctx.in_hw = x.shape[2:]
-        return _upfirdn2d_plain(x, f, up, down, padding, flip_filter, gain)
+        return upfirdn2d_k2(x.contiguous(), f, up, down, padding, flip_filter, gain)
 
     @staticmethod
     def backward(ctx, dy):
-        f, (upx, upy), (downx, downy), (px0, _, py0, _), flip_filter, gain = ctx.args
-        ih, iw = ctx.in_hw
-        oh, ow = dy.shape[2:]
-        fw, fh = _filter_size(f)
-        p = [fw - px0 - 1, iw * upx - ow * downx + px0 - upx + 1,
-             fh - py0 - 1, ih * upy - oh * downy + py0 - upy + 1]
-        dx = _UpFirDn2d.apply(dy, f, [downx, downy], [upx, upy], p, not flip_filter, gain)
+        dx = _UpFirDn2d.apply(dy.contiguous(), *adjoint_args(*ctx.args, ctx.in_hw, dy.shape[2:]))
         return dx, None, None, None, None, None, None
 
 
-def _upfirdn2d_plain(x: torch.Tensor, f: torch.Tensor, up, down, padding,
-                     flip_filter: bool, gain: float) -> torch.Tensor:
-    if not flip_filter:
-        f = f.flip(list(range(f.ndim)))
-    if f.ndim == 2:
-        return _depthwise_pass(x, f * gain, up, down, padding)
-
-    # Separable: horizontal pass then vertical pass, sqrt(gain) each.
-    px0, px1, py0, py1 = padding
-    g = float(np.sqrt(gain))
-    x = _depthwise_pass(x, (f * g)[None, :], (up[0], 1), (down[0], 1), (px0, px1, 0, 0))
-    return _depthwise_pass(x, (f * g)[:, None], (1, up[1]), (1, down[1]), (0, 0, py0, py1))
+def adjoint_args(f, up, down, padding, flip_filter, gain, in_hw, out_hw):
+    """The (f, up, down, padding, flip_filter, gain) of the upfirdn2d that is
+    the adjoint of upfirdn2d(., f, up, down, padding, flip_filter, gain) from
+    in_hw to out_hw: the filter flipped, up and down swapped, the padding
+    mirrored (reference upfirdn2d.py:187-230)."""
+    (upx, upy), (downx, downy), (px0, _, py0, _) = up, down, padding
+    (ih, iw), (oh, ow) = in_hw, out_hw
+    fw, fh = _filter_size(f)
+    p = [fw - px0 - 1, iw * upx - ow * downx + px0 - upx + 1,
+         fh - py0 - 1, ih * upy - oh * downy + py0 - upy + 1]
+    return f, [downx, downy], [upx, upy], p, not flip_filter, gain
 
 
 def filter2d(x: torch.Tensor, f: Filter, padding=0, flip_filter: bool = False,

@@ -1,6 +1,7 @@
 """The hand-written kernels of the PyTorch port: the downfirdn2d_x2 kernel
 (K1) and its adjoint (K1-bwd), the bilinear affine warp (K4) and its
-adjoint (K4-bwd).
+adjoint (K4-bwd), and the general upfirdn2d pass (K2; its CPU tests are in
+tests/test_torch_upfirdn2d.py, its card tests here).
 
 On CPU: K1's plain version against the JAX package's Pallas kernel in
 interpret mode (the same shapes as tests/test_pallas_kernels.py plus an
@@ -22,7 +23,9 @@ from stylegan_v_tpu_torch.ops import (affine_grid_sample, affine_grid_sample_bwd
                                       downfirdn2d_x2, downfirdn2d_x2_bwd,
                                       downfirdn2d_x2_bwd_plain, downfirdn2d_x2_plain,
                                       downsample2d, fir_kernels, grid_sample, setup_filter,
-                                      upfirdn2d)
+                                      upfirdn2d, upfirdn2d_k2, upfirdn2d_k2_plain)
+from stylegan_v_tpu_torch.ops.upfirdn2d_kernel import passes
+from test_torch_upfirdn2d import CASES, forward_and_adjoint
 
 SYM = np.outer([1, 3, 3, 1], [1, 3, 3, 1]).astype(np.float32) / 64
 ASYM = (np.arange(16, dtype=np.float32).reshape(4, 4) - 5.0) / 40
@@ -281,16 +284,21 @@ def test_kernel_matches_plain_on_card(cuda, dtype, filt):
 
 @pytest.mark.cuda
 def test_upfirdn2d_sends_only_the_k1_case_to_the_kernel(cuda):
+    """K1's case (down 2, pad 1, 4x4, even H and W) goes to K1; every other
+    case to K2, one launch a filter pass."""
     f = setup_filter([1, 3, 3, 1])
     x = torch.randn(2, 4, 16, 16, device=cuda)
-    before = downfirdn2d_x2.launches
+    before, k2 = downfirdn2d_x2.launches, upfirdn2d_k2.launches
     got = upfirdn2d(x, f, down=2, padding=1)
-    assert downfirdn2d_x2.launches == before + 1
+    assert (downfirdn2d_x2.launches - before, upfirdn2d_k2.launches - k2) == (1, 0)
     torch.testing.assert_close(got, downfirdn2d_x2_plain(x, f), rtol=1e-5, atol=1e-5)
-    upfirdn2d(x, f, down=2, padding=2)
-    upfirdn2d(x, f, up=2, padding=1)
-    upfirdn2d(x[:, :, :15, :15], f, down=2, padding=1)
-    assert downfirdn2d_x2.launches == before + 1
+    for xs, kw in ((x, dict(down=2, padding=2)), (x, dict(up=2, padding=1)),
+                   (x[:, :, :15, :15].contiguous(), dict(down=2, padding=1))):
+        got = upfirdn2d(xs, f, **kw)
+        torch.testing.assert_close(got, upfirdn2d(xs.cpu(), f, **kw).to(cuda), rtol=1e-5,
+                                   atol=1e-5)
+    torch.cuda.synchronize()
+    assert (downfirdn2d_x2.launches - before, upfirdn2d_k2.launches - k2) == (1, 3)
 
 
 @pytest.mark.cuda
@@ -573,3 +581,90 @@ def test_reference_pkl_loads_and_generates_on_card(cuda, tmp_path):
     assert float(np.abs(got - want).max()) <= 1e-3
     assert launches == [k.launches for k in (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp,
                                              affine_warp_bwd)]
+
+
+# ------------------------------------------------------------ K2 on the card
+
+K2_EDGE = [  # (x shape, dtype): whole 16-byte rows or not, packed planes, > 65,535 planes
+    ((1, 1, 2, 2), torch.float32), ((2, 3, 7, 5), torch.bfloat16), ((1, 2, 300, 3), torch.float32),
+    ((1, 70000, 4, 4), torch.bfloat16), ((2, 5, 33, 130), torch.bfloat16),
+    ((1, 3, 64, 258), torch.bfloat16), ((2, 4, 129, 17), torch.float32),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["fwd", "adj"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_k2_matches_plain_on_card(cuda, case, which, dtype):
+    """Each main-path call and its adjoint, one launch a pass, from an
+    aligned and a misaligned input; the same result on a second call."""
+    shape, f, kw = CASES[case]
+    for scale in (1, 7):                   # a small and a larger plane
+        n, c, h, w = shape
+        xs, *args = forward_and_adjoint((n, c, h * scale, w * scale), f, kw)[which == "adj"]
+        g = torch.Generator(device=cuda).manual_seed(3)
+        x = torch.randn(xs, generator=g, device=cuda).to(dtype)
+        before = upfirdn2d_k2.launches
+        got = upfirdn2d_k2(x, *args)
+        again = upfirdn2d_k2(x, *args)
+        torch.cuda.synchronize()
+        assert upfirdn2d_k2.launches - before == 2 * len(passes(*args))
+        assert_close(got, upfirdn2d_k2_plain(x, *args), dtype)
+        assert torch.equal(got, again)
+        xm = torch.empty(x.numel() + 1, device=cuda, dtype=dtype)[1:].view(x.shape)
+        xm.copy_(x)
+        assert torch.equal(upfirdn2d_k2(xm, *args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", K2_EDGE)
+@pytest.mark.parametrize("case", list(CASES))
+def test_k2_matches_plain_at_edge_shapes(cuda, case, shape, dtype):
+    _, f, kw = CASES[case]
+    if case == "aug_down" and min(shape[2:]) < 14:
+        shape = shape[:2] + (max(shape[2], 14), max(shape[3], 14))   # the crop needs 14
+    (xs, *args), _ = forward_and_adjoint(shape, f, kw)
+    x = torch.randn(xs, generator=torch.Generator(device=cuda).manual_seed(4),
+                    device=cuda).to(dtype)
+    assert_close(upfirdn2d_k2(x, *args), upfirdn2d_k2_plain(x, *args), dtype)
+
+
+@pytest.mark.cuda
+def test_grads_through_upfirdn2d_launch_k2(cuda):
+    """G's up-conv pass: the forward launches K2 once, its gradient once
+    more, and the second order once for each K2 node of the first."""
+    f = setup_filter([1, 3, 3, 1])
+    x = torch.randn(2, 4, 9, 9, device=cuda, requires_grad=True)
+    kw = dict(up=2, padding=(3, 2, 3, 2), gain=4)
+    k2 = upfirdn2d_k2.launches
+    y = upfirdn2d(x, f, **kw)
+    dx, = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+    assert upfirdn2d_k2.launches - k2 == 2
+    gx, = torch.autograd.grad(dx.square().sum(), x)
+    torch.cuda.synchronize()
+    assert upfirdn2d_k2.launches - k2 == 4
+    xc = x.detach().cpu().requires_grad_(True)
+    dxc, = torch.autograd.grad(upfirdn2d(xc, f, **kw).square().sum(), xc, create_graph=True)
+    gxc, = torch.autograd.grad(dxc.square().sum(), xc)
+    torch.testing.assert_close(gx.cpu(), gxc, rtol=1e-4, atol=1e-4)
+    # a non-contiguous incoming gradient is made contiguous before the launch
+    dy = torch.randn(y.shape[:2] + y.shape[2:][::-1], device=cuda).transpose(2, 3)
+    gx, = torch.autograd.grad(upfirdn2d(x, f, **kw), x, dy)
+    gxc, = torch.autograd.grad(upfirdn2d(xc, f, **kw), xc, dy.cpu())
+    torch.testing.assert_close(gx.cpu(), gxc, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_k2_raises_on_cuda_input_it_does_not_take(cuda):
+    f = setup_filter([1, 3, 3, 1])
+    x = torch.randn(2, 4, 16, 16, device=cuda)
+    args = (f, [2, 2], [1, 1], [2, 1, 2, 1], False, 4.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        upfirdn2d_k2(x.transpose(2, 3), *args)
+    with pytest.raises(ValueError, match="bfloat16"):
+        upfirdn2d_k2(x.half(), *args)
+    with pytest.raises(ValueError, match="4x4"):
+        upfirdn2d_k2(x, torch.ones(5, 5), [1, 1], [1, 1], [2, 2, 2, 2], False, 1.0)
+    with pytest.raises(ValueError, match="not both 2"):
+        upfirdn2d_k2(x, f, [2, 2], [2, 2], [1, 1, 1, 1], False, 1.0)
