@@ -29,7 +29,11 @@ holds them against the port's plain PyTorch paths:
               CUDA-event times of the kernel, its plain version and the one
               PyTorch call that computes it (F.conv2d or F.conv_transpose2d,
               depthwise, where one does) in turns, in the path's dtype, with
-              a cold L2; GB/s and share of the HBM bound.
+              a cold L2; GB/s and share of the HBM bound. Every bf16 4x4
+              call sums rows, then columns (its filter is an outer product),
+              every float32 one in 2-D; D's filters and their adjoints again
+              with an asymmetric 4x4 filter (the 2-D sum), float32 and bf16,
+              against the plain version.
   4. slice:   G(z, None, t) for 4 videos x 3 timestamps, then D on the
               frames, with weights from a seeded torch.Generator; the frames
               and logits must be finite, K1 must launch 6 times and K2 18
@@ -560,9 +564,11 @@ def k2_library(p, x):
 def phase_k2(dev, G, D):
     """Phase 3b: K2 against its plain version at every distinct K2 call of one
     forward at 16 x 3 (G, D, the bgc pipe) and at each one's adjoint, float32
-    and bf16, then CUDA-event times in the path's dtype of the kernel, its
-    plain version and the one PyTorch call that computes it (where one does),
-    in turns with a cold L2, beside the bound: the call's input and output
+    and bf16 (D's filters also with an asymmetric 4x4 filter, which takes
+    the 2-D sum where the main path's bf16 calls sum rows, then columns), then
+    CUDA-event times in the path's dtype of the kernel, its plain version and
+    the one PyTorch call that computes it (where one does), in turns with a
+    cold L2, beside the bound: the call's input and output
     bytes once at 3.35 TB/s (a separable call's intermediate, which its two
     passes write and read back, is not the function's work), or the
     multiply-adds of its passes that land on source samples at the float32
@@ -571,7 +577,8 @@ def phase_k2(dev, G, D):
     import torch
     from stylegan_v_tpu_torch.ops import upfirdn2d_k2, upfirdn2d_k2_plain
     from stylegan_v_tpu_torch.ops.upfirdn2d import adjoint_args
-    from stylegan_v_tpu_torch.ops.upfirdn2d_kernel import pass_out_hw, passes
+    from stylegan_v_tpu_torch.ops.upfirdn2d_kernel import (FULL, ROWS_THEN_COLUMNS, pass_launch,
+                                                           pass_out_hw, passes)
 
     tag = "[3b k2]"
     t_phase = time.perf_counter()
@@ -632,6 +639,38 @@ def phase_k2(dev, G, D):
                   f"({nbytes / (kern * 1e-3) / 1e9:.0f} GB/s, {bound / kern:.1%} of the "
                   f"{bound:.4f} ms bound)  plain {plain_t:.4f} ms  library {lib_s}", flush=True)
             del xs, fns
+    # D's pre-filter with an asymmetric 4x4 filter, not an outer product: the
+    # 2-D sum, which no main-path call takes (they sum rows, then columns)
+    asym = (torch.arange(16, dtype=torch.float32).reshape(4, 4) - 5.0) / 40
+    n_asym = 0
+    for name, shape, path_dtype, args in entries:
+        p = passes(*args)[0]
+        if p.k.ndim == 2 and p.k.shape == (4, 4):
+            mode = pass_launch(p, shape, path_dtype, 0)[1].mode
+            want = ROWS_THEN_COLUMNS if path_dtype == torch.bfloat16 else FULL
+            check(mode == want, f"{tag} {name} {list(shape)} {path_dtype}: sums in mode {mode}, "
+                                f"expected {want} (bf16 rows, then columns; float32 in 2-D)")
+        if not name.startswith("D down=2 conv's filter"):
+            continue
+        a_args = (asym,) + tuple(args[1:])
+        check(pass_launch(passes(*a_args)[0], shape, path_dtype, 0)[1].mode == FULL,
+              f"{tag} the asymmetric filter does not take the 2-D sum")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(shape, generator=g, device=dev).to(dtype)
+            got, want = upfirdn2d_k2(x, *a_args), upfirdn2d_k2_plain(x, *a_args)
+            torch.cuda.synchronize()
+            e = (got.float() - want.float()).abs().max().item()
+            tol = KERNEL_TOL[str(dtype).split(".")[-1]]
+            check(got.shape == want.shape and torch.allclose(got.float(), want.float(),
+                                                             rtol=tol, atol=tol),
+                  f"{tag} {name} {list(shape)} {dtype}, asymmetric filter: max err {e}")
+            max_err = max(max_err, e)
+            n_asym += 1
+    check(n_asym == 24, f"{tag} {n_asym} asymmetric-filter checks, expected 24")
+    print(f"{tag} D's pre-filter at its {n_asym // 4} shapes and their adjoints with an "
+          f"asymmetric 4x4 filter (the 2-D sum), float32 and bf16: within the tolerance; every "
+          f"bf16 4x4 main-path call sums rows, then columns, every float32 one in 2-D",
+          flush=True)
     sums = {}
     for which in ("forward", "adjoint"):
         sel = [r for r in rows if r["name"].endswith("adjoint") == (which == "adjoint")]

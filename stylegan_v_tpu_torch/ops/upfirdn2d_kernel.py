@@ -19,8 +19,13 @@ a filter of at most 4x4 with the same up and down on both axes (and, at up 2,
 the same parity of the two leading pads), or a row [1, fw] or column [fh, 1]
 of at most 16 taps that leaves the other axis alone.
 
-`k2_plan` is the launch geometry, computed here so that the CPU tests can
-check that the tiles cover every output once and read inside their windows.
+`k2_plan_2d` (a 2-D pass) and `k2_plan` (a row or column pass) are the
+launch geometry, computed here so that the CPU tests can check that the
+tiles cover every output once and read inside their windows. A 2-D pass
+on bf16 whose filter is exactly the outer product of two factors after
+rounding to bf16 (`rank1_factors`; the main path's always is) sums rows,
+then columns; any other sums in 2-D, in the plain version's order.
+`pass_mode` says which.
 
 `aten_route()` is the one documented way around the kernel: inside it,
 `upfirdn2d` on a CUDA tensor runs the plain version's ATen ops, which
@@ -40,8 +45,18 @@ import torch.nn.functional as F
 from .cuda_build import DTYPE_CODES, entry_point, launch, on_cuda
 
 THREADS = 256          # threads a block aims at (at most K2_MAX_THREADS, csrc/upfirdn2d.cu)
-RUN_X, RUN_Y = 2, 4    # outputs a thread computes: 2 columns x 4 rows
+RUN_X, RUN_Y = 2, 4    # outputs a thread computes in a 1-D pass: 2 columns x 4 rows
 MAX_STAGE_BYTES = 96 * 1024
+# The 2-D pass (csrc/upfirdn2d.cu, namespace k2d): 256 threads, a ring of 3
+# windows, at least 3 blocks an SM by registers; runs in `run_2d`.
+STAGES, MIN_BLOCKS = 3, 3
+SLOT_BYTES = 24 * 1024         # a ring slot's budget
+MAX_TILE_W = 512               # output columns of a tile at up 1 (half at down 2)
+SM_SHARED_BYTES = 228 * 1024   # an H100 SM's shared memory, 1 KB of it reserved a block
+MAX_DYNAMIC_SMEM = 227 * 1024
+WALK_UP2 = 4                   # tiles a block walks at least at up 2, where a call is small
+MIN_ITEMS = 64                 # ... as long as a tile keeps two warps' runs
+N_2D = 4                       # VARIANTS[:N_2D] are the 2-D pass's, the rest the 1-D pass's
 # The instantiations of csrc/upfirdn2d.cu, in the order of its K2_VARIANTS:
 # (filter rows, filter columns) held, then per axis (up, down, phase) for y
 # and x, the phase being the leading pad mod up.
@@ -279,6 +294,190 @@ def k2_plan(variant: int, planes: int, src_h: int, src_w: int, fh: int, fw: int,
                   chunk, chunk * itemsize, win_w // chunk, stage_bytes)
 
 
+class K2Plan2D(NamedTuple):
+    """The launch geometry of one 2-D pass (csrc/upfirdn2d.cu, namespace
+    k2d); the field order is the int64 array the C entry point reads
+    (Plan2DField).
+
+    Planes stack into a tall output of planes x vh virtual rows (plane p's
+    output row oy is virtual row p vh + oy; rows oy >= out_h are computed
+    and dropped) and a tall input of planes x sr rows (tall source row p sr
+    + r is plane p's row r - q, zero outside the plane). Virtual row v reads,
+    with tap row ty, tall source row (v DY + ty - PY) / UY where that
+    divides. Tile t is (t // tiles_w, t % tiles_w): virtual rows tile_h
+    (t // tiles_w) on, output columns tile_w (t % tiles_w) on. Block b of
+    `grid` walks tiles b, b + grid, ..., through a ring of STAGES slots of
+    slot_elems elements: its k-th tile's window goes to slot k % STAGES,
+    win_h rows of `pitch` elements, tall source rows from tile_h (t //
+    tiles_w) DY / UY on; window row element c is source column base_x +
+    step_x (t % tiles_w) - e + c, e the row's shift, the samples that put
+    its copies on 16 bytes (`chunk` elements a copy, cpr a row): for tall
+    row ts of plane p, e = (eb + wm ts - pm p) mod chunk. Where pm is not
+    0, vh is a multiple of tile_h, so that a tile's data rows lie in one
+    plane. The tile's runs (RY rows x RX columns, `run_2d`, runs_x a row) go
+    to the threads in row-major order, THREADS at a time; run (ry, cx)
+    reads window rows from ry RY DY / UY on and elements from lead_x + cx RX
+    DX / UX + e on. Small calls take shorter tiles, so that there are a
+    grid's worth of them (four at up 2, whose runs are the lightest), as
+    long as a tile keeps MIN_ITEMS runs. The
+    *_m, *_s pairs divide by runs_x, vh, sr, cpr and tiles_w (`fast_div`)."""
+    variant: int
+    planes: int
+    src_h: int
+    src_w: int
+    out_h: int
+    out_w: int
+    fh: int
+    fw: int
+    mode: int
+    vh: int
+    sr: int
+    q: int
+    tile_h: int
+    tile_w: int
+    runs_x: int
+    tiles_w: int
+    tiles: int
+    grid: int
+    step_x: int
+    base_x: int
+    lead_x: int
+    win_h: int
+    pitch: int
+    chunk: int
+    cpr: int
+    eb: int
+    wm: int
+    pm: int
+    slot_elems: int
+    stage_bytes: int
+    runs_x_m: int
+    runs_x_s: int
+    vh_m: int
+    vh_s: int
+    sr_m: int
+    sr_s: int
+    cpr_m: int
+    cpr_s: int
+    tiles_w_m: int
+    tiles_w_s: int
+
+
+def run_2d(variant: int) -> Tuple[int, int]:
+    """(rows, columns) of the outputs a thread of a 2-D pass computes: 8 x 4,
+    or 4 x 2 at down 2, whose windows are twice as tall and wide an output."""
+    DY, DX = VARIANTS[variant][3], VARIANTS[variant][6]
+    return (4 if DY == 2 else 8), (2 if DX == 2 else 4)
+
+
+def fast_div(d: int) -> Tuple[int, int]:
+    """(m, s) with n // d == (n m) >> s for 0 <= n < 2^30: s = 31 +
+    floor(log2 d), m = ceil(2^s / d) < 2^32."""
+    s = 31 + d.bit_length() - 1
+    return -(-(1 << s) // d), s
+
+
+# How a 2-D pass sums its taps (csrc/upfirdn2d.cu:SumMode).
+GUARDED, FULL, ROWS_THEN_COLUMNS = 0, 1, 2
+
+
+def rank1_factors(k: np.ndarray) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Float32 (fy, fx) whose outer product, each product rounded to float32,
+    equals the float32 4x4 filter k exactly, or None: tried with fx a row of
+    k and fy a column of it over the pivot, pivot by pivot."""
+    k = np.asarray(k, np.float32)
+    if k.shape != (4, 4) or not np.isfinite(k).all():
+        return None
+    for r, c in zip(*np.nonzero(k)):
+        fx = k[r].copy()
+        fy = (k[:, c] / k[r, c]).astype(np.float32)
+        if np.array_equal(fy[:, None] * fx[None, :], k):
+            return fy, fx
+    return None
+
+
+def k2_plan_2d(variant: int, planes: int, src_h: int, src_w: int, fh: int, fw: int,
+               pad: Sequence[int], itemsize: int, ptr_mod16: int = 0, mode: int = GUARDED,
+               sms: int = 132) -> K2Plan2D:
+    """The plan of one 2-D pass of VARIANTS[variant] over [planes, src_h,
+    src_w] (the input's data pointer ptr_mod16 bytes past 16) with an fh x fw
+    filter summed as `mode`, pad (px0, px1, py0, py1), on a card with `sms`
+    SMs."""
+    FY, FX, UY, DY, PY, UX, DX, PX = VARIANTS[variant]
+    RY, RX = run_2d(variant)
+    assert variant < N_2D and fh <= 4 and fw <= 4 and (mode == GUARDED or (fh, fw) == (4, 4))
+    px0, px1, py0, py1 = pad
+    assert py0 % UY == PY and px0 % UX == PX and ptr_mod16 % itemsize == 0
+    out_h = (src_h * UY + py0 + py1 - fh) // DY + 1
+    out_w = (src_w * UX + px0 + px1 - fw) // DX + 1
+    chunk = 16 // itemsize
+    wm = src_w % chunk
+    # rows: plane p's padded row j (upsampled row j - py0) is tall row p Sp + j
+    q = (py0 - PY) // UY
+    read = (out_h - 1) * DY + fh                  # padded rows a plane's outputs read
+    Sp = _round_up(max(min(read, py0 + (src_h - 1) * UY + 1), read - py0, out_h * DY), UY * DY)
+    for _ in range(chunk):                        # a row's shift, linear in its tall row
+        if (wm * (Sp // UY - src_h)) % chunk == 0:
+            break
+        Sp += UY * DY
+    else:
+        Sp -= chunk * UY * DY
+    pm = (wm * (Sp // UY - src_h)) % chunk        # ... or also in its plane
+    vh = Sp // DY
+    # columns
+    runs = _ceil_div(out_w, RX)
+    max_w = MAX_TILE_W * UX // DX
+    if runs * RX <= max_w:
+        tile_w = runs * RX
+    else:
+        tile_w = _round_up(_ceil_div(out_w, _ceil_div(out_w, max_w)), 32)
+    tiles_w = _ceil_div(out_w, tile_w)
+    runs_x = tile_w // RX
+    step_x = tile_w * DX // UX
+    first = -((px0 - PX) // UX)                   # tile 0's first source column
+    base_x = (first // chunk) * chunk
+    lead_x = first - base_x
+    eb = (ptr_mod16 // itemsize + base_x - wm * q) % chunk
+    segx = ((RX - 1) * DX + 3 - PX) // UX + 1
+    span = lead_x + ((tile_w - 1) * DX + 3 - PX) // UX + 1
+    last = lead_x + (runs_x - 1) * (RX * DX // UX)
+    reads = last + 2 * (segx // 2 + 1) if itemsize == 2 else last + segx
+    shifted = wm or pm or eb                      # some row's copies start left of base_x
+    pitch = _round_up(max(span, reads) + (chunk - 1 if shifted else 0), chunk)
+    # rows of a tile: the most that fit a slot, at least one run
+    total = planes * vh
+
+    def win_h(th):
+        return ((th - 1) * DY + 3 - PY) // UY + 1
+
+    tile_h = RY                                   # enough runs for the threads, if they fit
+    most = _round_up(vh, RY) if pm else RY * max(128 // RY, THREADS // runs_x)
+    walk = WALK_UP2 if UY == 2 else 1
+    least = RY * _ceil_div(MIN_ITEMS, runs_x)
+    most = min(most, max(least, total * tiles_w // (sms * MIN_BLOCKS * walk) // RY * RY))
+    while (tile_h + RY <= most and win_h(tile_h + RY) * pitch * itemsize <= SLOT_BYTES
+           and win_h(tile_h + RY) <= THREADS):
+        tile_h += RY
+    if pm:
+        vh = _round_up(vh, tile_h)
+        total = planes * vh
+    sr = vh * DY // UY
+    wh = win_h(tile_h)
+    tiles_h = _ceil_div(total, tile_h)
+    tiles = tiles_h * tiles_w
+    slot_elems = wh * pitch
+    stage_bytes = STAGES * slot_elems * itemsize
+    per_sm = min(MIN_BLOCKS, SM_SHARED_BYTES // (stage_bytes + 1024))
+    assert per_sm >= 1 and stage_bytes <= MAX_DYNAMIC_SMEM, "a window too large for a block"
+    grid = min(tiles, sms * per_sm)
+    assert tiles_h * tile_h * DY // UY + wh < 2 ** 30 and tiles < 2 ** 30
+    divs = [v for d in (runs_x, vh, sr, pitch // chunk, tiles_w) for v in fast_div(d)]
+    return K2Plan2D(variant, planes, src_h, src_w, out_h, out_w, fh, fw, mode, vh, sr, q,
+                    tile_h, tile_w, runs_x, tiles_w, tiles, grid, step_x, base_x, lead_x, wh,
+                    pitch, chunk, pitch // chunk, eb, wm, (wm * (sr - src_h)) % chunk,
+                    slot_elems, stage_bytes, *divs)
+
+
 class _Launch(NamedTuple):
     """One pass's launch: its output shape, instantiation, plan and taps."""
     out_shape: Tuple[int, int, int, int]
@@ -288,16 +487,59 @@ class _Launch(NamedTuple):
 
 
 _CALLS: dict = {}
+_SMS: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device.index not in _SMS:
+        _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return _SMS[device.index]
+
+
+def pass_mode(held: np.ndarray, fh: int, fw: int, dtype: torch.dtype):
+    """(mode, factors) of a 2-D pass whose fh x fw taps, rounded to dtype,
+    are `held` [4, 4]: rows then columns on bf16 where the taps are exactly
+    the outer product of the factors; else the 2-D sum (float32 keeps the
+    plain version's order, so that the export's ATen route equals the direct
+    forward to the bit), unguarded for exactly 4x4 taps."""
+    if (fh, fw) != (4, 4):
+        return GUARDED, None
+    factors = rank1_factors(held) if dtype == torch.bfloat16 else None
+    return (FULL, None) if factors is None else (ROWS_THEN_COLUMNS, factors)
+
+
+def pass_launch(p: Pass, x_shape, dtype: torch.dtype, ptr_mod16: int,
+                sms: int = 132) -> Tuple[int, NamedTuple, np.ndarray]:
+    """(variant, plan, taps) of pass p on x [N, C, H, W] of dtype whose data
+    pointer lies ptr_mod16 bytes past 16: taps are the 24 floats the C entry
+    point reads, the held [FY][FX] rounded to x's dtype, then for a 2-D pass
+    its factors fy, fx (zero where the filter is not their outer product)."""
+    N, C, H, W = x_shape
+    variant = pass_variant(p)
+    (fh, fw), (FY, FX) = p.k.shape, VARIANTS[variant][:2]
+    held = np.zeros((FY, FX), np.float32)     # the taps rounded to x's dtype, as the plain conv
+    held[:fh, :fw] = p.k.to(dtype).float().numpy()
+    taps = np.zeros(24, np.float32)
+    taps[:16] = held.reshape(-1)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if variant < N_2D:
+        mode, factors = pass_mode(held, fh, fw, dtype)
+        if factors is not None:
+            taps[16:20], taps[20:] = factors
+        plan = k2_plan_2d(variant, N * C, H, W, fh, fw, p.pad, itemsize, ptr_mod16, mode, sms)
+    else:
+        plan = k2_plan(variant, N * C, H, W, fh, fw, p.pad, itemsize, ptr_mod16 == 0)
+    return variant, plan, taps
 
 
 def _call_launches(x: torch.Tensor, f, up, down, padding, flip_filter: bool,
                    gain: float) -> List[_Launch]:
-    """The launches of upfirdn2d_k2(x, f, ...) for x's shape, dtype and
-    alignment; raises on what the kernel does not take. For a filter tensor
-    they are remembered by its identity and version (the entry holds the
-    tensor, so its identity stays unique), so that a repeated call costs a
-    dict lookup and no host work."""
-    key = (tuple(x.shape), x.dtype, x.data_ptr() % 16 == 0, tuple(up), tuple(down),
+    """The launches of upfirdn2d_k2(x, f, ...) for x's shape, dtype, device
+    and alignment; raises on what the kernel does not take. For a filter
+    tensor they are remembered by its identity and version (the entry holds
+    the tensor, so its identity stays unique), so that a repeated call costs
+    a dict lookup and no host work."""
+    key = (tuple(x.shape), x.dtype, x.device.index, x.data_ptr() % 16, tuple(up), tuple(down),
            tuple(padding), bool(flip_filter), float(gain))
     if isinstance(f, torch.Tensor):
         hit = _CALLS.get((id(f),) + key)
@@ -307,19 +549,15 @@ def _call_launches(x: torch.Tensor, f, up, down, padding, flip_filter: bool,
     why = k2_refusal(key[0], x.dtype, True, ft, up, down, padding, flip_filter, gain)
     if why is not None:
         raise ValueError(f"upfirdn2d_k2 {why}")
-    launches, (N, C, H, W), aligned = [], key[0], key[2]
+    launches, shape, ptr_mod16, sms = [], key[0], key[3], _sm_count(x.device)
     for p in passes(ft, up, down, padding, flip_filter, gain):
-        variant = pass_variant(p)
-        (fh, fw), (FY, FX) = p.k.shape, VARIANTS[variant][:2]
-        plan = k2_plan(variant, N * C, H, W, fh, fw, p.pad, x.element_size(), aligned)
+        variant, plan, taps = pass_launch(p, shape, x.dtype, ptr_mod16, sms)
         if plan.tiles >= 2 ** 31:
             raise ValueError(f"upfirdn2d_k2: {plan.tiles} tiles exceed the grid")
-        held = torch.zeros(FY, FX)            # the taps rounded to x's dtype, as the plain conv
-        held[:fh, :fw] = p.k.to(x.dtype).float()
-        H, W = plan.out_h, plan.out_w
-        launches.append(_Launch((N, C, H, W), variant, (ctypes.c_int64 * len(plan))(*plan),
-                                (ctypes.c_float * 16)(*held.reshape(-1).tolist())))
-        aligned = True                        # a later pass reads a fresh torch.empty
+        shape = (*shape[:2], plan.out_h, plan.out_w)
+        launches.append(_Launch(shape, variant, (ctypes.c_int64 * len(plan))(*plan),
+                                (ctypes.c_float * 24)(*taps.tolist())))
+        ptr_mod16 = 0                         # a later pass reads a fresh torch.empty
     if isinstance(f, torch.Tensor):
         if len(_CALLS) >= 4096:
             _CALLS.clear()

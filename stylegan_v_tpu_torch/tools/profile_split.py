@@ -21,15 +21,24 @@ host time, the idle share (1 - kernel time / window) and the kernel time
 by class: K2, K1 and K1-bwd, K4 and K4-bwd (the port's kernels, by name),
 depthwise convolutions (the plain upfirdn2d's filter passes), layout
 transposes, other convolutions and GEMMs, elementwise and reductions, the
-rest; then K2's time by instantiation (its template arguments: dtype,
-whether the output rows are odd in length, filter rows and columns held,
-up, down and phase for y and x; at 32^2-256^2 D's pre-filter is
-<bf16,true,4,4,1,1,0,1,1,0> and its adjoint <bf16,false,4,4,1,1,0,1,1,0>).
+rest; then K2's time by instantiation (its template arguments). The 2-D
+pass of this design, named "2d <...>": dtype, whether the output rows are
+odd in length, how it sums (0 the 2-D sum guarded by the filter's size, 1
+the 2-D sum of 4x4 taps, 2 rows then columns), then up, down and phase for
+y and x; at 32^2-256^2 D's pre-filter is 2d <bf16,true,2,1,1,0,1,1,0> and
+its adjoint 2d <bf16,false,2,1,1,0,1,1,0>.
+The 1-D pass, and every pass of the earlier design (--repo a checkout
+whose 2-D pass predates the persistent ring), "<...>": dtype, odd rows,
+filter rows and columns held, then up, down and phase for y and x; there
+D's pre-filter is <bf16,true,4,4,1,1,0,1,1,0>.
 The last line is the whole result as one JSON object.
 
 --repo DIR imports the port from the checkout at DIR instead of this one,
 so that two trees can be compared in one call on one card: run it as a
-script (not with -m) for that.
+script (not with -m) for that. --k2-calls also runs that checkout's
+chip_smoke.py phase 3b (K2 at every distinct call of one forward at 16 x 3
+and its adjoint, against its plain version, timed beside it and the library
+call with a cold L2) on the same G and D, and prints and returns its rows.
 """
 from __future__ import annotations
 
@@ -41,7 +50,7 @@ import sys
 import time
 
 CLASSES = (  # (class, substrings of the kernel name), the first match wins
-    ("K2 upfirdn2d", ("upfirdn2d_kernel",)),
+    ("K2 upfirdn2d", ("upfirdn2d_kernel", "upfirdn2d_2d_kernel")),
     ("K1, K1-bwd", ("downfirdn2d_x2",)),
     ("K4, K4-bwd", ("affine_warp",)),
     ("depthwise convs (plain upfirdn2d)", ("depthwise", "conv2d_grouped")),
@@ -62,12 +71,14 @@ def classify(name: str) -> str:
 
 
 def k2_instantiation(name: str) -> str:
-    """K2's template arguments in a kernel name (dtype, odd rows, filter
-    rows and columns held, then up, down and phase for y and x), or ""."""
-    if "upfirdn2d_kernel<" not in name:
-        return ""
-    args = name.split("upfirdn2d_kernel<", 1)[1].split(">", 1)[0]
-    return args.replace("__nv_bfloat16", "bf16").replace("float", "f32").replace(" ", "")
+    """K2's template arguments in a kernel name, "2d <...>" for this design's
+    2-D pass and "<...>" for the 1-D pass and the earlier design, or ""."""
+    for kernel, label in (("upfirdn2d_2d_kernel<", "2d "), ("upfirdn2d_kernel<", "")):
+        if kernel in name:
+            args = name.split(kernel, 1)[1].split(">", 1)[0]
+            args = args.replace("__nv_bfloat16", "bf16").replace("float", "f32")
+            return f"{label}<{args.replace(' ', '')}>"
+    return ""
 
 
 def profile(fn):
@@ -103,7 +114,7 @@ def report(label, total, window, split, top, k2):
     for cls, ms in sorted(split.items(), key=lambda kv: -kv[1]):
         print(f"  {cls}: {ms:.2f} ms ({ms / total:.3f})", flush=True)
     for args, ms in sorted(k2.items(), key=lambda kv: -kv[1]):
-        print(f"  K2 <{args}>: {ms:.2f} ms", flush=True)
+        print(f"  K2 {args}: {ms:.2f} ms", flush=True)
     for name, ms in top:
         print(f"    {ms:8.2f} ms  {name[:110]}", flush=True)
 
@@ -113,6 +124,8 @@ def main(argv=None) -> dict:
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--repo", default=None, help="import the port from this checkout")
     ap.add_argument("--json", default=None, help="also write the result here")
+    ap.add_argument("--k2-calls", action="store_true",
+                    help="also run the checkout's chip_smoke.py phase 3b")
     args = ap.parse_args(argv)
     if args.repo:
         if "stylegan_v_tpu_torch" in sys.modules:
@@ -140,6 +153,16 @@ def main(argv=None) -> dict:
     D = Discriminator(replace(DiscriminatorConfig(), channel_base=16384),
                       generator=gen).to(dev).eval()
     out = {"device": smi.strip(), "repo": os.path.dirname(os.path.dirname(port.__file__))}
+
+    if args.k2_calls:
+        sys.path.insert(0, out["repo"])
+        import chip_smoke
+        cuda_build = sys.modules["stylegan_v_tpu_torch.ops.cuda_build"]
+        cuda_build.build_libraries()
+        with float32_precision(False):
+            err, head, sums, rows = chip_smoke.phase_k2(dev, G, D)
+        out["k2_calls"] = {"max_abs_err": err, "sums": sums, "rows": rows}
+        torch.cuda.empty_cache()
 
     # synthesis, 32 x 8
     g = torch.Generator(device=dev).manual_seed(2)

@@ -25,7 +25,7 @@ from stylegan_v_tpu_torch.ops import (affine_grid_sample, affine_grid_sample_bwd
                                       downsample2d, fir_kernels, grid_sample, setup_filter,
                                       upfirdn2d, upfirdn2d_k2, upfirdn2d_k2_plain)
 from stylegan_v_tpu_torch.ops.upfirdn2d_kernel import passes
-from test_torch_upfirdn2d import CASES, forward_and_adjoint
+from test_torch_upfirdn2d import ASYM, CASES, forward_and_adjoint
 
 SYM = np.outer([1, 3, 3, 1], [1, 3, 3, 1]).astype(np.float32) / 64
 ASYM = (np.arange(16, dtype=np.float32).reshape(4, 4) - 5.0) / 40
@@ -585,10 +585,12 @@ def test_reference_pkl_loads_and_generates_on_card(cuda, tmp_path):
 
 # ------------------------------------------------------------ K2 on the card
 
-K2_EDGE = [  # (x shape, dtype): whole 16-byte rows or not, packed planes, > 65,535 planes
+K2_EDGE = [  # (x shape, dtype): whole 16-byte rows or not, packed planes, > 65,535 planes,
+    # and a plane count whose tiles the persistent grid does not divide
     ((1, 1, 2, 2), torch.float32), ((2, 3, 7, 5), torch.bfloat16), ((1, 2, 300, 3), torch.float32),
     ((1, 70000, 4, 4), torch.bfloat16), ((2, 5, 33, 130), torch.bfloat16),
     ((1, 3, 64, 258), torch.bfloat16), ((2, 4, 129, 17), torch.float32),
+    ((4, 1001, 40, 37), torch.bfloat16),
 ]
 
 
@@ -628,6 +630,36 @@ def test_k2_matches_plain_at_edge_shapes(cuda, case, shape, dtype):
     x = torch.randn(xs, generator=torch.Generator(device=cuda).manual_seed(4),
                     device=cuda).to(dtype)
     assert_close(upfirdn2d_k2(x, *args), upfirdn2d_k2_plain(x, *args), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["fwd", "adj"])
+@pytest.mark.parametrize("case", ["g_upconv", "g_skip", "d_downconv"])
+def test_k2_2d_sum_matches_plain_on_card(cuda, case, which, dtype):
+    """A 2-D pass with an asymmetric 4x4 filter, not an outer product (the
+    2-D sum, which no main-path call takes), at plane counts whose tiles the
+    persistent grid does not divide, aligned and not; one launch, the same
+    result on a second call."""
+    from stylegan_v_tpu_torch.ops import upfirdn2d_kernel as k2
+    from stylegan_v_tpu_torch.ops.upfirdn2d_kernel import pass_launch
+    _, _, kw = CASES[case]
+    for shape in ((4, 1001, 40, 37), (2, 2003, 33, 31)):
+        xs, *args = forward_and_adjoint(shape, torch.from_numpy(ASYM), kw)[which == "adj"]
+        g = torch.Generator(device=cuda).manual_seed(5)
+        x = torch.randn(xs, generator=g, device=cuda).to(dtype)
+        xm = torch.empty(x.numel() + 3, device=cuda, dtype=dtype)[3:].view(x.shape)
+        xm.copy_(x)
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        plan = pass_launch(passes(*args)[0], xs, dtype, 0, sms)[1]
+        assert plan.mode == k2.FULL and plan.tiles > plan.grid and plan.tiles % plan.grid
+        before = upfirdn2d_k2.launches
+        got = upfirdn2d_k2(x, *args)
+        torch.cuda.synchronize()
+        assert upfirdn2d_k2.launches - before == 1
+        assert_close(got, upfirdn2d_k2_plain(x, *args), dtype)
+        assert torch.equal(upfirdn2d_k2(x, *args), got)
+        assert torch.equal(upfirdn2d_k2(xm, *args), got)
 
 
 @pytest.mark.cuda

@@ -126,6 +126,9 @@ def test_plain_matches_jax_to_second_order(case):
 
 # ------------------------------------------------------------- the launch plan
 
+ASYM = (np.arange(16, dtype=np.float32).reshape(4, 4) - 5.0) / 40   # not an outer product
+
+
 def ffs256_calls():
     """The main path's upfirdn2d calls at the FFS-256 step (16 videos x 3
     frames; channel_base 16384, channel_max 512): (label, x shape, dtype
@@ -155,6 +158,11 @@ def plan_cases():
                 H, W = pass_out_hw(p, H, W)
 
 
+def misaligned(itemsize):
+    """A data pointer's offset past 16 bytes for an input that does not start on 16."""
+    return 6 if itemsize == 2 else 4
+
+
 def axis_taps(plan, axis):
     """For every output o along `axis` and every tap t < f (the filter's
     size on it): the window index of its source sample and whether it is
@@ -179,16 +187,11 @@ def axis_taps(plan, axis):
     return win, rel, valid, source, (n, F, U, D, R)
 
 
-@pytest.mark.parametrize("p,shape,itemsize,aligned", list(plan_cases()))
-def test_k2_plan_covers_every_output_once_and_reads_inside_its_window(p, shape, itemsize,
-                                                                      aligned):
-    planes, H, W = shape
-    variant = pass_variant(p)
-    assert variant is not None
-    fh, fw = p.k.shape
-    plan = k2_plan(variant, planes, H, W, fh, fw, p.pad, itemsize, aligned)
+def check_plan_1d(plan, p, planes, H, W, itemsize, aligned):
+    """A 1-D pass's plan (k2_plan): every output once, every tap from the
+    window cell that holds its source sample, reads inside the window."""
+    variant = plan.variant
     assert len(plan) == len(k2.K2Plan._fields)
-    assert (plan.out_h, plan.out_w) == pass_out_hw(p, H, W)
     assert 1 <= plan.threads == plan.planes_per_tile * plan.nx * plan.ny <= k2.THREADS
     assert plan.tile_h == plan.ny * k2.RUN_Y and plan.tile_w == plan.nx * k2.RUN_X
     assert plan.tiles == -(-planes // plan.planes_per_tile) * plan.tiles_h * plan.tiles_w
@@ -234,23 +237,227 @@ def test_k2_plan_covers_every_output_once_and_reads_inside_its_window(p, shape, 
     assert plan.stage_bytes <= k2.MAX_STAGE_BYTES and plan.stage_bytes % 16 == 0
 
 
+def fdiv(n, md):
+    """csrc/upfirdn2d.cu's FastDiv: (n m) >> s."""
+    m, sh = md
+    return (np.asarray(n, np.uint64) * np.uint64(m)) >> np.uint64(sh)
+
+
+def segs(variant):
+    """(SEGY, SEGX): the window rows and samples a 2-D run reads."""
+    FY, FX, UY, DY, PY, UX, DX, PX = VARIANTS[variant]
+    RY, RX = k2.run_2d(variant)
+    return ((RY - 1) * DY + 3 - PY) // UY + 1, ((RX - 1) * DX + 3 - PX) // UX + 1
+
+
+def row_shift(plan, ts, plane):
+    """csrc/upfirdn2d.cu's row_shift, in numpy."""
+    return (plan.eb + plan.wm * np.asarray(ts, np.int64)
+            - plan.pm * np.asarray(plane, np.int64)) % plan.chunk
+
+
+def check_plan_2d(plan, p, planes, H, W, itemsize, ptr_mod16):
+    """A 2-D pass's plan (k2_plan_2d), axis by axis at full size: the
+    persistent walk writes every output once; every tap of every output
+    reads, through its ring slot, the window cell that holds its source
+    sample (a zero where that lies outside the plane); every read and copy
+    stays inside its slot; every window row's copies start on 16 bytes."""
+    FY, FX, UY, DY, PY, UX, DX, PX = VARIANTS[plan.variant]
+    RY, RX = k2.run_2d(plan.variant)
+    fh, fw = p.k.shape
+    px0, _, py0, _ = p.pad
+    CH, S = plan.chunk, k2.STAGES
+    SEGY, SEGX = segs(plan.variant)
+    assert len(plan) == len(k2.K2Plan2D._fields) and CH * itemsize == 16
+    assert plan.pitch == plan.cpr * CH and plan.slot_elems >= plan.win_h * plan.pitch
+    assert plan.slot_elems % CH == 0 and plan.stage_bytes == S * plan.slot_elems * itemsize
+    assert plan.stage_bytes <= k2.MAX_DYNAMIC_SMEM and plan.win_h <= k2.THREADS
+    assert plan.tile_h % RY == 0 and plan.tile_w == plan.runs_x * RX
+    for name in ("runs_x", "vh", "sr", "cpr", "tiles_w"):
+        m, sh = getattr(plan, f"{name}_m"), getattr(plan, f"{name}_s")
+        assert (m, sh) == k2.fast_div(getattr(plan, name)) and m < 2 ** 32
+    # the walk: block b takes tiles b, b + grid, ... (its k-th into slot k % STAGES)
+    tiles_h = plan.tiles // plan.tiles_w
+    assert plan.tiles == tiles_h * plan.tiles_w and 1 <= plan.grid <= plan.tiles
+    assert plan.grid <= 132 * k2.MIN_BLOCKS
+    walk = np.arange(plan.grid)[:, None] + np.arange(-(-plan.tiles // plan.grid))[None] * plan.grid
+    assert np.array_equal(np.sort(walk[walk < plan.tiles]), np.arange(plan.tiles))
+    # rows: virtual row v of row tile v // tile_h, run row ry, run row jy
+    v = np.arange(tiles_h * plan.tile_h)
+    assert tiles_h * plan.tile_h >= planes * plan.vh >= planes * plan.out_h
+    rt, ry, jy = v // plan.tile_h, v % plan.tile_h // RY, v % RY
+    pv = fdiv(v - jy, (plan.vh_m, plan.vh_s)).astype(np.int64)    # the run's first row's plane
+    assert np.array_equal(pv, (v - jy) // plan.vh)
+    pl_, oy = v // plan.vh, v % plan.vh                              # the kernel's count from there
+    real = (pl_ < planes) & (oy < plan.out_h)
+    assert real.sum() == planes * plan.out_h                         # each (plane, row) once
+    if plan.pm:
+        assert plan.vh % plan.tile_h == 0                            # a tile lies in one plane
+    w0 = rt * plan.tile_h * DY // UY
+    wr = ry * RY * DY // UY
+    tplane = w0 // plan.sr if plan.pm else 0
+    e0 = row_shift(plan, w0 + wr, tplane)
+    shifts = set()
+    for ty in range(fh):
+        num = jy * DY + ty - PY
+        land = num % UY == 0
+        sy = num // UY
+        up = oy * DY - py0 + ty                                      # the upsampled row
+        assert np.array_equal(land[real], (up % UY == 0)[real])
+        sel = real & land
+        assert sy[sel].min() >= 0 and sy[sel].max() < SEGY
+        assert (wr + sy)[sel].max() < plan.win_h                     # inside its slot's rows
+        ts = w0 + wr + sy
+        tp = ts // plan.sr
+        trow = ts - tp * plan.sr - plan.q
+        data = (tp < planes) & (trow >= 0) & (trow < H)
+        row = up // UY
+        inside = (row >= 0) & (row < H)
+        assert np.array_equal(tp[sel & inside], pl_[sel & inside])
+        assert np.array_equal(trow[sel & inside], row[sel & inside])
+        assert not data[sel & ~inside].any()                         # a pad row reads zeros
+        e_run = (e0 + sy * plan.wm) % CH                             # the run's shift for it
+        assert np.array_equal(e_run[sel & inside], row_shift(plan, ts, tp)[sel & inside])
+        shifts |= set(e_run[sel & inside].tolist())
+    # columns: column tile ct, run column cx, column jx
+    ox = np.arange(plan.tiles_w * plan.tile_w)
+    ct, cx, jx = ox // plan.tile_w, ox % plan.tile_w // RX, ox % RX
+    assert plan.tiles_w * plan.tile_w >= plan.out_w > (plan.tiles_w - 1) * plan.tile_w
+    col0 = plan.base_x + ct * plan.step_x
+    if plan.tiles_w > 1:
+        assert plan.step_x % CH == 0
+    assert plan.base_x % CH == 0 and 0 <= plan.lead_x
+    c0 = plan.lead_x + cx * (RX * DX // UX)
+    realx = ox < plan.out_w
+    for e in shifts or {0}:
+        c = c0 + e
+        end = c - c % 2 + 2 * (SEGX // 2 + 1) if itemsize == 2 else c + SEGX
+        assert end[realx].max() <= plan.pitch                        # reads inside the slot
+    for tx in range(fw):
+        num = jx * DX + tx - PX
+        land = num % UX == 0
+        sx = num // UX
+        up = ox * DX - px0 + tx
+        assert np.array_equal(land[realx], (up % UX == 0)[realx])
+        sel = realx & land
+        assert sx[sel].min() >= 0 and sx[sel].max() < SEGX
+        for e in shifts or {0}:
+            col = col0 - e + (c0 + e + sx)                           # the sample's source column
+            assert np.array_equal(col[sel], (up // UX)[sel])
+    # the copies: the threads' shares (CopyShare) take every chunk of the
+    # window once, and each data row's chunks start on 16 bytes
+    taken = np.zeros((plan.win_h, plan.cpr), np.int64)
+    for tid in range(k2.THREADS):
+        if plan.cpr <= k2.THREADS:
+            j0 = int(fdiv(tid, (plan.cpr_m, plan.cpr_s)))
+            c0, dj, dc = tid - j0 * plan.cpr, k2.THREADS // plan.cpr, plan.cpr
+            j0 = plan.win_h if j0 >= dj else j0
+        else:
+            j0, dj, c0, dc = 0, 1, tid, k2.THREADS
+        taken[j0::dj, c0::dc] += 1
+    assert (taken == 1).all()
+    ts = (np.arange(tiles_h)[:, None] * plan.tile_h * DY // UY
+          + np.arange(plan.win_h)[None])
+    tp = ts // plan.sr
+    trow = ts - tp * plan.sr - plan.q
+    data = (tp < planes) & (trow >= 0) & (trow < H)
+    for c_0 in set(col0.tolist()):
+        start = ptr_mod16 // itemsize + (tp * H + trow) * W + c_0 - row_shift(plan, ts, tp)
+        assert (start[data] % CH == 0).all()
+
+
+@pytest.mark.parametrize("p,shape,itemsize,aligned", list(plan_cases()))
+def test_k2_plan_covers_every_output_once_and_reads_inside_its_window(p, shape, itemsize,
+                                                                      aligned):
+    planes, H, W = shape
+    variant = pass_variant(p)
+    assert variant is not None
+    fh, fw = p.k.shape
+    if variant < k2.N_2D:
+        ptr = 0 if aligned else misaligned(itemsize)
+        dtype = torch.bfloat16 if itemsize == 2 else torch.float32
+        mode, _ = k2.pass_mode(p.k.to(dtype).float().numpy(), fh, fw, dtype)
+        plan = k2.k2_plan_2d(variant, planes, H, W, fh, fw, p.pad, itemsize, ptr, mode)
+        # the main path's [1, 3, 3, 1]: rows then columns on bf16, the 2-D sum on float32
+        assert plan.mode == (k2.ROWS_THEN_COLUMNS if itemsize == 2 else k2.FULL)
+        assert (plan.out_h, plan.out_w) == pass_out_hw(p, H, W)
+        check_plan_2d(plan, p, planes, H, W, itemsize, ptr)
+    else:
+        plan = k2_plan(variant, planes, H, W, fh, fw, p.pad, itemsize, aligned)
+        assert (plan.out_h, plan.out_w) == pass_out_hw(p, H, W)
+        check_plan_1d(plan, p, planes, H, W, itemsize, aligned)
+
+
 def test_k2_plan_shapes_at_g_upconv_256():
-    """G's r = 256 up-conv at 16 x 3 in bf16: [6144, 128, 128] -> 258^2 in
-    three tiles a row of 96 outputs, 16-byte window copies."""
+    """G's r = 256 up-conv at 16 x 3 in bf16: [6144, 128, 128] -> 258^2, a
+    tile a whole row of 65 runs by 128 rows, a plane's 258 rows with no
+    virtual row to spare, 3 blocks an SM on 132 SMs; small planes pack
+    several to a tile."""
     p = passes(setup_filter(FIR4), (2, 2), (1, 1), (3, 2, 3, 2), False, 4.0)[0]
-    plan = k2_plan(pass_variant(p), 48 * 128, 128, 128, 4, 4, p.pad, 2)
-    assert (plan.out_h, plan.out_w, plan.tiles_w, plan.tile_w) == (258, 258, 3, 96)
-    assert (plan.chunk_bytes, plan.planes_per_tile) == (16, 1)
-    small = k2_plan(pass_variant(p), 48 * 512, 4, 4, 4, 4, p.pad, 4)
-    assert small.planes_per_tile > 1 and small.tiles_h == small.tiles_w == 1
+    plan = k2.k2_plan_2d(pass_variant(p), 48 * 128, 128, 128, 4, 4, p.pad, 2, 0,
+                         k2.ROWS_THEN_COLUMNS)
+    assert (plan.out_h, plan.out_w, plan.vh, plan.tiles_w, plan.tile_w) == (258, 258, 258, 1, 260)
+    assert (plan.tile_h, plan.grid, plan.chunk, plan.mode) == (128, 396, 8, 2)
+    assert (plan.eb, plan.wm, plan.pm) == (0, 0, 0)
+    small = k2.k2_plan_2d(pass_variant(p), 48 * 512, 4, 4, 4, 4, p.pad, 4)
+    assert small.tile_h > 2 * small.vh and small.tiles_w == 1
+
+
+@pytest.mark.parametrize("d", [1, 2, 3, 7, 10, 65, 129, 257, 258, 265, 4095])
+def test_fast_div_is_exact_below_2_to_30(d):
+    m, sh = k2.fast_div(d)
+    n = np.concatenate([np.arange(4 * d), np.random.RandomState(d).randint(0, 2 ** 30, 4096),
+                        [2 ** 30 - 1, 2 ** 30 - d]]).astype(np.int64)
+    assert m < 2 ** 32 and np.array_equal(fdiv(n, (m, sh)).astype(np.int64), n // d)
+
+
+# ------------------------------------------------------------ the rank-1 split
+
+RANK1_FILTERS = {
+    "fir4": (setup_filter(FIR4).numpy(), True),
+    "fir4_gain4": (setup_filter(FIR4).numpy() * 4, True),
+    "asym_outer": (np.outer([1, 2, 3, 4], [2, 1, 1, 3]).astype(np.float32) / 64, True),
+    "asym": (ASYM, False),
+    "rank2": (np.outer([1, 3, 3, 1], [1, 3, 3, 1]).astype(np.float32) / 64 + np.eye(4) / 8,
+              False),
+    "inexact": (np.outer([1, 1 / 3, 1 / 7, 1], [1, 3, 3, 1]).astype(np.float32), None),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", list(RANK1_FILTERS))
+def test_rank1_split_taken_exactly_for_an_outer_product(name, dtype):
+    """A 2-D pass sums rows then columns exactly where x is bf16 and its taps,
+    rounded to bf16, are the outer product of two factors in float32
+    (whichever `rank1_factors` finds); else the 2-D sum: unguarded for 4x4
+    taps (float32 always, bf16 an asymmetric or a rank-2 filter), guarded by
+    the filter's size for a 3x3 one."""
+    f, want = RANK1_FILTERS[name]
+    for shape, flt in (((4, 4), f), ((3, 3), f[:3, :3])):
+        p = passes(torch.from_numpy(np.ascontiguousarray(flt)), (1, 1), (1, 1), (2, 2, 2, 2),
+                   True, 1.0)[0]
+        variant, plan, taps = k2.pass_launch(p, (2, 3, 9, 9), dtype, 0)
+        held = p.k.to(dtype).float().numpy()
+        if shape == (3, 3):
+            assert plan.mode == k2.GUARDED
+        elif dtype == torch.float32:
+            assert plan.mode == k2.FULL
+        elif want is not None:
+            assert plan.mode == (k2.ROWS_THEN_COLUMNS if want else k2.FULL)
+        assert np.array_equal(taps[:16].reshape(4, 4)[:shape[0], :shape[1]], held)
+        fy, fx = taps[16:20], taps[20:]
+        if plan.mode == k2.ROWS_THEN_COLUMNS:
+            assert np.array_equal(fy[:, None] * fx[None, :], held)
+        else:
+            assert not fy.any() and not fx.any()
 
 
 # ------------------------------------------------- an emulation of the kernel
 
-def emulate(x: np.ndarray, plan, taps: np.ndarray) -> np.ndarray:
-    """csrc/upfirdn2d.cu's upfirdn2d_kernel in numpy over every block and
-    thread at once: the window copy, then each thread's loops over window
-    rows, run rows, run columns and register columns, in float32."""
+def emulate_1d(x: np.ndarray, plan, taps: np.ndarray) -> np.ndarray:
+    """csrc/upfirdn2d.cu's 1-D kernel (namespace k1d) in numpy over every
+    block and thread at once: the window copy, then each thread's loops over
+    window rows, run rows, run columns and register columns, in float32."""
     FY, FX, UY, DY, RY, UX, DX, RX = VARIANTS[plan.variant]
     planes, H, W = x.shape
     t = np.arange(plan.tiles)
@@ -284,13 +491,13 @@ def emulate(x: np.ndarray, plan, taps: np.ndarray) -> np.ndarray:
                     tx = sx * UX - jx * DX + RX
                     if 0 <= tx < min(FX, plan.fw):
                         acc[jy, jx] += np.float32(taps[ty, tx]) * v[sx]
-    return store(acc, plan, planes, plane0, th, tw, cx, cy, cp, k)
+    return store_1d(acc, plan, planes, plane0, th, tw, cx, cy, cp, k)
 
 
-def store(acc, plan, planes, plane0, th, tw, cx, cy, cp, k):
-    """The kernel's stores in numpy: two outputs a store at an even element
-    offset; in a row that starts on an odd offset (odd out_w), a run's
-    second column with the next lane's first, and a column alone at a
+def store_1d(acc, plan, planes, plane0, th, tw, cx, cy, cp, k):
+    """The 1-D kernel's stores in numpy: two outputs a store at an even
+    element offset; in a row that starts on an odd offset (odd out_w), a
+    run's second column with the next lane's first, and a column alone at a
     tile's or warp's edge or the row's end. Checks that every output is
     written once and every pair lies on an even offset."""
     out = np.zeros(planes * plan.out_h * plan.out_w, np.float32)
@@ -329,47 +536,241 @@ def store(acc, plan, planes, plane0, th, tw, cx, cy, cp, k):
     return out.reshape(planes, plan.out_h, plan.out_w)
 
 
+def emulate_2d(x: np.ndarray, plan, taps: np.ndarray, itemsize: int) -> np.ndarray:
+    """csrc/upfirdn2d.cu's 2-D kernel (namespace k2d) in numpy, every block
+    at once, step by step of its walk: the prologue's copies of tiles 0 and
+    1, then for each tile the copy of the tile two ahead into the slot the
+    last one freed, the sums from the tile's own slot, and the straddles'
+    writes. The ring keeps what earlier tiles left in it (NaN at first), so
+    a cell that a tile reads but does not copy shows; every read is checked
+    to lie inside its slot. Float32 sums in the kernel's order (rows then
+    columns, or the 2-D sum); stores as the kernel's, written once each."""
+    FY, FX, UY, DY, PY, UX, DX, PX = VARIANTS[plan.variant]
+    RY, RX = k2.run_2d(plan.variant)
+    planes, H, W = x.shape
+    CH, S, G = plan.chunk, k2.STAGES, plan.grid
+    SEGY, SEGX = segs(plan.variant)
+    flat = np.concatenate([np.zeros(16), x.reshape(-1).astype(np.float64), np.zeros(16)])
+    start = 16                                  # flat index of x's element 0
+    ring = np.full((G, S, plan.win_h, plan.pitch), np.nan)
+    b = np.arange(G)
+    k4 = np.arange(16)
+
+    def issue(t, slot):
+        """The copies of tiles t [G] (< 0: none) into `slot` [G]; returns the
+        straddles (block, row, element offset, 16-byte values) to write."""
+        rt, ct = t // plan.tiles_w, t % plan.tiles_w
+        w0 = rt * plan.tile_h * DY // UY
+        col0 = plan.base_x + ct * plan.step_x
+        j = np.arange(plan.win_h)
+        ts = w0[:, None] + j[None]
+        tp = ts // plan.sr
+        row = ts - tp * plan.sr - plan.q
+        e = row_shift(plan, ts, tp)
+        row_in = (tp < planes) & (row >= 0) & (row < H) & (t[:, None] >= 0)
+        src_row = (tp * H + row) * W
+        for c in range(plan.cpr):
+            col = col0[:, None] - e + c * CH                  # [G, win_h]
+            strad = row_in & (col < 0) & (col + CH > 0)
+            go = (t[:, None] >= 0) & ~strad
+            cols = col[..., None] + np.arange(CH)             # [G, win_h, CH]
+            ok = row_in[..., None] & (col[..., None] >= 0) & (cols < W)
+            vals = np.where(ok, flat[np.where(ok, start + src_row[..., None] + cols, 0)], 0.0)
+            gb, gj = np.nonzero(go)
+            ring[gb, slot[gb], gj, c * CH:(c + 1) * CH] = vals[gb, gj]
+        st = (row_in & (e > 0) & (col0[:, None] <= 0) & (-col0[:, None] < plan.pitch)
+              & (j[None] < k2.THREADS))
+        sb, sj = np.nonzero(st)
+        cols = (-e[sb, sj])[:, None] + np.arange(CH)
+        ok = (cols >= 0) & (cols < W)
+        vals = np.where(ok, flat[np.where(ok, start + src_row[sb, sj][:, None] + cols, 0)], 0.0)
+        return sb, slot[sb], sj, -col0[sb], vals
+
+    def flush(st):
+        sb, ss, sj, off, vals = st
+        for i in range(CH):
+            ring[sb, ss, sj, off + i] = vals[:, i]
+
+    out = np.zeros(planes * plan.out_h * plan.out_w)
+    written = np.zeros(out.shape, np.int64)
+    pairs = []
+    steps = -(-plan.tiles // G)
+    for s in range(S - 1):
+        t = b + s * G
+        flush(issue(np.where(t < plan.tiles, t, -1), np.full(G, s)))
+    items = plan.tile_h // RY * plan.runs_x
+    for kk in range(steps):
+        t = b + kk * G
+        slot, ns = kk % S, (kk - 1) % S
+        nt = t + (S - 1) * G
+        st = issue(np.where(nt < plan.tiles, nt, -1), np.full(G, ns))
+        live = t < plan.tiles
+        rt, ct = t // plan.tiles_w, t % plan.tiles_w
+        v0, ox0 = rt * plan.tile_h, ct * plan.tile_w
+        w0 = v0 * DY // UY
+        tplane = w0 // plan.sr if plan.pm else np.zeros_like(w0)
+        it = np.arange(-(-items // k2.THREADS) * k2.THREADS)
+        active = live[:, None] & (it < items)[None]
+        ry, cx = it // plan.runs_x, it % plan.runs_x
+        wr = ry * (RY * DY // UY)
+        c0 = plan.lead_x + cx * (RX * DX // UX)
+        e0 = row_shift(plan, w0[:, None] + wr[None], tplane[:, None])
+        acc = np.zeros((RY, RX) + active.shape, np.float32)
+        for sy in range(SEGY):
+            r = wr + sy
+            assert r[it < items].max() < plan.win_h
+            c = c0[None] + (e0 + sy * plan.wm) % CH
+            end = c - c % 2 + 2 * (SEGX // 2 + 1) if itemsize == 2 else c + SEGX
+            assert end[active].max() <= plan.pitch             # reads inside the slot
+            vals = [np.where(active, ring[b[:, None], slot, np.minimum(r, plan.win_h - 1)[None],
+                                          np.minimum(c + sx, plan.pitch - 1)], 0.0)
+                    .astype(np.float32) for sx in range(SEGX)]
+            if plan.mode == k2.ROWS_THEN_COLUMNS:
+                fy, fx = taps[16:20], taps[20:]
+                h = []
+                for jx in range(RX):
+                    hj = np.zeros(active.shape, np.float32)
+                    for sx in range(SEGX):
+                        tx = sx * UX - jx * DX + PX
+                        if 0 <= tx < 4:
+                            hj = hj + np.float32(fx[tx]) * vals[sx]
+                    h.append(hj)
+                for jy in range(RY):
+                    ty = sy * UY - jy * DY + PY
+                    if 0 <= ty < 4:
+                        for jx in range(RX):
+                            acc[jy, jx] = acc[jy, jx] + np.float32(fy[ty]) * h[jx]
+            else:
+                kk2 = taps[:16].reshape(4, 4)
+                for jy in range(RY):
+                    ty = sy * UY - jy * DY + PY
+                    if not (0 <= ty < 4 and (plan.mode == k2.FULL or ty < plan.fh)):
+                        continue
+                    for jx in range(RX):
+                        for sx in range(SEGX):
+                            tx = sx * UX - jx * DX + PX
+                            if 0 <= tx < 4 and (plan.mode == k2.FULL or tx < plan.fw):
+                                acc[jy, jx] = acc[jy, jx] + np.float32(kk2[ty, tx]) * vals[sx]
+        assert not np.isnan(acc[:, :, active]).any(), "a run read a cell its tile did not copy"
+        # stores
+        vrow = v0[:, None] + ry[None] * RY
+        ox = ox0[:, None] + cx[None] * RX
+        lane = it % 32
+        go = active & (ox < plan.out_w)
+        nv = np.minimum(RX, plan.out_w - ox)
+        left = (lane > 0) & (cx > 0)
+        right = (lane < 31) & (cx + 1 < plan.runs_x) & (ox + RX < plan.out_w)
+        odd_w = plan.out_w % 2 == 1
+        for jy in range(RY):
+            vv = vrow + jy
+            p_, oy = vv // plan.vh, vv % plan.vh
+            m = go & (p_ < planes) & (oy < plan.out_h)
+            r = p_ * plan.out_h + oy
+            o = np.where(m, r * plan.out_w + ox, 0)
+            a = acc[jy]
+            nxt = np.roll(a[0], -1, axis=1)                    # the next lane's column 0
+
+            def put(mask, off, val):
+                out[off[mask]] = val[mask]
+                np.add.at(written, off[mask], 1)
+
+            ev = m & (r % 2 == 0) if odd_w else m       # rows that start on an even offset
+            for i in range(0, RX, 2):
+                put(ev & (nv >= i + 2), o + i, a[i])
+                put(ev & (nv >= i + 2), o + i + 1, a[i + 1])
+                put(ev & (nv == i + 1), o + i, a[i])
+                pairs.append(o[ev & (nv >= i + 2)] + i)
+            if odd_w:                                  # (-1, 0) the left lane's, (1, 2), ...
+                od = m & (r % 2 == 1)
+                put(od & ~left, o, a[0])
+                for i in range(1, RX - 1, 2):
+                    put(od & (nv >= i + 2), o + i, a[i])
+                    put(od & (nv >= i + 2), o + i + 1, a[i + 1])
+                    put(od & (nv == i + 1), o + i, a[i])
+                    pairs.append(o[od & (nv >= i + 2)] + i)
+                put(od & right, o + RX - 1, a[RX - 1])  # with the right lane's column 0
+                put(od & right, o + RX, nxt)
+                put(od & ~right & (nv == RX), o + RX - 1, a[RX - 1])
+                pairs.append(o[od & right] + RX - 1)
+        flush(st)
+    assert (written == 1).all(), "every output written once"
+    assert all((q % 2 == 0).all() for q in pairs), "every pair on an even offset"
+    return out.reshape(planes, plan.out_h, plan.out_w).astype(np.float32)
+
+
 def emulate_pass(x: torch.Tensor, p, aligned=True) -> torch.Tensor:
     N, C, H, W = x.shape
     fh, fw = p.k.shape
-    plan = k2_plan(pass_variant(p), N * C, H, W, fh, fw, p.pad, x.element_size(), aligned)
-    taps = p.k.to(x.dtype).float().numpy()
-    y = emulate(x.float().reshape(N * C, H, W).numpy(), plan, taps)
+    variant = pass_variant(p)
+    xs = x.float().reshape(N * C, H, W).numpy()
+    if variant < k2.N_2D:
+        ptr = 0 if aligned else misaligned(x.element_size())
+        _, plan, taps = k2.pass_launch(p, x.shape, x.dtype, ptr)
+        y = emulate_2d(xs, plan, taps, x.element_size())
+    else:
+        plan = k2_plan(variant, N * C, H, W, fh, fw, p.pad, x.element_size(), aligned)
+        y = emulate_1d(xs, plan, p.k.to(x.dtype).float().numpy())
     return torch.from_numpy(y).reshape(N, C, plan.out_h, plan.out_w).to(x.dtype)
+
+
+def assert_emulation_matches_plain(x, args, aligned):
+    want = upfirdn2d_k2_plain(x, *args)
+    got = x
+    for p in passes(*args):
+        got = emulate_pass(got, p, aligned)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    tol = 1e-5 if x.dtype == torch.float32 else 1e-2
+    scale = max(float(want.float().abs().max()), 1e-6)
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * scale, (aligned, err, scale)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("which", ["fwd", "adj"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernel_emulation_matches_plain(case, which, dtype):
+    """Every main-path call and its adjoint through the emulated kernels,
+    from an aligned and a misaligned input: float32 to 1e-5 of scale
+    (another summation order), bf16 to 1e-2 (both round once from a
+    float32 sum of the same bf16 taps)."""
     shape, f, kw = CASES[case]
     xs, *args = forward_and_adjoint(shape, f, kw)[which == "adj"]
     x = torch.from_numpy(np.random.RandomState(5).randn(*xs).astype(np.float32)).to(dtype)
-    want = upfirdn2d_k2_plain(x, *args)
     for aligned in (True, False):
-        got = x
-        for p in passes(*args):
-            got = emulate_pass(got, p, aligned)
-        assert got.shape == want.shape and got.dtype == want.dtype
-        tol = 1e-5 if dtype == torch.float32 else 1e-2
-        scale = max(float(want.float().abs().max()), 1e-6)
-        err = float((got.float() - want.float()).abs().max())
-        assert err <= tol * scale, (aligned, err, scale)
+        assert_emulation_matches_plain(x, args, aligned)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["fwd", "adj"])
+@pytest.mark.parametrize("filt", ["asym", "rank2", "asym_outer"])
+def test_kernel_emulation_2d_sum_matches_plain(filt, which, dtype):
+    """D's pre-filter and its adjoint with an asymmetric 4x4 filter (the 2-D
+    sum, or rows then columns for an asymmetric outer product), aligned and
+    not, odd and even rows, and a plane count that the grid does not divide
+    (the walk's last step is partial)."""
+    f = torch.from_numpy(np.ascontiguousarray(RANK1_FILTERS[filt][0]))
+    kw = dict(padding=2)
+    for shape in ((3, 5, 10, 9), (1, 7, 33, 20)):
+        xs, *args = forward_and_adjoint(shape, f, kw)[which == "adj"]
+        assert args[0].ndim == 2
+        x = torch.from_numpy(np.random.RandomState(8).randn(*xs).astype(np.float32)).to(dtype)
+        for aligned in (True, False):
+            assert_emulation_matches_plain(x, args, aligned)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(1, 2, 3, 300), (3, 5, 6, 6), (2, 3, 9, 64)])
 def test_kernel_emulation_stores_odd_rows_in_pairs(shape, dtype):
     """D's pre-filter gives rows of odd length (r + 1): the emulated stores
-    pair across runs (three tiles a row and warps that end mid-row at
-    [1, 2, 3, 300]; packed planes at [3, 5, 6, 6]) and equal the plain
-    version, as test_kernel_emulation_matches_plain's tolerances."""
+    pair across runs (a row of 75 runs that wraps from one warp to the next
+    and across lanes at [1, 2, 3, 300]; small planes stacked in a tile at
+    [3, 5, 6, 6]) and equal the plain version, as
+    test_kernel_emulation_matches_plain's tolerances."""
     args = call_args(FIR4, CASES["d_downconv"][2])
     x = torch.from_numpy(np.random.RandomState(7).randn(*shape).astype(np.float32)).to(dtype)
     p, = passes(*args)
-    plan = k2_plan(pass_variant(p), shape[0] * shape[1], *shape[2:], 4, 4, p.pad,
-                   x.element_size())
-    assert plan.out_w % 2 == 1
+    _, plan, _ = k2.pass_launch(p, x.shape, x.dtype, 0)
+    assert plan.out_w % 2 == 1 and plan.mode != k2.GUARDED
     got, want = emulate_pass(x, p), upfirdn2d_k2_plain(x, *args)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     scale = float(want.float().abs().max())
@@ -513,14 +914,29 @@ def test_refusal_names_what_the_kernel_does_not_take(x, f, kw, match):
 
 
 def test_variants_are_the_sources():
+    """VARIANTS is the source's K2_VARIANTS_2D then K2_VARIANTS_1D, and each
+    plan's fields are its enum's."""
     src = (Path(k2.__file__).parents[1] / "csrc" / "upfirdn2d.cu").read_text()
-    body = src[src.index("#define K2_VARIANTS(X)"):src.index("namespace {")]
+    body = src[src.index("#define K2_VARIANTS_2D(X)"):src.index("namespace {")]
+    two_d = body[:body.index("#define K2_VARIANTS_1D(X)")]
     found = [tuple(int(v) for v in m.split(","))
              for m in re.findall(r"X\(([\d,\s]+)\)", body)]
     assert tuple(found) == VARIANTS
-    fields = src[src.index("enum PlanField"):src.index("kNumPlanFields")]
-    names = re.findall(r"k(\w+)", fields)
-    assert [n.lower() for n in names] == [f.replace("_", "") for f in k2.K2Plan._fields]
+    assert len(re.findall(r"X\(", two_d)) == k2.N_2D
+    for enum, end, plan in (("enum Plan2DField", "kNumPlan2DFields", k2.K2Plan2D),
+                            ("enum PlanField", "kNumPlanFields", k2.K2Plan)):
+        fields = src[src.index(enum):src.index(end)]
+        names = re.findall(r"k(\w+)", fields)
+        assert [n.lower() for n in names] == [f.replace("_", "") for f in plan._fields]
+    consts = dict(re.findall(r"constexpr int (THREADS|STAGES|MIN_BLOCKS) = (\d+);",
+                             src[src.index("namespace k2d"):src.index("namespace k1d")]))
+    assert {k: int(v) for k, v in consts.items()} == dict(
+        THREADS=k2.THREADS, STAGES=k2.STAGES, MIN_BLOCKS=k2.MIN_BLOCKS)
+    runs = {k: (int(a), int(b)) for k, a, b in
+            re.findall(r"constexpr int (RUN_[XY]) = D == 2 \? (\d) : (\d);", src)}
+    for variant in range(k2.N_2D):
+        DY, DX = VARIANTS[variant][3], VARIANTS[variant][6]
+        assert k2.run_2d(variant) == (runs["RUN_Y"][DY == 1], runs["RUN_X"][DX == 1])
 
 
 # ------------------------------------------------------------ the export route
