@@ -21,18 +21,22 @@ holds them against the port's plain PyTorch paths:
               D's dtype at each shape, at 16 x 3 with a cold L2 (copies of
               the input rotated past 100 MB); GB/s and share of the HBM
               bound; the 16 x 3 sums are one D pass.
-  3b. k2:     K2 (the general upfirdn2d pass) against its plain version at
-              every distinct K2 call of one forward at the step's 16 x 3 (G's
-              up=2 convs and image skips, D's filters before its down=2
-              convs, the bgc pipe's 12-tap 2x up and 2x down, recorded from
-              that forward) and at each one's adjoint, float32 and bf16;
-              CUDA-event times of the kernel, its plain version and the one
-              PyTorch call that computes it (F.conv2d or F.conv_transpose2d,
-              depthwise, where one does) in turns, in the path's dtype, with
-              a cold L2; GB/s and share of the HBM bound. Every bf16 4x4
-              call sums rows, then columns (its filter is an outer product),
-              every float32 one in 2-D; D's filters and their adjoints again
-              with an asymmetric 4x4 filter (the 2-D sum), float32 and bf16,
+  3b. k2:     K2 (the general upfirdn2d resampler, one launch a call)
+              against its plain version at every distinct K2 call of one
+              forward at the step's 16 x 3 (G's up=2 convs and image skips,
+              D's filters before its down=2 convs, the bgc pipe's separable
+              12-tap 2x up and 2x down, recorded from that forward) and at
+              each one's adjoint, float32 and bf16, one launch each;
+              CUDA-event times of the kernel (a wrapper call, and launched
+              directly through its C entry point), its plain version and the
+              PyTorch call that computes each pass (F.conv2d or
+              F.conv_transpose2d, depthwise, chained over a separable call's
+              two passes) in turns, in the path's dtype, with a cold L2; GB/s
+              and share of the HBM bound. Every bf16 4x4 call sums rows, then
+              columns (its filter is an outer product), every float32 one in
+              2-D; D's filters and their adjoints again with an asymmetric
+              4x4 filter (the 2-D sum), and the separable calls of
+              K2_OFF_PATH (the guarded instantiation), float32 and bf16,
               against the plain version.
   4. slice:   G(z, None, t) for 4 videos x 3 timestamps, then D on the
               frames, with weights from a seeded torch.Generator; the frames
@@ -68,7 +72,9 @@ holds them against the port's plain PyTorch paths:
               calls (F.grid_sample after F.affine_grid, and
               aten.grid_sampler_2d_backward: not the same function, whose
               border half pixel differs) and each one's share of its bound;
-              autograd through K4 to second order.
+              autograd through K4 to second order; K2 at the pipe's
+              separable calls (its 12-tap 2x up and 2x down and their
+              adjoints at 16 x 9) as phase 3b's, one launch each.
  11. ada:     the ADA training step (bgc, warp_upsample=2) at 16 x 3, 256^2,
               augment_p = 0.5: one step with R1, three without, one more
               with R1, as phase 8, with K1, K1-bwd, K4 and K4-bwd launch
@@ -159,7 +165,9 @@ holds them against the port's plain PyTorch paths:
               plain versions at the image D's six skip inputs of the step
               (a round's 8 x 16 frames; phases 3 and 7's checks and times),
               K4 and K4-bwd at the pipe's 48-channel warp (phase 10's checks
-              and times; the plan's whole/chunked/direct tile shares), beside
+              and times; the plan's whole/chunked/direct tile shares) and K2
+              at its separable calls [8, 48, 268^2] -> 536^2 and [8, 48,
+              524^2] -> 256^2 and their adjoints, beside
               phase 10's 9-channel times; (c) at 64^2 reduced width, card vs
               CPU with the same weights and draws (the video D's noise too):
               the LSTM G's frames, D's two logits, Gmain's dG and Dr1's dD,
@@ -561,19 +569,144 @@ def k2_library(p, x):
     return None
 
 
+def k2_direct(xs, args):
+    """A function that launches the kernel of upfirdn2d_k2(x, *args) straight
+    through K2's C entry point on xs[0], xs[1], ... in turn (one shape and
+    alignment) into one output: the kernel's time without the wrapper's
+    host path (the plan lookup, the output's allocation). It counts no
+    launch."""
+    import torch
+    from stylegan_v_tpu_torch.ops import cuda_build, upfirdn2d_kernel as k2
+    check(len({x.data_ptr() % 16 for x in xs}) == 1, "K2's timed inputs differ in alignment")
+    L = k2._call_launch(xs[0], *args)
+    fn = cuda_build.entry_point("upfirdn2d", k2._ARGTYPES)
+    y = torch.empty(L.out_shape, dtype=xs[0].dtype, device=xs[0].device)
+    code, n = cuda_build.DTYPE_CODES[xs[0].dtype], [0]
+
+    def call():
+        n[0] += 1
+        x = xs[n[0] % len(xs)]
+        err = fn(x.data_ptr(), y.data_ptr(), L.taps, code, L.variant, L.plan,
+                 torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"K2's direct launch failed with CUDA error {err}")
+    return call
+
+
+def k2_call(dev, g, tag, name, shape, path_dtype, args, timed=True):
+    """K2 at one call: one launch, against its plain version in float32 and
+    bf16 (the worst error and whether every output is equal to the bit);
+    then, where `timed`, in the path's dtype with a cold L2, CUDA-event
+    times in turns of its plain version, the wrapper's call (`ms` and
+    `share_of_bound`, as phase 3b has always timed a kernel: they hold the
+    host's launch gaps where the host is slower than the kernel), the kernel
+    launched straight through its C entry point (`kernel_ms` and
+    `kernel_share_of_bound`, k2_direct: without the wrapper's host path) and
+    the one PyTorch call a pass that computes it (chained over a separable
+    call's two passes, where each has one); and the bound: the call's
+    input and output bytes once at 3.35 TB/s (a separable call's
+    intermediate is not the function's work), or the multiply-adds of its
+    passes that land on source samples at the float32 rate. Returns (worst
+    error, bitwise equal, the row or None)."""
+    import torch
+    from stylegan_v_tpu_torch.ops import upfirdn2d_k2, upfirdn2d_k2_plain
+    from stylegan_v_tpu_torch.ops.upfirdn2d_kernel import passes
+
+    max_err, equal = 0.0, True
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        before = upfirdn2d_k2.launches
+        got = upfirdn2d_k2(x, *args)
+        launched = upfirdn2d_k2.launches - before
+        want = upfirdn2d_k2_plain(x, *args)
+        torch.cuda.synchronize()
+        e = (got.float() - want.float()).abs().max().item()
+        tol = KERNEL_TOL[str(dtype).split(".")[-1]]
+        check(launched == 1, f"{tag} {name} {list(shape)} {dtype}: {launched} launches, not 1")
+        check(got.shape == want.shape and torch.allclose(got.float(), want.float(),
+                                                         rtol=tol, atol=tol),
+              f"{tag} {name} {list(shape)} {dtype}: max err {e}")
+        max_err, equal = max(max_err, e), equal and torch.equal(got, want)
+        if dtype == path_dtype:
+            xp = x
+    if not timed:
+        return max_err, equal, None
+    x, tol = xp, KERNEL_TOL[str(path_dtype).split(".")[-1]]
+    flops, libs, y = 0, [], x
+    for p in passes(*args):
+        lib = k2_library(p, y)
+        out = upfirdn2d_k2_plain(y, p.k, list(p.up), list(p.down), list(p.pad), True, 1.0)
+        if lib is not None:
+            e_lib = (lib(y).float() - out.float()).abs().max().item()
+            check(e_lib <= tol * max(out.float().abs().max().item(), 1.0),
+                  f"{tag} {name}: the library call differs from the plain pass by {e_lib}")
+        libs.append(lib)
+        flops += 2 * out.numel() * p.k.numel() // (p.up[0] * p.up[1])
+        y = out
+    nbytes = (x.numel() + y.numel()) * x.element_size()
+    xs = cold_copies(x)
+    fns = [rotating(lambda x: upfirdn2d_k2_plain(x, *args), xs),
+           rotating(lambda x: upfirdn2d_k2(x, *args), xs), k2_direct(xs, args)]
+    if all(lib is not None for lib in libs):
+        fns.append(rotating(functools.partial(chained, libs), xs))
+    for fn in fns:                                  # warm-up
+        fn(), fn()
+    times = in_turns(fns, 10)
+    plain_t, call_t, kern = times[:3]
+    lib_t = times[3] if len(times) > 3 else None
+    bound, by = bound_ms(nbytes, flops)
+    row = dict(name=name, shape=list(shape), dtype=str(path_dtype).split(".")[-1],
+               passes=len(libs), ms=call_t, share_of_bound=bound / call_t, kernel_ms=kern,
+               kernel_share_of_bound=bound / kern, plain_ms=plain_t, library_ms=lib_t,
+               bound_ms=bound, bound_by=by, max_abs_err=max_err, equal_to_the_bit=equal)
+    lib_s = f"{lib_t:.4f} ms" if lib_t is not None else "none"
+    print(f"{tag} {name} {list(shape)} {row['dtype']} ({len(libs)} pass"
+          f"{'es' if len(libs) > 1 else ''}, one launch): kernel {call_t:.4f} ms a call "
+          f"({nbytes / (call_t * 1e-3) / 1e9:.0f} GB/s, {bound / call_t:.1%} of the "
+          f"{bound:.4f} ms bound), {kern:.4f} ms launched directly ({bound / kern:.1%})  plain "
+          f"{plain_t:.4f} ms  library {lib_s}; max_abs_err {max_err:.3g} (float32 and bf16), "
+          f"equal to the bit: {equal}", flush=True)
+    return max_err, equal, row
+
+
+# Separable calls off the main path, each held to its plain version on the
+# card: the guarded instantiation, whose axes come at run time (a lone row or
+# column filter with a one-tap other axis, mixed axes, phase 1 at up 2, a
+# 10-tap filter).
+K2_OFF_PATH = [  # (name, x shape, filter, upfirdn2d's (up, down, padding, flip, gain))
+    ("lone row [1, 7], up (2, 1)", (4, 16, 67, 71), ((1, 7), None),
+     ([2, 1], [1, 1], [3, 2, 1, -1], False, 1.0)),
+    ("lone column [9, 1], down (1, 2)", (4, 16, 131, 70), ((9, 1), None),
+     ([1, 1], [1, 2], [-1, 2, 4, 4], False, 1.0)),
+    ("12-tap, up (2, 1), down (1, 2)", (4, 16, 67, 90), (None, 12),
+     ([2, 1], [1, 2], [5, 6, 6, 5], False, 1.0)),
+    ("12-tap up 2, phase 1", (4, 16, 67, 69), (None, 12), ([2, 2], [1, 1], [5, 6, 5, 6],
+                                                           False, 4.0)),
+    ("10-tap down 2", (4, 16, 130, 139), (None, 10), ([1, 1], [2, 2], [3, 3, 3, 3], False, 1.0)),
+]
+
+
+def k2_off_path_args(filt, rest):
+    import torch
+    from stylegan_v_tpu_torch.ops import setup_filter
+    from stylegan_v_tpu_torch.training.augment import _SYM6
+    shape, taps = filt
+    if shape is not None:
+        f = torch.arange(1, shape[0] * shape[1] + 1, dtype=torch.float32).reshape(shape)
+        f = f / f.sum()
+    else:
+        f = setup_filter(_SYM6) if taps == 12 else setup_filter(list(range(1, 6)) * 2)
+    return (f, *rest)
+
+
 def phase_k2(dev, G, D):
     """Phase 3b: K2 against its plain version at every distinct K2 call of one
-    forward at 16 x 3 (G, D, the bgc pipe) and at each one's adjoint, float32
-    and bf16 (D's filters also with an asymmetric 4x4 filter, which takes
-    the 2-D sum where the main path's bf16 calls sum rows, then columns), then
-    CUDA-event times in the path's dtype of the kernel, its plain version and
-    the one PyTorch call that computes it (where one does), in turns with a
-    cold L2, beside the bound: the call's input and output
-    bytes once at 3.35 TB/s (a separable call's intermediate, which its two
-    passes write and read back, is not the function's work), or the
-    multiply-adds of its passes that land on source samples at the float32
-    rate. Returns the worst error, G's r = 256 up-conv call's times and the
-    sums over the forward calls and over the adjoints."""
+    forward at 16 x 3 (G, D, the bgc pipe's separable 12-tap calls) and at
+    each one's adjoint, one launch a call, float32 and bf16, timed in the
+    path's dtype (k2_call); D's filters also with an asymmetric 4x4 filter,
+    which takes the 2-D sum where the main path's bf16 calls sum rows, then
+    columns; and the separable calls of K2_OFF_PATH. Returns the worst error,
+    G's r = 256 up-conv call's row, the sums over the forward calls and over
+    the adjoints, and every call's row."""
     import torch
     from stylegan_v_tpu_torch.ops import upfirdn2d_k2, upfirdn2d_k2_plain
     from stylegan_v_tpu_torch.ops.upfirdn2d import adjoint_args
@@ -593,52 +726,26 @@ def phase_k2(dev, G, D):
     g = torch.Generator(device=dev).manual_seed(6)
     max_err, rows = 0.0, []
     for name, shape, path_dtype, args in entries:
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.randn(shape, generator=g, device=dev).to(dtype)
-            got, want = upfirdn2d_k2(x, *args), upfirdn2d_k2_plain(x, *args)
-            torch.cuda.synchronize()
-            e = (got.float() - want.float()).abs().max().item()
-            tol = KERNEL_TOL[str(dtype).split(".")[-1]]
-            check(got.shape == want.shape and torch.allclose(got.float(), want.float(),
-                                                             rtol=tol, atol=tol),
-                  f"{tag} {name} {list(shape)} {dtype}: max err {e}")
-            max_err = max(max_err, e)
-            if dtype != path_dtype:
-                continue
-            flops, libs, y = 0, [], x
-            for p in passes(*args):
-                lib = k2_library(p, y)
-                out = upfirdn2d_k2_plain(y, p.k, list(p.up), list(p.down), list(p.pad), True,
-                                         1.0)
-                if lib is not None:
-                    e_lib = (lib(y).float() - out.float()).abs().max().item()
-                    check(e_lib <= tol * max(out.float().abs().max().item(), 1.0),
-                          f"{tag} {name}: the library call differs from the plain pass by "
-                          f"{e_lib}")
-                libs.append(lib)
-                flops += 2 * out.numel() * p.k.numel() // (p.up[0] * p.up[1])
-                y = out
-            nbytes = (x.numel() + y.numel()) * x.element_size()
-            xs = cold_copies(x)
-            fns = [rotating(lambda x: upfirdn2d_k2_plain(x, *args), xs),
-                   rotating(lambda x: upfirdn2d_k2(x, *args), xs)]
-            if all(lib is not None for lib in libs):
-                fns.append(rotating(functools.partial(chained, libs), xs))
-            for fn in fns:                                  # warm-up
-                fn(), fn()
-            times = in_turns(fns, 10)
-            plain_t, kern = times[:2]
-            lib_t = times[2] if len(times) > 2 else None
-            bound, by = bound_ms(nbytes, flops)
-            rows.append(dict(name=name, shape=list(shape), dtype=str(dtype).split(".")[-1],
-                             passes=len(libs), ms=kern, plain_ms=plain_t, library_ms=lib_t,
-                             bound_ms=bound, bound_by=by, share_of_bound=bound / kern))
-            lib_s = f"{lib_t:.4f} ms" if lib_t is not None else "none"
-            print(f"{tag} {name} {list(shape)} {rows[-1]['dtype']} ({len(libs)} pass"
-                  f"{'es' if len(libs) > 1 else ''}): kernel {kern:.4f} ms "
-                  f"({nbytes / (kern * 1e-3) / 1e9:.0f} GB/s, {bound / kern:.1%} of the "
-                  f"{bound:.4f} ms bound)  plain {plain_t:.4f} ms  library {lib_s}", flush=True)
-            del xs, fns
+        e, _, row = k2_call(dev, g, tag, name, shape, path_dtype, args)
+        max_err = max(max_err, e)
+        rows.append(row)
+    sep = [r for r in rows if r["name"].startswith("augment")]
+    check(len(sep) == 4 and all(r["passes"] == 2 for r in sep),
+          f"{tag} the pipe's separable calls: {[(r['name'], r['shape']) for r in sep]}")
+    off = []
+    for name, shape, filt, rest in K2_OFF_PATH:
+        args = k2_off_path_args(filt, rest)
+        H, W = shape[2:]
+        for p in passes(*args):
+            H, W = pass_out_hw(p, H, W)
+        e, equal, _ = k2_call(dev, g, tag, name, shape, torch.float32, args, timed=False)
+        e2, equal2, _ = k2_call(dev, g, tag, f"{name}, adjoint", (*shape[:2], H, W),
+                                torch.float32, adjoint_args(*args, shape[2:], (H, W)),
+                                timed=False)
+        off.append(f"{name} {max(e, e2):.3g}{' (to the bit)' if equal and equal2 else ''}")
+        max_err = max(max_err, e, e2)
+    print(f"{tag} separable calls off the main path and their adjoints, float32 and bf16, one "
+          f"launch each, max_abs_err: " + "; ".join(off), flush=True)
     # D's pre-filter with an asymmetric 4x4 filter, not an outer product: the
     # 2-D sum, which no main-path call takes (they sum rows, then columns)
     asym = (torch.arange(16, dtype=torch.float32).reshape(4, 4) - 5.0) / 40
@@ -676,6 +783,7 @@ def phase_k2(dev, G, D):
         sel = [r for r in rows if r["name"].endswith("adjoint") == (which == "adjoint")]
         with_lib = [r for r in sel if r["library_ms"] is not None]
         sums[which] = {"calls": len(sel), "ms": sum(r["ms"] for r in sel),
+                       "kernel_ms": sum(r["kernel_ms"] for r in sel),
                        "plain_ms": sum(r["plain_ms"] for r in sel),
                        "bound_ms": sum(r["bound_ms"] for r in sel),
                        "calls_with_library": len(with_lib),
@@ -683,15 +791,16 @@ def phase_k2(dev, G, D):
                        "ms_where_library": sum(r["ms"] for r in with_lib)}
         m = sums[which]
         print(f"{tag} the {m['calls']} {which} calls of one forward at 16x3 (cold L2): kernel "
-              f"{m['ms']:.4f} ms, plain {m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms "
-              f"({m['bound_ms'] / m['ms']:.1%} of it); the {m['calls_with_library']} with a "
-              f"library call: kernel {m['ms_where_library']:.4f} ms, library "
-              f"{m['library_ms']:.4f} ms", flush=True)
+              f"{m['ms']:.4f} ms a call ({m['kernel_ms']:.4f} launched directly), plain "
+              f"{m['plain_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms ({m['bound_ms'] / m['ms']:.1%}"
+              f" of the calls); the {m['calls_with_library']} with a library call: kernel "
+              f"{m['ms_where_library']:.4f} ms, library {m['library_ms']:.4f} ms", flush=True)
     head = max((r for r in rows if r["name"] == "G up=2 conv"), key=lambda r: r["shape"][2])
     check(head["shape"] == [48, 128, 128, 128] and head["dtype"] == "bfloat16",
           f"{tag} G's largest up-conv call {head}")
     print(f"{tag} G's r = 256 up-conv [48, 128, 128^2] bf16: {head['share_of_bound']:.1%} of "
-          f"its bound; phase 3b took {time.perf_counter() - t_phase:.1f} s", flush=True)
+          f"its bound a call, {head['kernel_share_of_bound']:.1%} launched directly; phase 3b "
+          f"took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return max_err, head, sums, rows
 
 
@@ -852,15 +961,15 @@ def phase_bwd(dev):
 # first-order grad into the real frames (6 K1-bwd), and that grad's backward,
 # which runs K1 for each of its 6 K1-bwd nodes and K1-bwd for each of the 6 K1
 # nodes of the forward: 30 and 30.
-# K2 (csrc/upfirdn2d.cu, one launch a filter pass) runs 12 passes in a G
-# forward at 256^2 (k2_per_synthesis: 6 up=2 convs, 6 image skips) and 6 in a
-# D forward (k2_per_d: the filter before each 3x3 down=2 conv); a backward
-# through either runs as many again (the adjoint of a K2 pass is a K2 pass).
+# K2 (csrc/upfirdn2d.cu, one launch a call) runs 12 calls in a G forward at
+# 256^2 (k2_per_synthesis: 6 up=2 convs, 6 image skips) and 6 in a D forward
+# (k2_per_d: the filter before each 3x3 down=2 conv); a backward through
+# either runs as many again (the adjoint of a K2 call is a K2 call).
 # Without R1: Gmain's G forward, D forward and backward, G backward (12 + 6 +
 # 6 + 12), Dgen's G forward under no_grad and D forward and backward (12 + 6
 # + 6), Dreal's D forward and backward (6 + 6): 72. Dr1 adds a D forward (6),
 # the first-order grad into the frames (6) and that grad's backward, which
-# runs a K2 pass for each of those 12 nodes: 96. Of each step, 36 are G's
+# runs a K2 call for each of those 12 nodes: 96. Of each step, 36 are G's
 # (K2_SYNTHESIS_PER_STEP: two forwards and one backward).
 LAUNCHES_PER_STEP = {False: (18, 18, 72), True: (30, 30, 96)}
 K2_SYNTHESIS_PER_STEP = 36
@@ -871,10 +980,10 @@ K2_PER_SYNTHESIS_256 = 12
 # their warps. Dr1 adds a K4 forward, the K4-bwd of the first-order grad into
 # the real frames, and that grad's backward, which runs K4 again: 5 and 2. The
 # warp's 12-tap filters never take K1's case, so K1 and K1-bwd stay as above.
-# They are K2's: each warp has 4 K2 passes beside it (a 2x up and a 2x down,
-# each a row and a column pass of 12 taps), so the pipe adds 4 a K4 and 4 a
-# K4-bwd: 72 + 16 = 88 without R1, 96 + 28 = 124 with.
-ADA_LAUNCHES_PER_STEP = {False: (18, 18, 3, 1, 88), True: (30, 30, 5, 2, 124)}
+# They are K2's: each warp has 2 K2 calls beside it (a 12-tap 2x up and 2x
+# down, each its row and column pass in one launch), so the pipe adds 2 a K4
+# and 2 a K4-bwd: 72 + 8 = 80 without R1, 96 + 14 = 110 with.
+ADA_LAUNCHES_PER_STEP = {False: (18, 18, 3, 1, 80), True: (30, 30, 5, 2, 110)}
 TRAIN_SHAPE = (16, 3, 256)     # videos, frames, resolution: bench.py:bench_train_step's
 ADA_P = 0.5                    # the step's cost does not depend on p; at 0.5 transforms fire
 WARP_BATCH = (16, 9, 256)      # the pipe's input at TRAIN_SHAPE: videos, 3 frames x RGB, size
@@ -1071,9 +1180,38 @@ def per_pixel_warp():
     return warp
 
 
+K2_PIPE = {}   # K2's rows at the ADA pipe's separable calls (phase_warp), by its batch
+
+
+def k2_pipe(dev, batch, tag):
+    """K2 at the ADA pipe's separable calls on `batch` (videos, fused
+    channels, size; warp_upsample=2): the 12-tap 2x up [N, C, (H + 12)^2] ->
+    (2H + 24)^2, the 2x down [N, C, (2H + 12)^2] -> H^2 and their adjoints, as
+    k2_call in the pipe's bf16; returns their rows."""
+    import torch
+    from stylegan_v_tpu_torch.ops import setup_filter
+    from stylegan_v_tpu_torch.ops.upfirdn2d import adjoint_args
+    from stylegan_v_tpu_torch.training.augment import _SYM6
+
+    N, C, H = batch
+    f = setup_filter(_SYM6)
+    g = torch.Generator(device=dev).manual_seed(17)
+    rows = []
+    for name, size, out, args in (
+            ("augment 2x up", H + 12, 2 * H + 24, (f, [2, 2], [1, 1], [6, 5, 6, 5], False, 4.0)),
+            ("augment 2x down", 2 * H + 12, H, (f, [1, 1], [2, 2], [-1, -1, -1, -1], True, 1.0))):
+        rows.append(k2_call(dev, g, tag, name, (N, C, size, size), torch.bfloat16, args)[2])
+        rows.append(k2_call(dev, g, tag, f"{name}, adjoint", (N, C, out, out), torch.bfloat16,
+                            adjoint_args(*args, (size, size), (out, out)))[2])
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_warp(dev, batch=WARP_BATCH, upsamples=(2, 1), tag="[10 warp]", autograd=True):
     """K4 and K4-bwd against their plain versions at the pipe's shapes on
-    `batch` (warp_calls), K4 against its reference design to the bit; returns
+    `batch` (warp_calls), K4 against its reference design to the bit, and,
+    at warp_upsample=2, K2 at the pipe's separable calls (k2_pipe, its rows
+    in K2_PIPE); returns
     each one's worst error and its time, the plain version's and the nearest
     PyTorch call's at the ADA step's call (the 536^2 canvas in the pipe's
     bf16), and for K4 its reference design's time there. `autograd`: then
@@ -1177,6 +1315,8 @@ def phase_warp(dev, batch=WARP_BATCH, upsamples=(2, 1), tag="[10 warp]", autogra
                   f"whole/chunked/direct by the plan (computed on the host, not measured) "
                   + ", ".join(f"{k} {v}" for k, v in staged.items())
                   + ("; K4-bwd repeats to the bit" if i == 0 else ""), flush=True)
+    if 2 in upsamples:                 # K2 beside the warp: the pipe's separable calls
+        K2_PIPE[f"{batch[0]}x{batch[1]}"] = k2_pipe(dev, batch, f"{tag} K2")
     if not autograd:
         return ((worst["K4"], *path["K4"]), (worst["K4-bwd"], *path["K4-bwd"]))
     # Autograd through K4 on the card: first order launches K4-bwd, second order K4.
@@ -1282,9 +1422,9 @@ def phase_aug_parity(dev):
     got = run(copy.deepcopy(G).to(dev), copy.deepcopy(D).to(dev), dev)
     ran = tuple(k.launches - b for k, b in zip(kernels, before))
     # the pipe 1 K4; Gmain 1 K4 + 1 K4-bwd; Dr1 1 K4 + 1 K4-bwd + 1 K4 (R1's backward).
-    # K2: 4 beside each K4 and K4-bwd (24), G forward and backward (2 kG), D forward
+    # K2: 2 beside each K4 and K4-bwd (12), G forward and backward (2 kG), D forward
     # and backward in Gmain, forward, first-order grad and its backward in Dr1 (6 kD)
-    k2 = 24 + 2 * k2_per_synthesis(G.synthesis) + 6 * k2_per_d(D)
+    k2 = 12 + 2 * k2_per_synthesis(G.synthesis) + 6 * k2_per_d(D)
     check(ran == (4, 2, k2),
           f"the card run launched K4, K4-bwd, K2 {ran} times, expected (4, 2, {k2})")
     msgs = []
@@ -4264,7 +4404,8 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, k2, launches, moco, cli, moco_ranks):
     K1-bwd's records at one rank's image D skips, K4's and K4-bwd's at one
     rank's 48-channel warp). `k2` is phase 3b's: K2's record is G's r = 256
     up-conv call at 16 x 3, with the sums over one forward's calls and their
-    adjoints, and every call's numbers."""
+    adjoints, every call's numbers, and the ADA pipe's separable calls at
+    each batch phase_warp held them (K2_PIPE) and in phase 3b."""
     warp = "stylegan_v_tpu/ops/grid_sample.py:33 (XLA gather; no Pallas kernel)"
     conv = "depthwise, stride 2, padding 1, in the input's dtype"
     near = "not the same function (border half pixel)"
@@ -4304,8 +4445,11 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, k2, launches, moco, cli, moco_ranks):
                                     "the input's dtype)",
                     "library_ms": head["library_ms"],
                     "share_of_bound": head["share_of_bound"],
+                    "kernel_ms": head["kernel_ms"],
                     "shape": "G's r = 256 up=2 conv, [48, 128, 128, 128] bf16 -> 258^2",
-                    "one_forward_16x3": sums, "calls": rows})
+                    "one_forward_16x3": sums, "calls": rows,
+                    "separable_pipe": dict(K2_PIPE, **{"16x9 (phase 3b)": [
+                        r for r in rows if r["name"].startswith("augment")]})})
     moco_launches, moco_k1, moco_k1_bwd, moco_k4, moco_k4_bwd = moco
     for i, rec in enumerate(records):
         rec["mocogan_launches_per_step"] = {"without_r1": moco_launches[False][i],

@@ -15,7 +15,7 @@ plain version on a CPU tensor). One case takes the kernel pair K1 / K1-bwd:
 up=1, down=2, a 4x4 filter and padding [1,1,1,1], with even H and W. It runs
 `fir_kernels._DownFirX2`, whose forward is K1 (`downfirdn2d_x2`) and whose
 backward is K1-bwd. Every other case runs `_UpFirDn2d`, whose forward is K2
-(`upfirdn2d_kernel.upfirdn2d_k2`, one launch a filter pass) and whose
+(`upfirdn2d_kernel.upfirdn2d_k2`, one launch a call) and whose
 backward is upfirdn2d again with the filter flipped, up and down swapped
 and the padding mirrored (reference upfirdn2d.py:187-230), i.e. K2 again,
 so every order of derivative is a forward FIR pass. Left to autograd, the

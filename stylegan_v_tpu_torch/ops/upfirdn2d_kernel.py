@@ -1,4 +1,4 @@
-"""K2: the general FIR resampler upfirdn2d, one filter pass a launch.
+"""K2: the general FIR resampler upfirdn2d, one launch a call.
 
 `upfirdn2d_k2(x, f, up, down, padding, flip_filter, gain)` computes
 upfirdn2d (ops/upfirdn2d.py) for every case but K1's: a 2-D filter in one
@@ -6,12 +6,12 @@ pass, a separable (1-D) filter in two, horizontal then vertical, as its plain
 version `upfirdn2d_k2_plain` does. A pass zero-inserts by `up`, pads (a
 negative pad crops), FIR-filters and decimates by `down`.
 
-On a CUDA tensor each pass launches the kernel of csrc/upfirdn2d.cu (see the
-note there) or the wrapper raises; on a CPU tensor it runs the plain version,
-whose pass is a zero-insert, an `F.pad` and a depthwise `F.conv2d`. Each
-launch adds one to `upfirdn2d_k2.launches`. The filter goes in as float32 taps
-rounded to the input's dtype, as the plain version's `F.conv2d` takes it, and
-each output sums its taps in float32, rows then columns, and rounds once.
+On a CUDA tensor the call launches the kernel of csrc/upfirdn2d.cu once (see
+the note there) or the wrapper raises; on a CPU tensor it runs the plain
+version, whose pass is a zero-insert, an `F.pad` and a depthwise `F.conv2d`.
+Each launch adds one to `upfirdn2d_k2.launches`. The filter goes in as
+float32 taps rounded to the input's dtype, as the plain version's `F.conv2d`
+takes it, and each output of a pass sums its taps in float32 and rounds once.
 
 What the kernel takes (`k2_refusal` names what it does not): float32 or
 bfloat16, contiguous NCHW; per axis up and down (1, 1), (2, 1) or (1, 2);
@@ -19,13 +19,14 @@ a filter of at most 4x4 with the same up and down on both axes (and, at up 2,
 the same parity of the two leading pads), or a row [1, fw] or column [fh, 1]
 of at most 16 taps that leaves the other axis alone.
 
-`k2_plan_2d` (a 2-D pass) and `k2_plan` (a row or column pass) are the
-launch geometry, computed here so that the CPU tests can check that the
-tiles cover every output once and read inside their windows. A 2-D pass
-on bf16 whose filter is exactly the outer product of two factors after
-rounding to bf16 (`rank1_factors`; the main path's always is) sums rows,
-then columns; any other sums in 2-D, in the plain version's order.
-`pass_mode` says which.
+`k2_plan_2d` (a 2-D pass) and `k2_plan_sep` (a separable call: both passes
+in one launch, the intermediate in shared memory; a lone row or column goes
+through it with a one-tap other axis) are the launch geometry, computed
+here so that the CPU tests can check that the tiles cover every output once
+and read inside their windows, and emulate the kernels. A 2-D pass on bf16
+whose filter is exactly the outer product of two factors after rounding to
+bf16 (`rank1_factors`; the main path's always is) sums rows, then columns;
+any other sums in 2-D, in the plain version's order. `pass_mode` says which.
 
 `aten_route()` is the one documented way around the kernel: inside it,
 `upfirdn2d` on a CUDA tensor runs the plain version's ATen ops, which
@@ -36,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import math
 from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,9 +46,7 @@ import torch.nn.functional as F
 
 from .cuda_build import DTYPE_CODES, entry_point, launch, on_cuda
 
-THREADS = 256          # threads a block aims at (at most K2_MAX_THREADS, csrc/upfirdn2d.cu)
-RUN_X, RUN_Y = 2, 4    # outputs a thread computes in a 1-D pass: 2 columns x 4 rows
-MAX_STAGE_BYTES = 96 * 1024
+THREADS = 256          # threads a block of either pass runs
 # The 2-D pass (csrc/upfirdn2d.cu, namespace k2d): 256 threads, a ring of 3
 # windows, at least 3 blocks an SM by registers; runs in `run_2d`.
 STAGES, MIN_BLOCKS = 3, 3
@@ -56,20 +56,29 @@ SM_SHARED_BYTES = 228 * 1024   # an H100 SM's shared memory, 1 KB of it reserved
 MAX_DYNAMIC_SMEM = 227 * 1024
 WALK_UP2 = 4                   # tiles a block walks at least at up 2, where a call is small
 MIN_ITEMS = 64                 # ... as long as a tile keeps two warps' runs
-N_2D = 4                       # VARIANTS[:N_2D] are the 2-D pass's, the rest the 1-D pass's
+N_2D = 4                       # VARIANTS[:N_2D] are the 2-D pass's, the rest the separable's
+# The separable pass (namespace ksep): 256 threads, a ring of 2 windows and
+# the intermediate, `sep_blocks` blocks an SM; a column-pass run is RUN_C
+# output rows by a 16-byte chunk, a row-pass run `run_r` intermediate columns.
+RUN_C = 4
+SEP_MAX_TILE_H = 64            # output rows of a tile, at most
+SEP_MIN_TILE_W = 128           # its columns, at least (where the output has as many)
+AXES = ((1, 1, 0), (2, 1, 0), (2, 1, 1), (1, 2, 0))   # an axis's (up, down, phase) it takes
+EXACT_TAPS, GUARDED_TAPS = 12, 16
 # The instantiations of csrc/upfirdn2d.cu, in the order of its K2_VARIANTS:
 # (filter rows, filter columns) held, then per axis (up, down, phase) for y
-# and x, the phase being the leading pad mod up.
+# and x, the phase being the leading pad mod up. A separable one holds 12
+# taps exactly, or, the last (GUARDED_SEP), at most 16, guarded, with each
+# axis's (up, down, phase) read from the plan at run time (0 here).
+GUARDED_SEP = (GUARDED_TAPS, GUARDED_TAPS, 0, 0, 0, 0, 0, 0)
 VARIANTS: Tuple[Tuple[int, ...], ...] = (
     (4, 4, 1, 1, 0, 1, 1, 0), (4, 4, 2, 1, 0, 2, 1, 0), (4, 4, 2, 1, 1, 2, 1, 1),
     (4, 4, 1, 2, 0, 1, 2, 0),
-    (1, 16, 1, 1, 0, 1, 1, 0), (1, 16, 1, 1, 0, 2, 1, 0), (1, 16, 1, 1, 0, 2, 1, 1),
-    (1, 16, 1, 1, 0, 1, 2, 0),
-    (16, 1, 1, 1, 0, 1, 1, 0), (16, 1, 2, 1, 0, 1, 1, 0), (16, 1, 2, 1, 1, 1, 1, 0),
-    (16, 1, 1, 2, 0, 1, 1, 0),
+    (12, 12, 2, 1, 0, 2, 1, 0), (12, 12, 1, 2, 0, 1, 2, 0), GUARDED_SEP,
 )
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(ctypes.c_float), ctypes.c_int,
              ctypes.c_int, ctypes.POINTER(ctypes.c_int64), ctypes.c_void_p)
+N_TAPS = 32                    # the floats of the taps array the C entry point reads
 
 _ATEN_ROUTE = [0]
 
@@ -149,18 +158,54 @@ def upfirdn2d_k2_plain(x: torch.Tensor, f, up, down, padding, flip_filter: bool,
 
 # ------------------------------------------------------- what the kernel takes
 
+def _axis(up: int, down: int, pad0: int) -> Optional[Tuple[int, int, int]]:
+    """An axis's (up, down, phase), where the separable pass takes it."""
+    a = (up, down, pad0 % up)
+    return a if a in AXES else None
+
+
+def sep_variant(row: Pass, col: Pass) -> Optional[int]:
+    """The index in VARIANTS of the separable instantiation that computes the
+    row pass `row` then the column pass `col`, or None."""
+    fh, fw = col.k.shape[0], row.k.shape[1]
+    y, x = _axis(col.up[1], col.down[1], col.pad[2]), _axis(row.up[0], row.down[0], row.pad[0])
+    if y is None or x is None or max(fh, fw) > GUARDED_TAPS:
+        return None
+    exact = (EXACT_TAPS, EXACT_TAPS) + y + x
+    if fh == fw == EXACT_TAPS and exact in VARIANTS:
+        return VARIANTS.index(exact)
+    return VARIANTS.index(GUARDED_SEP)
+
+
+def sep_passes(ps: Sequence[Pass]) -> Optional[Tuple[Pass, Pass]]:
+    """The (row, column) passes the separable kernel runs for the passes ps
+    of a call: a separable filter's two; a lone row [1, fw] or column [fh, 1]
+    that leaves the other axis alone, with a one-tap other axis (the
+    identity, which rounds nothing); else None."""
+    if len(ps) == 2:
+        return ps[0], ps[1]
+    p, = ps
+    (fh, fw), (ux, uy), (dx, dy), (px0, px1, py0, py1) = p.k.shape, p.up, p.down, p.pad
+    one = torch.ones(1, 1)
+    if fh == 1 and (uy, dy) == (1, 1):
+        return (Pass(p.k, (ux, 1), (dx, 1), (px0, px1, 0, 0)),
+                Pass(one, (1, 1), (1, 1), (0, 0, py0, py1)))
+    if fw == 1 and (ux, dx) == (1, 1):
+        return (Pass(one, (1, 1), (1, 1), (px0, px1, 0, 0)),
+                Pass(p.k, (1, uy), (1, dy), (0, 0, py0, py1)))
+    return None
+
+
 def pass_variant(p: Pass) -> Optional[int]:
-    """The index in VARIANTS of the instantiation that computes pass p, or None."""
+    """The index in VARIANTS of the instantiation that computes pass p alone:
+    the 2-D pass's where it takes p, else the separable pass's for a lone row
+    or column (a separable filter's passes are each one), else None."""
     fh, fw = p.k.shape
     (ux, uy), (dx, dy), (px0, _, py0, _) = p.up, p.down, p.pad
-    candidates = []
-    if fh <= 4 and fw <= 4:
-        candidates.append((4, 4, uy, dy, py0 % uy, ux, dx, px0 % ux))
-    if fh == 1 and fw <= 16:
-        candidates.append((1, 16, uy, dy, 0, ux, dx, px0 % ux))
-    if fw == 1 and fh <= 16:
-        candidates.append((16, 1, uy, dy, py0 % uy, ux, dx, 0))
-    return next((VARIANTS.index(c) for c in candidates if c in VARIANTS), None)
+    if fh <= 4 and fw <= 4 and (4, 4, uy, dy, py0 % uy, ux, dx, px0 % ux) in VARIANTS[:N_2D]:
+        return VARIANTS.index((4, 4, uy, dy, py0 % uy, ux, dx, px0 % ux))
+    sep = sep_passes([p])
+    return None if sep is None else sep_variant(*sep)
 
 
 def k2_refusal(x_shape, dtype, contiguous: bool, f, up, down, padding,
@@ -192,106 +237,12 @@ def k2_refusal(x_shape, dtype, contiguous: bool, f, up, down, padding,
 
 # -------------------------------------------------------------- the launch plan
 
-class K2Plan(NamedTuple):
-    """The launch geometry of one K2 pass; the field order is the int64
-    array the C entry point reads (csrc/upfirdn2d.cu:PlanField).
-
-    The output [planes, out_h, out_w] is cut into tiles of P planes x tile_h
-    x tile_w outputs; tile t is (t // (tiles_w tiles_h), t // tiles_w %
-    tiles_h, t % tiles_w) in (planes, rows, columns), one block each. Thread
-    k of nx ny P computes RUN_Y rows x RUN_X columns at (k // (nx ny),
-    k // nx % ny, k % nx) in runs; what falls outside the output is masked.
-    The block first copies its window, win_h x win_w source elements per
-    plane from source row step_y th + base_y and column step_x tw + base_x
-    (zero outside the plane), in `chunk`-element copies (cpr a row); source
-    column base_x + step_x tw + lead_x + (o D - r) / U feeds output column
-    tile_w tw + o where (o D + t - r) is a multiple of U for tap t."""
-    variant: int
-    planes: int
-    src_h: int
-    src_w: int
-    out_h: int
-    out_w: int
-    fh: int
-    fw: int
-    planes_per_tile: int
-    nx: int
-    ny: int
-    threads: int
-    tile_h: int
-    tile_w: int
-    tiles_h: int
-    tiles_w: int
-    tiles: int
-    step_y: int
-    step_x: int
-    base_y: int
-    base_x: int
-    lead_x: int
-    win_h: int
-    win_w: int
-    chunk: int
-    chunk_bytes: int
-    cpr: int
-    stage_bytes: int
-
-
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
 def _round_up(a: int, b: int) -> int:
     return _ceil_div(a, b) * b
-
-
-def _chunk(src_w: int, itemsize: int, aligned16: bool) -> int:
-    """Elements a window copy moves at once: 16, 8 or 4 bytes where every
-    source row is whole such chunks (and the input starts on 16 bytes),
-    else one element."""
-    if aligned16:
-        for nbytes in (16, 8, 4):
-            if (src_w * itemsize) % nbytes == 0 and nbytes >= itemsize:
-                return nbytes // itemsize
-    return 1
-
-
-def k2_plan(variant: int, planes: int, src_h: int, src_w: int, fh: int, fw: int,
-            pad: Sequence[int], itemsize: int, aligned16: bool = True) -> K2Plan:
-    """The tile plan of one pass of VARIANTS[variant] over [planes, src_h,
-    src_w] with an fh x fw filter and pad (px0, px1, py0, py1)."""
-    FY, FX, UY, DY, RY, UX, DX, RX = VARIANTS[variant]
-    px0, px1, py0, py1 = pad
-    assert py0 % UY == RY and px0 % UX == RX and fh <= FY and fw <= FX
-    out_h = (src_h * UY + py0 + py1 - fh) // DY + 1
-    out_w = (src_w * UX + px0 + px1 - fw) // DX + 1
-    chunk = _chunk(src_w, itemsize, aligned16)
-    runs_x = _ceil_div(out_w, RUN_X)
-    tiles_w = _ceil_div(runs_x, 64)
-    nx = _round_up(_ceil_div(runs_x, tiles_w), 8)     # tile_w D / U a multiple of 8
-    runs_y = _ceil_div(out_h, RUN_Y)
-    ny = max(1, min(runs_y, THREADS // nx))
-    cy0, cx0 = (RY - py0) // UY, (RX - px0) // UX    # first source row / column of tile 0
-    lead_x = cx0 % chunk
-
-    def window(ny):
-        tile_h, tile_w = ny * RUN_Y, nx * RUN_X
-        win_h = ((tile_h - 1) * DY + FY - 1 - RY) // UY + 1
-        win_w = _round_up(lead_x + ((tile_w - 1) * DX + FX - 1 - RX) // UX + 1, chunk)
-        return tile_h, tile_w, win_h, win_w
-
-    while ny > 1 and window(ny)[2] * window(ny)[3] * itemsize > MAX_STAGE_BYTES:
-        ny //= 2
-    tile_h, tile_w, win_h, win_w = window(ny)
-    tiles_h = _ceil_div(out_h, tile_h)
-    whole = tiles_h == 1 and tiles_w == 1                  # pack small planes
-    per_tile = max(1, min(planes, THREADS // (nx * ny),
-                          MAX_STAGE_BYTES // (win_h * win_w * itemsize))) if whole else 1
-    tiles = _ceil_div(planes, per_tile) * tiles_h * tiles_w
-    stage_bytes = _round_up(per_tile * win_h * win_w * itemsize, 16)
-    return K2Plan(variant, planes, src_h, src_w, out_h, out_w, fh, fw, per_tile, nx, ny,
-                  per_tile * nx * ny, tile_h, tile_w, tiles_h, tiles_w, tiles,
-                  tile_h * DY // UY, tile_w * DX // UX, cy0, cx0 - lead_x, lead_x, win_h, win_w,
-                  chunk, chunk * itemsize, win_w // chunk, stage_bytes)
 
 
 class K2Plan2D(NamedTuple):
@@ -478,8 +429,195 @@ def k2_plan_2d(variant: int, planes: int, src_h: int, src_w: int, fh: int, fw: i
                     slot_elems, stage_bytes, *divs)
 
 
+class K2PlanSep(NamedTuple):
+    """The launch geometry of one separable call (csrc/upfirdn2d.cu,
+    namespace ksep); the field order is the int64 array the C entry point
+    reads (PlanSepField).
+
+    Tile t is (plane, th, tw) = (t // (tiles_h tiles_w), t // tiles_w %
+    tiles_h, t % tiles_w): output rows tile_h th on and columns tile_w tw on
+    of one plane. Block b of `grid` walks tiles b, b + grid, ...; its k-th
+    tile's window goes to ring slot k % 2 (slot_elems elements each): win_h
+    rows of `pitch` elements, window row j being source row base_y + step_y
+    th + j (zeros outside the plane) and its element c source column base_x
+    + step_x tw - e + c, e the shift that puts the row's copies on 16 bytes
+    (`cpr` chunks copied a row, as many as its taps read; a run's 16-byte
+    loads may reach past them, up to the pitch, into samples it does not
+    use): for row r of plane p, e = (eb + wm (p src_h + r)) mod the chunk.
+    The intermediate follows the ring: win_h rows of mid_pitch elements,
+    row j holding window row j's intermediate columns tile_w tw ... The row
+    pass's run (j, cx), runs_r a row, computes
+    `run_r` intermediate columns from cx run_r, reading window elements
+    from lead_x + e + cx run_r DX / UX on; the column pass's run (ry, cx),
+    runs_c a row, computes RUN_C output rows from ry RUN_C by one 16-byte
+    chunk of columns, reading intermediate rows from ry RUN_C DY / UY on.
+    The *_m, *_s pairs divide by runs_r, runs_c, win_h and cpr
+    (`fast_div`). uy, dy, py, ux, dx, px are the call's (up, down, phase)
+    per axis (UY ... PX above): the 12-tap instantiations hold them at
+    compile time and check them, the guarded one reads them."""
+    variant: int
+    planes: int
+    src_h: int
+    src_w: int
+    out_h: int
+    out_w: int
+    fh: int
+    fw: int
+    tile_h: int
+    tile_w: int
+    tiles_h: int
+    tiles_w: int
+    tiles: int
+    grid: int
+    step_y: int
+    step_x: int
+    base_y: int
+    base_x: int
+    lead_x: int
+    win_h: int
+    pitch: int
+    cpr: int
+    eb: int
+    wm: int
+    mid_pitch: int
+    slot_elems: int
+    smem_bytes: int
+    runs_r: int
+    runs_c: int
+    runs_r_m: int
+    runs_r_s: int
+    runs_c_m: int
+    runs_c_s: int
+    win_h_m: int
+    win_h_s: int
+    cpr_m: int
+    cpr_s: int
+    uy: int
+    dy: int
+    py: int
+    ux: int
+    dx: int
+    px: int
+
+    def axes(self) -> Tuple[int, ...]:
+        """(taps held, then per axis (up, down, phase) for y and x) of the
+        call: its instantiation's taps with the call's own axes."""
+        return VARIANTS[self.variant][:2] + (self.uy, self.dy, self.py,
+                                              self.ux, self.dx, self.px)
+
+
+def sep_blocks(variant: int) -> int:
+    """Blocks an SM of a separable instantiation: 3 at up or down 1 on x
+    at compile time, else 2 (down 2 on x, and the guarded one)."""
+    return 3 if VARIANTS[variant][6] == 1 else 2
+
+
+def run_r(variant: int) -> int:
+    """Intermediate columns of a separable call's row-pass run: 16 at up 2
+    at compile time (a chunk of bf16 input), else 8."""
+    return 16 if VARIANTS[variant][5] == 2 else 8
+
+
+def sep_segments(variant: int) -> Tuple[int, int]:
+    """(SEG, SEGY): the window samples a row-pass run reads and the
+    intermediate rows a column-pass run reads, for the taps held; for the
+    guarded instantiation, whose axes come at run time, the most any axis
+    takes (at down 2)."""
+    FY, FX, UY, DY, PY, UX, DX, PX = VARIANTS[variant]
+    if UX == 0:
+        return (run_r(variant) - 1) * 2 + FX, (RUN_C - 1) * 2 + FY
+    return (((run_r(variant) - 1) * DX + FX - 1 - PX) // UX + 1,
+            ((RUN_C - 1) * DY + FY - 1 - PY) // UY + 1)
+
+
+def load_chunks(seg: int, itemsize: int) -> int:
+    """csrc/upfirdn2d.cu's LOAD_CHUNKS: the 16-byte chunks a row-pass run
+    loads for seg samples, wherever its first lies in its chunk."""
+    return (seg // 2 + 8) // 4 if itemsize == 2 else (seg + 6) // 4
+
+
+def k2_plan_sep(variant: int, planes: int, src_h: int, src_w: int, fh: int, fw: int,
+                up: Sequence[int], down: Sequence[int], pad: Sequence[int], itemsize: int,
+                ptr_mod16: int = 0, sms: int = 132) -> K2PlanSep:
+    """The plan of one separable call of VARIANTS[variant] over [planes,
+    src_h, src_w] (the input's data pointer ptr_mod16 bytes past 16): a row
+    filter of fw taps with the x factors of up and down (x, y) and the x
+    pads (px0, px1) of pad (px0, px1, py0, py1), then a column filter of fh
+    taps with the y ones, on a card with `sms` SMs."""
+    FY, FX = VARIANTS[variant][:2]
+    (UX, UY), (DX, DY), (px0, px1, py0, py1) = up, down, pad
+    PY, PX = py0 % UY, px0 % UX
+    held = VARIANTS[variant][2:]
+    assert variant >= N_2D and fh <= FY and fw <= FX and (UY, DY, PY) in AXES
+    assert (FY == GUARDED_TAPS or fh == FY) and (FX == GUARDED_TAPS or fw == FX)
+    assert held in ((0,) * 6, (UY, DY, PY, UX, DX, PX)) and (UX, DX, PX) in AXES
+    assert ptr_mod16 % itemsize == 0
+    out_h = (src_h * UY + py0 + py1 - fh) // DY + 1
+    out_w = (src_w * UX + px0 + px1 - fw) // DX + 1
+    CH, RX = 16 // itemsize, run_r(variant)
+    first = -((px0 - PX) // UX)                   # tile 0's first source column
+    base_x = first // CH * CH
+    lead_x = first - base_x
+    wm = src_w % CH
+    eb = (ptr_mod16 // itemsize + base_x) % CH
+    emax = CH - 1 if wm else eb                   # the largest row shift
+    seg, _ = sep_segments(variant)
+
+    def columns(tile_w):
+        """(chunks copied a row, pitch, intermediate pitch) of tiles tile_w wide."""
+        span = ((tile_w - 1) * DX + fw - 1 - PX) // UX + 1    # the samples its taps read
+        last = lead_x + emax + (tile_w // RX - 1) * (RX * DX // UX)   # a row's last run
+        cpr = _ceil_div(lead_x + emax + span, CH)
+        pitch = (max(cpr, last // CH + load_chunks(seg, itemsize)) | 1) * CH  # odd: see ksep
+        return cpr, pitch, (tile_w // CH | 1) * CH
+
+    def win_h(th):
+        return ((th - 1) * DY + fh - 1 - PY) // UY + 1
+
+    # The tile that computes the least in all, by the instructions a window
+    # element copied, an intermediate and an output take (about), within a
+    # block's share of an SM's shared memory. A tile's columns are whole
+    # row-pass runs and chunks, and its input step whole chunks.
+    blocks = sep_blocks(variant)
+    budget = SM_SHARED_BYTES // blocks - 1024
+    per_mid, per_out = fw / UX + 8, fh / UY + 6
+    align = math.lcm(RX, CH, UX * CH // math.gcd(DX, UX * CH))
+    best = None
+    for tile_w in sorted({_round_up(_ceil_div(out_w, n), align)
+                          for n in range(1, _ceil_div(out_w, SEP_MIN_TILE_W) + 1)}):
+        cpr, pitch, mid_pitch = columns(tile_w)
+        tiles_w = _ceil_div(out_w, tile_w)
+        for th in range(RUN_C, min(SEP_MAX_TILE_H, _round_up(out_h, RUN_C)) + 1, RUN_C):
+            smem = (2 * pitch + mid_pitch) * win_h(th) * itemsize
+            if th > RUN_C and (smem > budget or win_h(th) > THREADS):
+                break
+            cost = tiles_w * _ceil_div(out_h, th) * (
+                win_h(th) * (cpr * CH * 0.5 + tile_w * per_mid) + th * tile_w * per_out)
+            if best is None or cost < best[0]:
+                best = (cost, tile_w, th)
+    _, tile_w, tile_h = best
+    tiles_w, step_x, runs_r = _ceil_div(out_w, tile_w), tile_w * DX // UX, tile_w // RX
+    cpr, pitch, mid_pitch = columns(tile_w)
+    tiles_h = _ceil_div(out_h, tile_h)
+    tile_h = _round_up(_ceil_div(out_h, tiles_h), RUN_C)
+    wh = win_h(tile_h)
+    tiles = planes * tiles_h * tiles_w
+    slot_elems = wh * pitch
+    smem_bytes = (2 * pitch + mid_pitch) * wh * itemsize
+    per_sm = min(blocks, SM_SHARED_BYTES // (smem_bytes + 1024))
+    assert per_sm >= 1 and smem_bytes <= MAX_DYNAMIC_SMEM and wh <= THREADS, \
+        "a window too large for a block"
+    grid = min(tiles, sms * per_sm)
+    runs_c = tile_w // CH
+    divs = [v for d in (runs_r, runs_c, wh, cpr) for v in fast_div(d)]
+    return K2PlanSep(variant, planes, src_h, src_w, out_h, out_w, fh, fw, tile_h, tile_w,
+                     tiles_h, tiles_w, tiles, grid, tile_h * DY // UY, step_x,
+                     -((py0 - PY) // UY), base_x, lead_x, wh, pitch, cpr, eb, wm, mid_pitch,
+                     slot_elems, smem_bytes, runs_r, runs_c, *divs, UY, DY, PY, UX, DX, PX)
+
+
 class _Launch(NamedTuple):
-    """One pass's launch: its output shape, instantiation, plan and taps."""
+    """A call's launch: its output shape, instantiation, plan and taps."""
     out_shape: Tuple[int, int, int, int]
     variant: int
     plan: ctypes.Array
@@ -509,36 +647,63 @@ def pass_mode(held: np.ndarray, fh: int, fw: int, dtype: torch.dtype):
 
 
 def pass_launch(p: Pass, x_shape, dtype: torch.dtype, ptr_mod16: int,
-                sms: int = 132) -> Tuple[int, NamedTuple, np.ndarray]:
-    """(variant, plan, taps) of pass p on x [N, C, H, W] of dtype whose data
-    pointer lies ptr_mod16 bytes past 16: taps are the 24 floats the C entry
-    point reads, the held [FY][FX] rounded to x's dtype, then for a 2-D pass
+                sms: int = 132) -> Tuple[int, K2Plan2D, np.ndarray]:
+    """(variant, plan, taps) of the 2-D pass p on x [N, C, H, W] of dtype
+    whose data pointer lies ptr_mod16 bytes past 16: taps are the N_TAPS
+    floats the C entry point reads, the [4][4] taps rounded to x's dtype, then
     its factors fy, fx (zero where the filter is not their outer product)."""
     N, C, H, W = x_shape
     variant = pass_variant(p)
-    (fh, fw), (FY, FX) = p.k.shape, VARIANTS[variant][:2]
-    held = np.zeros((FY, FX), np.float32)     # the taps rounded to x's dtype, as the plain conv
+    assert variant < N_2D
+    fh, fw = p.k.shape
+    held = np.zeros((4, 4), np.float32)       # the taps rounded to x's dtype, as the plain conv
     held[:fh, :fw] = p.k.to(dtype).float().numpy()
-    taps = np.zeros(24, np.float32)
+    taps = np.zeros(N_TAPS, np.float32)
     taps[:16] = held.reshape(-1)
+    mode, factors = pass_mode(held, fh, fw, dtype)
+    if factors is not None:
+        taps[16:20], taps[20:24] = factors
     itemsize = torch.empty((), dtype=dtype).element_size()
-    if variant < N_2D:
-        mode, factors = pass_mode(held, fh, fw, dtype)
-        if factors is not None:
-            taps[16:20], taps[20:] = factors
-        plan = k2_plan_2d(variant, N * C, H, W, fh, fw, p.pad, itemsize, ptr_mod16, mode, sms)
-    else:
-        plan = k2_plan(variant, N * C, H, W, fh, fw, p.pad, itemsize, ptr_mod16 == 0)
+    plan = k2_plan_2d(variant, N * C, H, W, fh, fw, p.pad, itemsize, ptr_mod16, mode, sms)
     return variant, plan, taps
 
 
-def _call_launches(x: torch.Tensor, f, up, down, padding, flip_filter: bool,
-                   gain: float) -> List[_Launch]:
-    """The launches of upfirdn2d_k2(x, f, ...) for x's shape, dtype, device
-    and alignment; raises on what the kernel does not take. For a filter
-    tensor they are remembered by its identity and version (the entry holds
-    the tensor, so its identity stays unique), so that a repeated call costs
-    a dict lookup and no host work."""
+def sep_launch(row: Pass, col: Pass, x_shape, dtype: torch.dtype, ptr_mod16: int,
+               sms: int = 132) -> Tuple[int, K2PlanSep, np.ndarray]:
+    """(variant, plan, taps) of the separable call that runs the row pass
+    `row`, then the column pass `col`, on x as pass_launch's: taps are the
+    column filter's 16, then the row filter's 16, rounded to x's dtype."""
+    N, C, H, W = x_shape
+    ky = col.k[:, 0].to(dtype).float().numpy()
+    kx = row.k[0].to(dtype).float().numpy()
+    taps = np.zeros(N_TAPS, np.float32)
+    taps[:len(ky)], taps[16:16 + len(kx)] = ky, kx
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    variant = sep_variant(row, col)
+    plan = k2_plan_sep(variant, N * C, H, W, len(ky), len(kx), (row.up[0], col.up[1]),
+                       (row.down[0], col.down[1]),
+                       (row.pad[0], row.pad[1], col.pad[2], col.pad[3]), itemsize, ptr_mod16,
+                       sms)
+    return variant, plan, taps
+
+
+def call_launch(ps: Sequence[Pass], x_shape, dtype: torch.dtype, ptr_mod16: int,
+                sms: int = 132) -> Tuple[int, NamedTuple, np.ndarray]:
+    """(variant, plan, taps) of the one launch of a call whose passes are ps:
+    a 2-D pass, or the separable kernel's (a separable filter, or a lone row
+    or column)."""
+    if len(ps) == 1 and pass_variant(ps[0]) < N_2D:
+        return pass_launch(ps[0], x_shape, dtype, ptr_mod16, sms)
+    return sep_launch(*sep_passes(ps), x_shape, dtype, ptr_mod16, sms)
+
+
+def _call_launch(x: torch.Tensor, f, up, down, padding, flip_filter: bool,
+                 gain: float) -> _Launch:
+    """The launch of upfirdn2d_k2(x, f, ...) for x's shape, dtype, device and
+    alignment; raises on what the kernel does not take. For a filter tensor
+    it is remembered by its identity and version (the entry holds the
+    tensor, so its identity stays unique), so that a repeated call costs a
+    dict lookup and no host work."""
     key = (tuple(x.shape), x.dtype, x.device.index, x.data_ptr() % 16, tuple(up), tuple(down),
            tuple(padding), bool(flip_filter), float(gain))
     if isinstance(f, torch.Tensor):
@@ -549,45 +714,41 @@ def _call_launches(x: torch.Tensor, f, up, down, padding, flip_filter: bool,
     why = k2_refusal(key[0], x.dtype, True, ft, up, down, padding, flip_filter, gain)
     if why is not None:
         raise ValueError(f"upfirdn2d_k2 {why}")
-    launches, shape, ptr_mod16, sms = [], key[0], key[3], _sm_count(x.device)
-    for p in passes(ft, up, down, padding, flip_filter, gain):
-        variant, plan, taps = pass_launch(p, shape, x.dtype, ptr_mod16, sms)
-        if plan.tiles >= 2 ** 31:
-            raise ValueError(f"upfirdn2d_k2: {plan.tiles} tiles exceed the grid")
-        shape = (*shape[:2], plan.out_h, plan.out_w)
-        launches.append(_Launch(shape, variant, (ctypes.c_int64 * len(plan))(*plan),
-                                (ctypes.c_float * 24)(*taps.tolist())))
-        ptr_mod16 = 0                         # a later pass reads a fresh torch.empty
+    variant, plan, taps = call_launch(passes(ft, up, down, padding, flip_filter, gain), key[0],
+                                      x.dtype, key[3], _sm_count(x.device))
+    if plan.tiles >= 2 ** 31:
+        raise ValueError(f"upfirdn2d_k2: {plan.tiles} tiles exceed the grid")
+    out = _Launch((*key[0][:2], plan.out_h, plan.out_w), variant,
+                  (ctypes.c_int64 * len(plan))(*plan), (ctypes.c_float * N_TAPS)(*taps.tolist()))
     if isinstance(f, torch.Tensor):
         if len(_CALLS) >= 4096:
             _CALLS.clear()
-        _CALLS[(id(f),) + key] = (f, f._version, launches)
-    return launches
+        _CALLS[(id(f),) + key] = (f, f._version, out)
+    return out
 
 
 def upfirdn2d_k2(x: torch.Tensor, f, up, down, padding, flip_filter: bool = False,
                  gain: float = 1.0) -> torch.Tensor:
-    """upfirdn2d's every pass as a K2 launch (see the module docstring).
+    """upfirdn2d as one K2 launch (see the module docstring).
 
     up, down: (x, y) factors; padding: (px0, px1, py0, py1) w.r.t. the
     upsampled image; f: a host filter [fh, fw] or, separable, [taps]. A CPU
     tensor goes to `upfirdn2d_k2_plain`. A CUDA tensor goes to the kernel, one
-    launch a pass, or raises on what the kernel does not take. No autograd
+    launch a call, or raises on what the kernel does not take. No autograd
     graph: ops/upfirdn2d.py:_UpFirDn2d carries the gradient.
     """
     if not on_cuda(x, "upfirdn2d_k2"):
         return upfirdn2d_k2_plain(x, f, up, down, padding, flip_filter, gain)
-    if not x.is_contiguous():             # the one refusal the remembered launches miss
+    if not x.is_contiguous():             # the one refusal the remembered launch misses
         raise ValueError("upfirdn2d_k2 needs a contiguous NCHW tensor")
-    fn, device = entry_point("upfirdn2d", _ARGTYPES), x.device.index
-    for L in _call_launches(x, f, up, down, padding, flip_filter, gain):
-        y = torch.empty(L.out_shape, dtype=x.dtype, device=x.device)
-        if y.numel():
-            launch("upfirdn2d", fn, (x.data_ptr(), y.data_ptr(), L.taps, DTYPE_CODES[x.dtype],
-                                     L.variant, L.plan), device)
-            upfirdn2d_k2.launches += 1
-        x = y
-    return x
+    L = _call_launch(x, f, up, down, padding, flip_filter, gain)
+    y = torch.empty(L.out_shape, dtype=x.dtype, device=x.device)
+    if y.numel():
+        launch("upfirdn2d", entry_point("upfirdn2d", _ARGTYPES),
+               (x.data_ptr(), y.data_ptr(), L.taps, DTYPE_CODES[x.dtype], L.variant, L.plan),
+               x.device.index)
+        upfirdn2d_k2.launches += 1
+    return y
 
 
 upfirdn2d_k2.launches = 0

@@ -27,10 +27,16 @@ odd in length, how it sums (0 the 2-D sum guarded by the filter's size, 1
 the 2-D sum of 4x4 taps, 2 rows then columns), then up, down and phase for
 y and x; at 32^2-256^2 D's pre-filter is 2d <bf16,true,2,1,1,0,1,1,0> and
 its adjoint 2d <bf16,false,2,1,1,0,1,1,0>.
-The 1-D pass, and every pass of the earlier design (--repo a checkout
-whose 2-D pass predates the persistent ring), "<...>": dtype, odd rows,
-filter rows and columns held, then up, down and phase for y and x; there
-D's pre-filter is <bf16,true,4,4,1,1,0,1,1,0>.
+The separable pass of this design, both passes in one launch, "sep <...>":
+dtype, the column and row taps held (12 exactly, 16 at most), then up, down
+and phase for y and x; the ADA pipe's 2x up and its 2x down's adjoint are
+sep <bf16,12,12,2,1,0,2,1,0>, its 2x down and its 2x up's adjoint sep
+<bf16,12,12,1,2,0,1,2,0>. The row and column passes of an earlier design
+(--repo a checkout from before the separable pass took one launch), and
+every pass of one whose 2-D pass predates the persistent ring, "<...>":
+dtype, odd rows, filter rows and columns held, then up, down and phase for
+y and x; there the pipe's 2x up is <bf16,false,1,16,1,1,0,2,1,0> then
+<bf16,false,16,1,2,1,0,1,1,0>.
 The last line is the whole result as one JSON object.
 
 --repo DIR imports the port from the checkout at DIR instead of this one,
@@ -50,7 +56,7 @@ import sys
 import time
 
 CLASSES = (  # (class, substrings of the kernel name), the first match wins
-    ("K2 upfirdn2d", ("upfirdn2d_kernel", "upfirdn2d_2d_kernel")),
+    ("K2 upfirdn2d", ("upfirdn2d_kernel", "upfirdn2d_2d_kernel", "upfirdn2d_sep_kernel")),
     ("K1, K1-bwd", ("downfirdn2d_x2",)),
     ("K4, K4-bwd", ("affine_warp",)),
     ("depthwise convs (plain upfirdn2d)", ("depthwise", "conv2d_grouped")),
@@ -72,8 +78,10 @@ def classify(name: str) -> str:
 
 def k2_instantiation(name: str) -> str:
     """K2's template arguments in a kernel name, "2d <...>" for this design's
-    2-D pass and "<...>" for the 1-D pass and the earlier design, or ""."""
-    for kernel, label in (("upfirdn2d_2d_kernel<", "2d "), ("upfirdn2d_kernel<", "")):
+    2-D pass, "sep <...>" for its separable pass and "<...>" for an earlier
+    design's passes, or ""."""
+    for kernel, label in (("upfirdn2d_2d_kernel<", "2d "), ("upfirdn2d_sep_kernel<", "sep "),
+                          ("upfirdn2d_kernel<", "")):
         if kernel in name:
             args = name.split(kernel, 1)[1].split(">", 1)[0]
             args = args.replace("__nv_bfloat16", "bf16").replace("float", "f32")

@@ -285,7 +285,7 @@ def test_kernel_matches_plain_on_card(cuda, dtype, filt):
 @pytest.mark.cuda
 def test_upfirdn2d_sends_only_the_k1_case_to_the_kernel(cuda):
     """K1's case (down 2, pad 1, 4x4, even H and W) goes to K1; every other
-    case to K2, one launch a filter pass."""
+    case to K2, one launch a call."""
     f = setup_filter([1, 3, 3, 1])
     x = torch.randn(2, 4, 16, 16, device=cuda)
     before, k2 = downfirdn2d_x2.launches, upfirdn2d_k2.launches
@@ -599,8 +599,9 @@ K2_EDGE = [  # (x shape, dtype): whole 16-byte rows or not, packed planes, > 65,
 @pytest.mark.parametrize("which", ["fwd", "adj"])
 @pytest.mark.parametrize("case", list(CASES))
 def test_k2_matches_plain_on_card(cuda, case, which, dtype):
-    """Each main-path call and its adjoint, one launch a pass, from an
-    aligned and a misaligned input; the same result on a second call."""
+    """Each main-path call and its adjoint, one launch a call (a separable
+    call's two passes in one), from an aligned and a misaligned input; the
+    same result on a second call."""
     shape, f, kw = CASES[case]
     for scale in (1, 7):                   # a small and a larger plane
         n, c, h, w = shape
@@ -611,7 +612,7 @@ def test_k2_matches_plain_on_card(cuda, case, which, dtype):
         got = upfirdn2d_k2(x, *args)
         again = upfirdn2d_k2(x, *args)
         torch.cuda.synchronize()
-        assert upfirdn2d_k2.launches - before == 2 * len(passes(*args))
+        assert upfirdn2d_k2.launches - before == 2
         assert_close(got, upfirdn2d_k2_plain(x, *args), dtype)
         assert torch.equal(got, again)
         xm = torch.empty(x.numel() + 1, device=cuda, dtype=dtype)[1:].view(x.shape)
@@ -660,6 +661,28 @@ def test_k2_2d_sum_matches_plain_on_card(cuda, case, which, dtype):
         assert_close(got, upfirdn2d_k2_plain(x, *args), dtype)
         assert torch.equal(upfirdn2d_k2(x, *args), got)
         assert torch.equal(upfirdn2d_k2(xm, *args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["fwd", "adj"])
+@pytest.mark.parametrize("case", ["aug_up", "aug_down"])
+@pytest.mark.parametrize("batch", [(16, 9), (8, 48)])
+def test_k2_separable_matches_plain_at_the_pipes_shapes(cuda, batch, case, which, dtype):
+    """The ADA pipe's 12-tap 2x up [N, C, 268^2] -> 536^2 and 2x down
+    [N, C, 524^2] -> 256^2 and their adjoints, at the FFS-256 step's 16 x 9
+    and the MoCoGAN step's 8 x 48: one launch, equal to the plain version's
+    two convolutions to the bit."""
+    _, f, kw = CASES[case]
+    size = 268 if case == "aug_up" else 524
+    xs, *args = forward_and_adjoint((*batch, size, size), f, kw)[which == "adj"]
+    x = torch.randn(xs, generator=torch.Generator(device=cuda).manual_seed(6),
+                    device=cuda).to(dtype)
+    before = upfirdn2d_k2.launches
+    got = upfirdn2d_k2(x, *args)
+    torch.cuda.synchronize()
+    assert upfirdn2d_k2.launches - before == 1
+    assert torch.equal(got, upfirdn2d_k2_plain(x, *args))
 
 
 @pytest.mark.cuda

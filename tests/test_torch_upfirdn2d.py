@@ -7,22 +7,28 @@
     down (a crop). Value, vjp and second order (tests/test_torch_grads.py's
     check_op): float32, values and first order to 1e-4 of scale, second
     order to 1e-3.
-  * The launch plan (`k2_plan`) of every pass of those calls and of their
-    adjoints, at the FFS-256 step's shapes (16 videos x 3 frames), bf16 and
-    float32, aligned or not: every output exactly once, every tap of every
-    output read from the window cell that holds its source sample, and
-    every read inside the window and the thread's registers.
-  * An emulation of the kernel in numpy (the window copy and each thread's
-    polyphase loops, as csrc/upfirdn2d.cu indexes them) against the plain
-    version at small shapes, including the adjoints: float32 to 1e-5 of
-    scale (another summation order); bf16 to 1e-2 (both round once from a
-    float32 sum of the same bf16 taps).
-  * Routing: every upfirdn2d call and every K2 pass that a reduced-width
-    FFS-256 G, D and bgc pipe make in a forward and a backward, recorded by
-    hooks, takes K1 or K2 on a CUDA tensor; the counts a G and a D forward
-    make (chip_smoke.py's launch counts build on them).
+  * The launch plans of every call and its adjoint at the FFS-256 step's
+    shapes (16 videos x 3 frames; the separable calls also at the MoCoGAN
+    pipe's 8 x 48 channels), bf16 and float32, aligned or not: the 2-D
+    pass's (`k2_plan_2d`) and the separable call's (`k2_plan_sep`, both
+    passes in one launch): every output exactly once, every tap of every
+    output read from the window cell that holds its source sample through
+    its ring slot, every read inside its slot, every copy on 16 bytes.
+  * Emulations of both kernels in numpy (the copies into each block's ring,
+    each thread's polyphase loops, as csrc/upfirdn2d.cu indexes them)
+    against the plain version at small shapes, including the adjoints: the
+    separable one, its intermediate rounded to the dtype and each pass's
+    taps summed by fused multiply-adds in tap order, to the bit (also at odd
+    widths, both phases, mixed axes and a lone row or column filter); the
+    2-D one float32 to 1e-5 of scale (another summation order), bf16 to
+    1e-2 (both round once from a float32 sum of the same bf16 taps).
+  * Routing: every upfirdn2d call that a reduced-width FFS-256 G, D and bgc
+    pipe make in a forward and a backward, recorded by hooks, takes K1 or
+    K2 on a CUDA tensor, one K2 launch a call; the counts a G and a D
+    forward make (chip_smoke.py's launch counts build on them).
   * The wrapper on a CPU tensor is the plain version and launches nothing;
-    what the kernel does not take is refused; VARIANTS equals the source's
+    a separable call on a (stand-in) CUDA tensor is one launch; what the
+    kernel does not take is refused; VARIANTS equals the source's
     K2_VARIANTS.
   * The export's ATen route: the traced graph holds only ATen ops, K2's
     wrapper is not entered while tracing, and the artifact equals the
@@ -37,8 +43,8 @@ import pytest
 import torch
 
 from stylegan_v_tpu_torch.ops import setup_filter, upfirdn2d_kernel as k2
-from stylegan_v_tpu_torch.ops.upfirdn2d_kernel import (VARIANTS, k2_plan, k2_refusal, passes,
-                                                       pass_out_hw, pass_variant, upfirdn2d_k2,
+from stylegan_v_tpu_torch.ops.upfirdn2d_kernel import (VARIANTS, k2_refusal, passes, pass_out_hw,
+                                                       pass_variant, upfirdn2d_k2,
                                                        upfirdn2d_k2_plain)
 from stylegan_v_tpu_torch.training.augment import _SYM6
 
@@ -146,16 +152,52 @@ def ffs256_calls():
 
 
 def plan_cases():
+    """The 2-D passes of ffs256_calls and of the small CASES, forward and adjoint."""
     small = [(f"{name}_small", shape, size, f, kw) for name, (shape, f, kw) in CASES.items()
              for size in (2, 4)]
     for label, shape, size, f, kw in list(ffs256_calls()) + small:
         for which, (xs, *args) in zip(("fwd", "adj"), forward_and_adjoint(shape, f, kw)):
-            H, W = xs[2:]
-            for i, p in enumerate(passes(*args)):
+            p, *rest = passes(*args)
+            if rest:
+                continue
+            for aligned in (True, False):
+                yield pytest.param(p, (xs[0] * xs[1], *xs[2:]), size, aligned,
+                                   id=f"{label}-{which}-{size}B-al{int(aligned)}")
+
+
+SEP_ODD = {  # off the main path: a lone row or column filter, mixed axes, phase 1
+    "row7_up2x": ((2, 5, 9, 13), np.ones((1, 7), np.float32) / 7,
+                  dict(up=(2, 1), padding=(3, 2, 1, -1))),
+    "col9_down2y": ((2, 5, 31, 10), np.ones((9, 1), np.float32) / 9,
+                    dict(down=(1, 2), padding=(-1, 2, 4, 4))),
+    "row16": ((1, 3, 6, 40), np.ones((1, 16), np.float32) / 16, dict(padding=(8, 7, 0, 0))),
+    "sym6_mixed": ((2, 3, 17, 22), _SYM6, dict(up=(2, 1), down=(1, 2), padding=(5, 6, 6, 5))),
+    "sym6_phase1": ((2, 3, 11, 12), _SYM6, dict(up=2, padding=(5, 6, 5, 6), gain=4)),
+    "fir10_down2": ((1, 2, 30, 35), [1, 2, 3, 4, 5, 5, 4, 3, 2, 1], dict(down=2, padding=3)),
+}
+
+
+def sep_call_cases():
+    """The separable calls: the pipe's 12-tap 2x up and 2x down at the FFS-256
+    step (16 videos x 9 fused channels) and at the MoCoGAN step (8 x 48), the
+    small CASES, and SEP_ODD: (label, x shape, upfirdn2d's keyword arguments
+    as call_args, itemsizes)."""
+    for label, C in (("ffs256", 16 * 9), ("mocogan", 8 * 48)):
+        for name, shape in (("aug_up", (1, C, 268, 268)), ("aug_down", (1, C, 524, 524))):
+            yield f"{label}_{name}", shape, CASES[name][1:], (2, 4)
+    for name in ("aug_up", "aug_down"):
+        yield f"{name}_small", CASES[name][0], CASES[name][1:], (2, 4)
+    for name, (shape, f, kw) in SEP_ODD.items():
+        yield name, shape, (f, kw), (2,)
+
+
+def sep_plan_cases():
+    for label, shape, (f, kw), sizes in sep_call_cases():
+        for which, (xs, *args) in zip(("fwd", "adj"), forward_and_adjoint(shape, f, kw)):
+            for size in sizes:
                 for aligned in (True, False):
-                    yield pytest.param(p, (xs[0] * xs[1], H, W), size, aligned,
-                                       id=f"{label}-{which}-pass{i}-{size}B-al{int(aligned)}")
-                H, W = pass_out_hw(p, H, W)
+                    yield pytest.param(xs, args, size, aligned,
+                                       id=f"{label}-{which}-{size}B-al{int(aligned)}")
 
 
 def misaligned(itemsize):
@@ -163,84 +205,116 @@ def misaligned(itemsize):
     return 6 if itemsize == 2 else 4
 
 
-def axis_taps(plan, axis):
-    """For every output o along `axis` and every tap t < f (the filter's
-    size on it): the window index of its source sample and whether it is
-    one (the kernel's indexing: csrc/upfirdn2d.cu), the expected source
-    coordinate, and the thread-relative register index."""
-    FY, FX, UY, DY, RY, UX, DX, RX = VARIANTS[plan.variant]
-    if axis == "y":
-        n, F, U, D, R, f = plan.out_h, FY, UY, DY, RY, plan.fh
-        tile, run, step, base, lead, pad0 = plan.tile_h, k2.RUN_Y, plan.step_y, plan.base_y, 0, None
-    else:
-        n, F, U, D, R, f = plan.out_w, FX, UX, DX, RX, plan.fw
-        tile, run, step, base, lead = plan.tile_w, k2.RUN_X, plan.step_x, plan.base_x, plan.lead_x
-    o = np.arange(n)[:, None]
-    t = np.arange(f)[None, :]
-    th, ol = o // tile, o % tile
-    c, j = ol // run, ol % run
-    num = j * D + t - R
-    valid = num % U == 0
-    rel = num // U                                     # register index within the thread's run
-    win = lead + c * (run * D // U) + rel
-    source = base + th * step + win
-    return win, rel, valid, source, (n, F, U, D, R)
-
-
-def check_plan_1d(plan, p, planes, H, W, itemsize, aligned):
-    """A 1-D pass's plan (k2_plan): every output once, every tap from the
-    window cell that holds its source sample, reads inside the window."""
-    variant = plan.variant
-    assert len(plan) == len(k2.K2Plan._fields)
-    assert 1 <= plan.threads == plan.planes_per_tile * plan.nx * plan.ny <= k2.THREADS
-    assert plan.tile_h == plan.ny * k2.RUN_Y and plan.tile_w == plan.nx * k2.RUN_X
-    assert plan.tiles == -(-planes // plan.planes_per_tile) * plan.tiles_h * plan.tiles_w
-    assert plan.tiles < 2 ** 31
-    # every output exactly once, axis by axis
-    for length, tile, run, runs, tiles in (
-            (planes, plan.planes_per_tile, 1, plan.planes_per_tile,
-             -(-planes // plan.planes_per_tile)),
-            (plan.out_h, plan.tile_h, k2.RUN_Y, plan.ny, plan.tiles_h),
-            (plan.out_w, plan.tile_w, k2.RUN_X, plan.nx, plan.tiles_w)):
-        idx = (np.arange(tiles)[:, None, None] * tile + np.arange(runs)[None, :, None] * run
-               + np.arange(run)[None, None, :]).ravel()
-        assert np.array_equal(np.bincount(idx[idx < length], minlength=length),
-                              np.ones(length, np.int64))
-    # each tap's window cell holds its source sample; reads stay in the window
-    FY, FX, UY, DY, RY, UX, DX, RX = VARIANTS[variant]
-    for axis, win_len, src_len, u, d, pad0, seg in (
-            ("y", plan.win_h, H, UY, DY, p.pad[2], ((k2.RUN_Y - 1) * DY + FY - 1 - RY) // UY + 1),
-            ("x", plan.win_w, W, UX, DX, p.pad[0], ((k2.RUN_X - 1) * DX + FX - 1 - RX) // UX + 1)):
-        win, rel, valid, source, _ = axis_taps(plan, axis)
-        o = np.arange(win.shape[0])[:, None]
-        q = o * d - pad0 + np.arange(win.shape[1])[None, :]    # the upsampled coordinate
-        assert np.array_equal(valid, q % u == 0)
-        assert np.array_equal(source[valid], (q // u)[valid])
-        assert win[valid].min() >= 0 and win[valid].max() < win_len
-        assert rel[valid].min() >= 0 and rel[valid].max() < seg
-        # the thread's whole register run lies in the window too
-        lead = plan.lead_x if axis == "x" else 0
-        run, step = (k2.RUN_X, plan.step_x) if axis == "x" else (k2.RUN_Y, plan.step_y)
-        n_runs = plan.nx if axis == "x" else plan.ny
-        last = lead + (n_runs - 1) * (run * d // u) + seg - 1
-        assert last < win_len
-        tile = plan.tile_w if axis == "x" else plan.tile_h
-        assert step * u == tile * d
-    # window copies: chunks wholly inside or outside the plane, on 16 bytes
-    assert plan.win_w % plan.chunk == 0 and plan.cpr == plan.win_w // plan.chunk
-    assert plan.base_x % plan.chunk == 0 and plan.step_x % plan.chunk == 0
-    assert 0 <= plan.lead_x < plan.chunk
-    if plan.chunk > 1:
-        assert aligned and W % plan.chunk == 0 and plan.chunk_bytes in (4, 8, 16)
-    assert plan.chunk_bytes == plan.chunk * itemsize
-    assert plan.stage_bytes >= plan.planes_per_tile * plan.win_h * plan.win_w * itemsize
-    assert plan.stage_bytes <= k2.MAX_STAGE_BYTES and plan.stage_bytes % 16 == 0
-
-
 def fdiv(n, md):
     """csrc/upfirdn2d.cu's FastDiv: (n m) >> s."""
     m, sh = md
     return (np.asarray(n, np.uint64) * np.uint64(m)) >> np.uint64(sh)
+
+
+def copy_share(plan):
+    """The (row, chunk) cells of a window each thread copies (csrc/upfirdn2d.cu's
+    CopyShare): every cell once."""
+    taken = np.zeros((plan.win_h, plan.cpr), np.int64)
+    for tid in range(k2.THREADS):
+        if plan.cpr <= k2.THREADS:
+            j0 = int(fdiv(tid, (plan.cpr_m, plan.cpr_s)))
+            c0, dj, dc = tid - j0 * plan.cpr, k2.THREADS // plan.cpr, plan.cpr
+            j0 = plan.win_h if j0 >= dj else j0
+        else:
+            j0, dj, c0, dc = 0, 1, tid, k2.THREADS
+        taken[j0::dj, c0::dc] += 1
+    return taken
+
+
+def plan_itemsize(plan):
+    return plan.smem_bytes // (2 * plan.slot_elems + plan.win_h * plan.mid_pitch)
+
+
+def check_plan_sep(plan, row_p, col_p, planes, H, W, itemsize, ptr_mod16):
+    """A separable call's plan (k2_plan_sep), axis by axis at full size: the
+    persistent walk takes every tile once and the tiles every output once;
+    every tap of every output's column pass reads the intermediate row that
+    its row pass computed from the window row that holds its source row, and
+    every tap of the row pass the window element that holds its source
+    column, whatever the row's shift; every load stays inside its slot and
+    the intermediate; the threads' copies take every cell of the window once;
+    every data row's copies start on 16 bytes."""
+    FY, FX, UY, DY, PY, UX, DX, PX = plan.axes()
+    assert (UY, DY, PY, UX, DX, PX) == (col_p.up[1], col_p.down[1], col_p.pad[2] % col_p.up[1],
+                                        row_p.up[0], row_p.down[0], row_p.pad[0] % row_p.up[0])
+    assert VARIANTS[plan.variant][2:] in ((0,) * 6, (UY, DY, PY, UX, DX, PX))
+    fh, fw = col_p.k.shape[0], row_p.k.shape[1]
+    px0, py0 = row_p.pad[0], col_p.pad[2]
+    CH, RX, RC = 16 // itemsize, k2.run_r(plan.variant), k2.RUN_C
+    SEG, SEGY = k2.sep_segments(plan.variant)
+    NC = k2.load_chunks(SEG, itemsize)
+    assert len(plan) == len(k2.K2PlanSep._fields) and plan_itemsize(plan) == itemsize
+    assert (plan.fh, plan.fw) == (fh, fw) and (FY == 16 or FY == fh) and (FX == 16 or FX == fw)
+    assert plan.pitch % CH == 0 and plan.pitch // CH % 2 == 1 and plan.cpr * CH <= plan.pitch
+    assert plan.mid_pitch % CH == 0 and plan.mid_pitch // CH % 2 == 1
+    assert plan.mid_pitch >= plan.tile_w and plan.slot_elems == plan.win_h * plan.pitch
+    assert plan.smem_bytes == (2 * plan.slot_elems + plan.win_h * plan.mid_pitch) * itemsize
+    assert plan.smem_bytes <= k2.MAX_DYNAMIC_SMEM and plan.win_h <= k2.THREADS
+    assert plan.tile_h % RC == 0 and plan.tile_w == plan.runs_r * RX == plan.runs_c * CH
+    assert plan.step_x * UX == plan.tile_w * DX and plan.step_x % CH == 0
+    assert plan.step_y * UY == plan.tile_h * DY and plan.base_x % CH == 0
+    assert 0 <= plan.lead_x < CH and plan.wm == W % CH
+    for name in ("runs_r", "runs_c", "win_h", "cpr"):
+        m, sh = getattr(plan, f"{name}_m"), getattr(plan, f"{name}_s")
+        assert (m, sh) == k2.fast_div(getattr(plan, name)) and m < 2 ** 32
+    # the walk and the tiles
+    assert plan.tiles == planes * plan.tiles_h * plan.tiles_w < 2 ** 31
+    assert 1 <= plan.grid <= min(plan.tiles, 132 * k2.sep_blocks(plan.variant))
+    walk = np.arange(plan.grid)[:, None] + np.arange(-(-plan.tiles // plan.grid))[None] * plan.grid
+    assert np.array_equal(np.sort(walk[walk < plan.tiles]), np.arange(plan.tiles))
+    for n, tile, tiles in ((plan.out_h, plan.tile_h, plan.tiles_h),
+                           (plan.out_w, plan.tile_w, plan.tiles_w)):
+        assert tiles * tile >= n > (tiles - 1) * tile
+    # rows: output row oy = tile_h th + RC ry + jy, tap ty
+    oy = np.arange(plan.out_h)[:, None]
+    ty = np.arange(fh)[None]
+    th, ry, jy = oy // plan.tile_h, oy % plan.tile_h // RC, oy % RC
+    num = jy * DY + ty - PY
+    land = num % UY == 0
+    up = oy * DY - py0 + ty                          # the row in the zero-inserted intermediate
+    assert np.array_equal(land, up % UY == 0)
+    sy = num // UY
+    assert sy[land].min() >= 0 and sy[land].max() < SEGY
+    j = ry * (RC * DY // UY) + sy
+    assert j[land].min() >= 0 and j[land].max() < plan.win_h     # inside the intermediate
+    assert np.array_equal((plan.base_y + th * plan.step_y + j)[land], (up // UY)[land])
+    if FY == 16:                                     # the guarded column pass stops at fh
+        last = ((RC - 1) * DY + fh - 1 - PY) // UY
+        assert (plan.tile_h // RC - 1) * (RC * DY // UY) + last < plan.win_h
+    else:
+        assert (plan.tile_h // RC - 1) * (RC * DY // UY) + SEGY <= plan.win_h
+    # columns: intermediate column ox = tile_w tw + RX cx + jx, tap tx, under
+    # every shift a data row may have
+    rows = np.arange(planes)[:, None] * H + np.arange(H)[None]
+    shifts = set(((plan.eb + plan.wm * rows) % CH).ravel().tolist())
+    ox = np.arange(plan.out_w)[:, None]
+    tx = np.arange(fw)[None]
+    tw, cx, jx = ox // plan.tile_w, ox % plan.tile_w // RX, ox % RX
+    num = jx * DX + tx - PX
+    land = num % UX == 0
+    upx = ox * DX - px0 + tx
+    assert np.array_equal(land, upx % UX == 0)
+    sx = num // UX
+    assert sx[land].min() >= 0 and sx[land].max() < SEG
+    for e in shifts:
+        c0 = plan.lead_x + e + cx * (RX * DX // UX)              # the run's first element
+        assert ((c0 // CH + NC) * CH <= plan.pitch).all()        # its loads inside the slot
+        assert (c0 + sx)[land].max() < plan.cpr * CH             # every tap's sample copied
+        col = plan.base_x + tw * plan.step_x - e + c0 + sx
+        assert np.array_equal(col[land], (upx // UX)[land])
+    # the threads' copies, and each data row's on 16 bytes; the straddle's chunk
+    assert (copy_share(plan) == 1).all()
+    for col0 in plan.base_x + np.arange(plan.tiles_w) * plan.step_x:
+        e = (plan.eb + plan.wm * rows) % CH
+        start = ptr_mod16 // itemsize + rows * W + col0 - e
+        assert (start % CH == 0).all()
+        if col0 <= 0 and (e > 0).any():
+            assert -col0 % CH == 0 and -col0 < plan.cpr * CH
 
 
 def segs(variant):
@@ -346,16 +420,7 @@ def check_plan_2d(plan, p, planes, H, W, itemsize, ptr_mod16):
             assert np.array_equal(col[sel], (up // UX)[sel])
     # the copies: the threads' shares (CopyShare) take every chunk of the
     # window once, and each data row's chunks start on 16 bytes
-    taken = np.zeros((plan.win_h, plan.cpr), np.int64)
-    for tid in range(k2.THREADS):
-        if plan.cpr <= k2.THREADS:
-            j0 = int(fdiv(tid, (plan.cpr_m, plan.cpr_s)))
-            c0, dj, dc = tid - j0 * plan.cpr, k2.THREADS // plan.cpr, plan.cpr
-            j0 = plan.win_h if j0 >= dj else j0
-        else:
-            j0, dj, c0, dc = 0, 1, tid, k2.THREADS
-        taken[j0::dj, c0::dc] += 1
-    assert (taken == 1).all()
+    assert (copy_share(plan) == 1).all()
     ts = (np.arange(tiles_h)[:, None] * plan.tile_h * DY // UY
           + np.arange(plan.win_h)[None])
     tp = ts // plan.sr
@@ -371,21 +436,42 @@ def test_k2_plan_covers_every_output_once_and_reads_inside_its_window(p, shape, 
                                                                       aligned):
     planes, H, W = shape
     variant = pass_variant(p)
-    assert variant is not None
+    assert variant is not None and variant < k2.N_2D
     fh, fw = p.k.shape
-    if variant < k2.N_2D:
-        ptr = 0 if aligned else misaligned(itemsize)
-        dtype = torch.bfloat16 if itemsize == 2 else torch.float32
-        mode, _ = k2.pass_mode(p.k.to(dtype).float().numpy(), fh, fw, dtype)
-        plan = k2.k2_plan_2d(variant, planes, H, W, fh, fw, p.pad, itemsize, ptr, mode)
-        # the main path's [1, 3, 3, 1]: rows then columns on bf16, the 2-D sum on float32
-        assert plan.mode == (k2.ROWS_THEN_COLUMNS if itemsize == 2 else k2.FULL)
-        assert (plan.out_h, plan.out_w) == pass_out_hw(p, H, W)
-        check_plan_2d(plan, p, planes, H, W, itemsize, ptr)
-    else:
-        plan = k2_plan(variant, planes, H, W, fh, fw, p.pad, itemsize, aligned)
-        assert (plan.out_h, plan.out_w) == pass_out_hw(p, H, W)
-        check_plan_1d(plan, p, planes, H, W, itemsize, aligned)
+    ptr = 0 if aligned else misaligned(itemsize)
+    dtype = torch.bfloat16 if itemsize == 2 else torch.float32
+    mode, _ = k2.pass_mode(p.k.to(dtype).float().numpy(), fh, fw, dtype)
+    plan = k2.k2_plan_2d(variant, planes, H, W, fh, fw, p.pad, itemsize, ptr, mode)
+    # the main path's [1, 3, 3, 1]: rows then columns on bf16, the 2-D sum on float32
+    assert plan.mode == (k2.ROWS_THEN_COLUMNS if itemsize == 2 else k2.FULL)
+    assert (plan.out_h, plan.out_w) == pass_out_hw(p, H, W)
+    check_plan_2d(plan, p, planes, H, W, itemsize, ptr)
+
+
+@pytest.mark.parametrize("xs,args,itemsize,aligned", list(sep_plan_cases()))
+def test_k2_plan_sep_covers_every_output_once_and_reads_inside_its_window(xs, args, itemsize,
+                                                                          aligned):
+    """Every separable call's one launch (`call_launch`): the pipe's 12-tap
+    calls take the unguarded 12-tap instantiations, every other the guarded
+    one, with its axes in the plan; the plan's geometry as check_plan_sep."""
+    ps = passes(*args)
+    dtype = torch.bfloat16 if itemsize == 2 else torch.float32
+    ptr = 0 if aligned else misaligned(itemsize)
+    variant, plan, taps = k2.call_launch(ps, xs, dtype, ptr)
+    row, col = k2.sep_passes(ps)
+    assert variant >= k2.N_2D and variant == k2.sep_variant(row, col) == plan.variant
+    exact = ((col.k.shape[0], row.k.shape[1]) == (12, 12)
+             and (12, 12) + VARIANTS[variant][2:] in VARIANTS)
+    assert VARIANTS[variant] == (VARIANTS[variant][:2] + plan.axes()[2:] if exact
+                                 else k2.GUARDED_SEP)
+    H, W = xs[2:]
+    for p in ps:
+        H, W = pass_out_hw(p, H, W)
+    assert (plan.out_h, plan.out_w) == (H, W)
+    assert np.array_equal(taps[:plan.fh], col.k[:, 0].to(dtype).float().numpy())
+    assert np.array_equal(taps[16:16 + plan.fw], row.k[0].to(dtype).float().numpy())
+    assert not taps[plan.fh:16].any() and not taps[16 + plan.fw:].any()
+    check_plan_sep(plan, row, col, xs[0] * xs[1], *xs[2:], itemsize, ptr)
 
 
 def test_k2_plan_shapes_at_g_upconv_256():
@@ -445,7 +531,7 @@ def test_rank1_split_taken_exactly_for_an_outer_product(name, dtype):
         elif want is not None:
             assert plan.mode == (k2.ROWS_THEN_COLUMNS if want else k2.FULL)
         assert np.array_equal(taps[:16].reshape(4, 4)[:shape[0], :shape[1]], held)
-        fy, fx = taps[16:20], taps[20:]
+        fy, fx = taps[16:20], taps[20:24]
         if plan.mode == k2.ROWS_THEN_COLUMNS:
             assert np.array_equal(fy[:, None] * fx[None, :], held)
         else:
@@ -454,85 +540,136 @@ def test_rank1_split_taken_exactly_for_an_outer_product(name, dtype):
 
 # ------------------------------------------------- an emulation of the kernel
 
-def emulate_1d(x: np.ndarray, plan, taps: np.ndarray) -> np.ndarray:
-    """csrc/upfirdn2d.cu's 1-D kernel (namespace k1d) in numpy over every
-    block and thread at once: the window copy, then each thread's loops over
-    window rows, run rows, run columns and register columns, in float32."""
-    FY, FX, UY, DY, RY, UX, DX, RX = VARIANTS[plan.variant]
+def fma(k, v, acc):
+    """acc + k v as one fused multiply-add in float32: the product of two
+    float32 values is exact in float64."""
+    return (np.float64(k) * v.astype(np.float64) + acc.astype(np.float64)).astype(np.float32)
+
+
+def rounded(a, dtype):
+    """float32 values rounded to dtype (bf16 to nearest even), as float32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dtype).float().numpy()
+
+
+def emulate_sep(x: np.ndarray, plan, taps: np.ndarray, dtype: torch.dtype) -> np.ndarray:
+    """csrc/upfirdn2d.cu's separable kernel (namespace ksep) in numpy, every
+    block at once, step by step of its walk: the prologue's copy of each
+    block's first tile into slot 0, then for each tile the copy of the next
+    one into the other slot (its straddling chunks written after the tile's
+    sums), the row pass from the tile's own slot into the intermediate
+    (rounded to dtype), the column pass from it into the outputs. The ring
+    and the intermediate keep what earlier tiles left (NaN at first), so a
+    cell that a tap reads but its tile did not write shows; every load is
+    checked to lie inside its slot. Each pass sums its taps as fused multiply-adds in
+    tap order; every output is written once. The axes are the plan's (the
+    guarded instantiation reads them at run time), the run sizes and the
+    row pass's lanes the instantiation's."""
+    FY, FX, UY, DY, PY, UX, DX, PX = plan.axes()
+    lanes_on_rows = VARIANTS[plan.variant][6] == 2
     planes, H, W = x.shape
-    t = np.arange(plan.tiles)
-    tw, rest = t % plan.tiles_w, t // plan.tiles_w
-    th, tp = rest % plan.tiles_h, rest // plan.tiles_h
-    plane0 = tp * plan.planes_per_tile
-    row0, col0 = th * plan.step_y + plan.base_y, tw * plan.step_x + plan.base_x
-    P = plan.planes_per_tile
-    pl = plane0[:, None, None, None] + np.arange(P)[None, :, None, None]
-    iy = row0[:, None, None, None] + np.arange(plan.win_h)[None, None, :, None]
-    ix = col0[:, None, None, None] + np.arange(plan.win_w)[None, None, None, :]
-    inside = (pl < planes) & (iy >= 0) & (iy < H) & (ix >= 0) & (ix < W)
-    window = np.where(inside, x[np.clip(pl, 0, planes - 1), np.clip(iy, 0, H - 1),
-                                np.clip(ix, 0, W - 1)], np.float32(0))
-    k = np.arange(plan.threads)
-    cx, cy, cp = k % plan.nx, k // plan.nx % plan.ny, k // (plan.nx * plan.ny)
-    SEGY = ((k2.RUN_Y - 1) * DY + FY - 1 - RY) // UY + 1
-    SEGX = ((k2.RUN_X - 1) * DX + FX - 1 - RX) // UX + 1
-    acc = np.zeros((k2.RUN_Y, k2.RUN_X, plan.tiles, plan.threads), np.float32)
-    tiles = np.arange(plan.tiles)[:, None]
-    for sy in range(SEGY):
-        r = cy * (k2.RUN_Y * DY // UY) + sy
-        v = [window[tiles, cp, r, plan.lead_x + cx * (k2.RUN_X * DX // UX) + sx]
-             for sx in range(SEGX)]
-        for jy in range(k2.RUN_Y):
-            ty = sy * UY - jy * DY + RY
-            if not 0 <= ty < min(FY, plan.fh):
-                continue
-            for jx in range(k2.RUN_X):
-                for sx in range(SEGX):
-                    tx = sx * UX - jx * DX + RX
-                    if 0 <= tx < min(FX, plan.fw):
-                        acc[jy, jx] += np.float32(taps[ty, tx]) * v[sx]
-    return store_1d(acc, plan, planes, plane0, th, tw, cx, cy, cp, k)
-
-
-def store_1d(acc, plan, planes, plane0, th, tw, cx, cy, cp, k):
-    """The 1-D kernel's stores in numpy: two outputs a store at an even
-    element offset; in a row that starts on an odd offset (odd out_w), a
-    run's second column with the next lane's first, and a column alone at a
-    tile's or warp's edge or the row's end. Checks that every output is
-    written once and every pair lies on an even offset."""
+    itemsize = plan_itemsize(plan)
+    CH, RX, RC, G = 16 // itemsize, k2.run_r(plan.variant), k2.RUN_C, plan.grid
+    SEG, SEGY = k2.sep_segments(plan.variant)
+    NC = k2.load_chunks(SEG, itemsize)
+    ky, kx = taps[:16], taps[16:]
+    ring = np.full((G, 2, plan.win_h, plan.pitch), np.nan, np.float32)
+    mid = np.full((G, plan.win_h, plan.mid_pitch), np.nan, np.float32)
     out = np.zeros(planes * plan.out_h * plan.out_w, np.float32)
     written = np.zeros(out.shape, np.int64)
-    plane = plane0[:, None] + cp[None, :]
-    oy0 = th[:, None] * plan.tile_h + cy * k2.RUN_Y
-    ox = tw[:, None] * plan.tile_w + cx * k2.RUN_X
-    lane = k % 32
-    valid = (plane < planes) & (oy0 < plan.out_h) & (ox < plan.out_w)
-    second = ox + 1 < plan.out_w
-    left_pairs = (cx > 0) & (lane > 0)
-    right_pairs = (cx + 1 < plan.nx) & (lane < 31) & (ox + 2 < plan.out_w)
-    pairs = []
+    b, j = np.arange(G), np.arange(plan.win_h)
 
-    def put(m, off, v):
-        out[off[m]] = v[m]
-        np.add.at(written, off[m], 1)
+    def tile(t):
+        r, tw = t // plan.tiles_w, t % plan.tiles_w
+        th, plane = r % plan.tiles_h, r // plan.tiles_h
+        return (plane, plan.base_y + th * plan.step_y, plan.base_x + tw * plan.step_x,
+                th * plan.tile_h, tw * plan.tile_w)
 
-    for jy in range(k2.RUN_Y):
-        a0, a1 = acc[jy, 0], acc[jy, 1]
-        nxt = np.roll(a0, -1, axis=1)                 # the next lane's first column
-        m = valid & (oy0 + jy < plan.out_h)
-        row = (plane * plan.out_h + oy0 + jy) * plan.out_w
-        o = np.where(m, row + ox, 0)
-        even, odd = m & (row % 2 == 0), m & (row % 2 == 1)
-        put(even & second, o, a0)
-        put(even & second, o + 1, a1)
-        put(even & ~second, o, a0)
-        put(odd & ~left_pairs, o, a0)
-        put(odd & right_pairs, o + 1, a1)
-        put(odd & right_pairs, o + 2, nxt)
-        put(odd & ~right_pairs & second, o + 1, a1)
-        pairs += [o[even & second], o[odd & right_pairs] + 1]
-    assert (written == 1).all()
-    assert all((p % 2 == 0).all() for p in pairs)
+    def shift(plane, row):
+        return (plan.eb + plan.wm * (plane * plan.src_h + row)) % CH
+
+    def issue(t, slot):
+        """Copy tiles t [G] (< 0: none) into `slot`, but for the chunks that
+        straddle a row's left edge, which it returns (written after the sums)."""
+        plane, row0, col0, _, _ = tile(np.maximum(t, 0))
+        row = row0[:, None] + j[None]                                 # [G, win_h]
+        e = shift(plane[:, None], row)
+        col = (col0[:, None] - e)[..., None] + np.arange(plan.cpr * CH)  # [G, win_h, copied]
+        data = (row >= 0) & (row < H)
+        ok = data[..., None] & (col >= 0) & (col < W)
+        vals = np.where(ok, x[np.clip(plane, 0, planes - 1)[:, None, None],
+                              np.clip(row, 0, H - 1)[..., None], np.clip(col, 0, W - 1)], 0)
+        go = t >= 0
+        strad = (go[:, None] & data & (e > 0) & (col0[:, None] <= 0)
+                 & (-col0[:, None] < plan.cpr * CH))
+        sb, sj = np.nonzero(strad)
+        cells = -col0[sb][:, None] + np.arange(CH)                    # [S, CH]
+        keep = np.ones(vals.shape, bool)
+        keep[sb[:, None], sj[:, None], cells] = False
+        cur = ring[go, slot, :, :plan.cpr * CH]
+        ring[go, slot, :, :plan.cpr * CH] = np.where(keep[go], vals[go], cur)
+        return sb, sj, cells, vals[sb[:, None], sj[:, None], cells], slot
+
+    def flush(st):
+        sb, sj, cells, vals, slot = st
+        ring[sb[:, None], slot, sj[:, None], cells] = vals
+
+    flush(issue(np.where(b < plan.tiles, b, -1), 0))
+    for k in range(-(-plan.tiles // G)):
+        t = b + k * G
+        slot = k % 2
+        nt = t + G
+        st = issue(np.where(nt < plan.tiles, nt, -1), 1 - slot)
+        live = t < plan.tiles
+        plane, row0, _, oy0, ox0 = tile(np.where(live, t, 0))
+        # the row pass
+        items = plan.win_h * plan.runs_r
+        it = np.arange(items)
+        if lanes_on_rows:
+            cx, jj = it // plan.win_h, it % plan.win_h
+        else:
+            jj, cx = it // plan.runs_r, it % plan.runs_r
+        c = (plan.lead_x + shift(plane[:, None], row0[:, None] + jj[None])
+             + cx[None] * (RX * DX // UX))                           # [G, items]
+        assert ((c // CH + NC) * CH)[live].max() <= plan.pitch      # loads inside the slot
+        v = [ring[b[:, None], slot, jj[None], np.minimum(c + sx, plan.pitch - 1)]
+             for sx in range(SEG)]
+        sel = np.nonzero(live)[0]
+        mid[sel] = np.nan
+        for jx in range(RX):
+            acc = np.zeros(c.shape, np.float32)
+            for sx in range(SEG):
+                tx = sx * UX - jx * DX + PX
+                if 0 <= tx < min(FX, plan.fw):
+                    assert not np.isnan(v[sx][live]).any(), "a tap read a cell not copied"
+                    acc = fma(kx[tx], v[sx], acc)
+            mid[sel[:, None], jj[None], (cx * RX + jx)[None]] = rounded(acc, dtype)[sel]
+        # the column pass
+        items = plan.tile_h // RC * plan.runs_c
+        it = np.arange(items)
+        ry, cx = it // plan.runs_c, it % plan.runs_c
+        oy, ox = oy0[:, None] + ry[None] * RC, ox0[:, None] + cx[None] * CH   # [G, items]
+        go = live[:, None] & (oy < plan.out_h) & (ox < plan.out_w)
+        acc = np.zeros((RC, CH) + go.shape, np.float32)
+        for sy in range(SEGY):
+            if FY == 16 and sy * UY - (RC - 1) * DY + PY >= plan.fh:
+                break
+            r = ry * (RC * DY // UY) + sy
+            assert r.max() < plan.win_h
+            vals = [mid[b[:, None], r[None], cx[None] * CH + i] for i in range(CH)]
+            for jy in range(RC):
+                ty = sy * UY - jy * DY + PY
+                if 0 <= ty < min(FY, plan.fh):
+                    for i in range(CH):
+                        assert not np.isnan(vals[i][go]).any(), "read an unwritten row"
+                        acc[jy, i] = fma(ky[ty], vals[i], acc[jy, i])
+        for jy in range(RC):
+            for i in range(CH):
+                m = go & (oy + jy < plan.out_h) & (ox + i < plan.out_w)
+                off = (plane[:, None] * plan.out_h + oy + jy) * plan.out_w + ox + i
+                out[off[m]] = rounded(acc[jy, i][m], dtype)
+                np.add.at(written, off[m], 1)
+        flush(st)
+    assert (written == 1).all(), "every output written once"
     return out.reshape(planes, plan.out_h, plan.out_w)
 
 
@@ -626,7 +763,7 @@ def emulate_2d(x: np.ndarray, plan, taps: np.ndarray, itemsize: int) -> np.ndarr
                                           np.minimum(c + sx, plan.pitch - 1)], 0.0)
                     .astype(np.float32) for sx in range(SEGX)]
             if plan.mode == k2.ROWS_THEN_COLUMNS:
-                fy, fx = taps[16:20], taps[20:]
+                fy, fx = taps[16:20], taps[20:24]
                 h = []
                 for jx in range(RX):
                     hj = np.zeros(active.shape, np.float32)
@@ -698,27 +835,28 @@ def emulate_2d(x: np.ndarray, plan, taps: np.ndarray, itemsize: int) -> np.ndarr
     return out.reshape(planes, plan.out_h, plan.out_w).astype(np.float32)
 
 
-def emulate_pass(x: torch.Tensor, p, aligned=True) -> torch.Tensor:
+def emulate_call(x: torch.Tensor, args, aligned=True) -> torch.Tensor:
+    """upfirdn2d_k2(x, *args) through the emulated kernel of its one launch."""
     N, C, H, W = x.shape
-    fh, fw = p.k.shape
-    variant = pass_variant(p)
+    ptr = 0 if aligned else misaligned(x.element_size())
+    variant, plan, taps = k2.call_launch(passes(*args), x.shape, x.dtype, ptr)
     xs = x.float().reshape(N * C, H, W).numpy()
     if variant < k2.N_2D:
-        ptr = 0 if aligned else misaligned(x.element_size())
-        _, plan, taps = k2.pass_launch(p, x.shape, x.dtype, ptr)
         y = emulate_2d(xs, plan, taps, x.element_size())
     else:
-        plan = k2_plan(variant, N * C, H, W, fh, fw, p.pad, x.element_size(), aligned)
-        y = emulate_1d(xs, plan, p.k.to(x.dtype).float().numpy())
+        y = emulate_sep(xs, plan, taps, x.dtype)
     return torch.from_numpy(y).reshape(N, C, plan.out_h, plan.out_w).to(x.dtype)
 
 
 def assert_emulation_matches_plain(x, args, aligned):
+    """A separable call's emulation equals the plain version to the bit; a
+    2-D pass's within KERNEL_TOL of its scale."""
     want = upfirdn2d_k2_plain(x, *args)
-    got = x
-    for p in passes(*args):
-        got = emulate_pass(got, p, aligned)
+    got = emulate_call(x, args, aligned)
     assert got.shape == want.shape and got.dtype == want.dtype
+    if k2.call_launch(passes(*args), x.shape, x.dtype, 0)[0] >= k2.N_2D:
+        assert torch.equal(got, want), (aligned, float((got.float() - want.float()).abs().max()))
+        return
     tol = 1e-5 if x.dtype == torch.float32 else 1e-2
     scale = max(float(want.float().abs().max()), 1e-6)
     err = float((got.float() - want.float()).abs().max())
@@ -730,9 +868,9 @@ def assert_emulation_matches_plain(x, args, aligned):
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernel_emulation_matches_plain(case, which, dtype):
     """Every main-path call and its adjoint through the emulated kernels,
-    from an aligned and a misaligned input: float32 to 1e-5 of scale
-    (another summation order), bf16 to 1e-2 (both round once from a
-    float32 sum of the same bf16 taps)."""
+    from an aligned and a misaligned input: the separable calls to the bit;
+    the 2-D passes float32 to 1e-5 of scale (another summation order), bf16
+    to 1e-2 (both round once from a float32 sum of the same bf16 taps)."""
     shape, f, kw = CASES[case]
     xs, *args = forward_and_adjoint(shape, f, kw)[which == "adj"]
     x = torch.from_numpy(np.random.RandomState(5).randn(*xs).astype(np.float32)).to(dtype)
@@ -771,10 +909,57 @@ def test_kernel_emulation_stores_odd_rows_in_pairs(shape, dtype):
     p, = passes(*args)
     _, plan, _ = k2.pass_launch(p, x.shape, x.dtype, 0)
     assert plan.out_w % 2 == 1 and plan.mode != k2.GUARDED
-    got, want = emulate_pass(x, p), upfirdn2d_k2_plain(x, *args)
+    got, want = emulate_call(x, args), upfirdn2d_k2_plain(x, *args)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
     scale = float(want.float().abs().max())
     assert float((got.float() - want.float()).abs().max()) <= tol * scale
+
+
+SEP_EMULATED = dict(
+    {f"{name}_{label}": (shape, *CASES[name][1:])
+     for name in ("aug_up", "aug_down")
+     for label, shape in (("28", (2, 9, 28, 28)), ("odd", (2, 9, 27, 29)))},
+    **SEP_ODD)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["fwd", "adj"])
+@pytest.mark.parametrize("case", list(SEP_EMULATED))
+def test_separable_emulation_equals_plain_to_the_bit(case, which, dtype):
+    """The separable kernel, emulated (emulate_sep: its intermediate rounded
+    to the dtype, each pass's taps summed by fused multiply-adds in tap
+    order), equals the plain version's two convolutions to the bit: the
+    pipe's calls and adjoints at [2, 9, 28^2] and at odd widths, a lone row
+    and a lone column filter, mixed axes, phase 1 at up 2 and a 10-tap filter
+    (the guarded instantiation, its axes at run time), aligned and not."""
+    shape, f, kw = SEP_EMULATED[case]
+    xs, *args = forward_and_adjoint(shape, f, kw)[which == "adj"]
+    assert k2.call_launch(passes(*args), xs, dtype, 0)[0] >= k2.N_2D
+    x = torch.from_numpy(np.random.RandomState(9).randn(*xs).astype(np.float32)).to(dtype)
+    for aligned in (True, False):
+        assert_emulation_matches_plain(x, args, aligned)
+
+
+def test_k2_plan_sep_shapes_at_the_pipe():
+    """The pipe's 12-tap 2x up at 16 x 3 in bf16, [144, 268^2] -> 536^2: two
+    tiles of 272 columns across, 9 of 60 rows down, each a window of 36 rows
+    of 20 chunks (21 apart), 3 blocks an SM on 132 SMs; its 2x down [144,
+    524^2] -> 256^2 (down 2 on x: 2 blocks an SM) two tiles of 128 across,
+    8 of 32 down, 74 window rows; each within its block's share of an SM's
+    shared memory."""
+    f = setup_filter(_SYM6)
+    up = passes(f, (2, 2), (1, 1), (6, 5, 6, 5), False, 4.0)
+    _, plan, _ = k2.call_launch(up, (16, 9, 268, 268), torch.bfloat16, 0)
+    assert (plan.out_h, plan.out_w, plan.tile_h, plan.tile_w, plan.tiles_h, plan.tiles_w) == (
+        536, 536, 60, 272, 9, 2)
+    assert (plan.win_h, plan.cpr, plan.pitch, plan.grid, plan.wm) == (36, 20, 168, 396, 4)
+    down = passes(f, (1, 1), (2, 2), (-1, -1, -1, -1), True, 1.0)
+    _, plan2, _ = k2.call_launch(down, (16, 9, 524, 524), torch.bfloat16, 0)
+    assert (plan2.out_h, plan2.out_w, plan2.tile_h, plan2.tile_w, plan2.tiles_h,
+            plan2.tiles_w) == (256, 256, 32, 128, 8, 2)
+    assert (plan2.win_h, plan2.grid) == (74, 264)
+    assert plan.smem_bytes <= k2.SM_SHARED_BYTES // 3 - 1024
+    assert plan2.smem_bytes <= k2.SM_SHARED_BYTES // 2 - 1024
 
 
 # ------------------------------------------------------------------- routing
@@ -795,8 +980,9 @@ def ffs256_cpu_models():
 class Recorder:
     """Records every upfirdn2d call (at its entry, with the kernel that
     upfirdn2d's own dispatch entered: K1's `_DownFirX2` or K2's wrapper,
-    else None) and every K2 pass (at upfirdn2d_k2, forward and backward,
-    with k2_refusal's verdict), on the CPU."""
+    else None) and every K2 call (at upfirdn2d_k2, forward and backward,
+    with k2_refusal's verdict; one launch each on a CUDA tensor), on the
+    CPU."""
 
     def __init__(self, mp):
         self.calls, self.passes, self.k1 = [], [], []
@@ -820,7 +1006,7 @@ class Recorder:
         def k2_pass(x, f, up, down, padding, flip_filter=False, gain=1.0):
             self.passes.append((tuple(x.shape), x.dtype, k2_refusal(
                 tuple(x.shape), x.dtype, x.is_contiguous(), f, up, down, padding,
-                flip_filter, gain), len(passes(f, up, down, padding, flip_filter, gain))))
+                flip_filter, gain), 1))
             return orig_k2(x, f, up, down, padding, flip_filter, gain)
 
         mp.setattr(tup, "upfirdn2d", call)
@@ -840,8 +1026,9 @@ class Recorder:
 
 
 def test_main_path_calls_take_k1_or_k2(monkeypatch):
-    """G (12 K2 passes a forward at 256^2: 6 up-convs, 6 image skips), D (6
-    K2 pre-filters and 6 K1 skips a forward) and the bgc pipe (4 K2 passes),
+    """G (12 K2 launches a forward at 256^2: 6 up-convs, 6 image skips), D
+    (6 K2 pre-filters and 6 K1 skips a forward) and the bgc pipe (2 K2
+    launches: its 12-tap 2x up and 2x down, each both passes in one),
     forward and backward, and R1's second order through D."""
     from stylegan_v_tpu_torch.training import AUGPIPE_SPECS, AugmentConfig, make_augment_pipe
     torch.manual_seed(0)
@@ -872,13 +1059,42 @@ def test_main_path_calls_take_k1_or_k2(monkeypatch):
     pipe = make_augment_pipe(AugmentConfig(**AUGPIPE_SPECS["bgc"], warp_upsample=2))
     x = frames.detach().reshape(4, 9, 256, 256).requires_grad_(True)
     y = pipe(g, x, 0.5)
-    assert rec.check() == 4 and {r for *_, r in rec.calls} == {"K2"}
+    assert rec.check() == 2 and {r for *_, r in rec.calls} == {"K2"}
     rec.reset()
     y.square().mean().backward()
-    assert rec.check() == 4
+    assert rec.check() == 2
 
 
 # ------------------------------------------------------------------ the wrapper
+
+def test_a_call_on_a_cuda_tensor_is_one_launch(monkeypatch):
+    """On a CUDA tensor (a CPU tensor stands in, the C entry point is
+    recorded) every call is one launch: the pipe's separable 2x up and 2x
+    down take the 12-tap instantiations with both passes' taps, a lone row
+    filter the guarded one, G's up-conv the 2-D pass."""
+    seen = []
+    monkeypatch.setattr(k2, "on_cuda", lambda x, name: True)
+    monkeypatch.setattr(k2, "entry_point", lambda *a: None)
+    monkeypatch.setattr(k2, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(k2, "launch", lambda name, fn, args, device: seen.append(args))
+    for name, held in (("aug_up", 12), ("aug_down", 12), ("g_upconv", 4)):
+        shape, f, kw = CASES[name]
+        x = torch.zeros(shape)
+        before = upfirdn2d_k2.launches
+        y = upfirdn2d_k2(x, *call_args(f, kw))
+        assert upfirdn2d_k2.launches - before == 1 and len(seen) == 1
+        _, y_ptr, taps, dtype, variant, plan = seen.pop()
+        assert VARIANTS[variant][:2] == (held, held) and plan[0] == variant
+        assert tuple(y.shape) == tuple(upfirdn2d_k2_plain(x, *call_args(f, kw)).shape)
+        if held == 12:
+            want = setup_filter(f) * 2 ** (kw.get("gain", 1) == 4)
+            assert np.allclose(np.asarray(taps[:12]), want.flip(0) if name == "aug_up" else want)
+    x = torch.zeros(2, 3, 9, 13)
+    upfirdn2d_k2(x, torch.ones(1, 7), (2, 1), (1, 1), (3, 2, 1, -1), False, 1.0)
+    _, _, taps, _, variant, plan = seen.pop()
+    assert VARIANTS[variant] == k2.GUARDED_SEP and taps[0] == 1.0
+    assert k2.K2PlanSep(*plan).axes()[2:] == (1, 1, 0, 2, 1, 1)          # phase 3 % 2
+
 
 def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
     before = upfirdn2d_k2.launches
@@ -914,29 +1130,84 @@ def test_refusal_names_what_the_kernel_does_not_take(x, f, kw, match):
 
 
 def test_variants_are_the_sources():
-    """VARIANTS is the source's K2_VARIANTS_2D then K2_VARIANTS_1D, and each
-    plan's fields are its enum's."""
+    """VARIANTS is the source's K2_VARIANTS_2D then K2_VARIANTS_SEP, each
+    plan's fields are its enum's, and the constants and run sizes the plans
+    assume are the kernels'."""
     src = (Path(k2.__file__).parents[1] / "csrc" / "upfirdn2d.cu").read_text()
     body = src[src.index("#define K2_VARIANTS_2D(X)"):src.index("namespace {")]
-    two_d = body[:body.index("#define K2_VARIANTS_1D(X)")]
+    two_d = body[:body.index("#define K2_VARIANTS_SEP(X)")]
     found = [tuple(int(v) for v in m.split(","))
              for m in re.findall(r"X\(([\d,\s]+)\)", body)]
     assert tuple(found) == VARIANTS
     assert len(re.findall(r"X\(", two_d)) == k2.N_2D
     for enum, end, plan in (("enum Plan2DField", "kNumPlan2DFields", k2.K2Plan2D),
-                            ("enum PlanField", "kNumPlanFields", k2.K2Plan)):
+                            ("enum PlanSepField", "kNumPlanSepFields", k2.K2PlanSep)):
         fields = src[src.index(enum):src.index(end)]
         names = re.findall(r"k(\w+)", fields)
         assert [n.lower() for n in names] == [f.replace("_", "") for f in plan._fields]
-    consts = dict(re.findall(r"constexpr int (THREADS|STAGES|MIN_BLOCKS) = (\d+);",
-                             src[src.index("namespace k2d"):src.index("namespace k1d")]))
-    assert {k: int(v) for k, v in consts.items()} == dict(
+    pattern = r"constexpr int (THREADS|STAGES|MIN_BLOCKS|RUN_C|GUARDED_TAPS) = (\d+);"
+    k2d = src[src.index("namespace k2d {"):src.index("namespace ksep {")]
+    ksep = src[src.index("namespace ksep {"):]
+    assert {k: int(v) for k, v in re.findall(pattern, k2d)} == dict(
         THREADS=k2.THREADS, STAGES=k2.STAGES, MIN_BLOCKS=k2.MIN_BLOCKS)
+    assert {k: int(v) for k, v in re.findall(pattern, ksep)} == dict(
+        THREADS=k2.THREADS, RUN_C=k2.RUN_C, GUARDED_TAPS=k2.GUARDED_TAPS)
+    up_or_1, other = map(int, re.search(r"constexpr int BLOCKS = DX == 1 \? (\d) : (\d);",
+                                        ksep).groups())
     runs = {k: (int(a), int(b)) for k, a, b in
             re.findall(r"constexpr int (RUN_[XY]) = D == 2 \? (\d) : (\d);", src)}
     for variant in range(k2.N_2D):
         DY, DX = VARIANTS[variant][3], VARIANTS[variant][6]
         assert k2.run_2d(variant) == (runs["RUN_Y"][DY == 1], runs["RUN_X"][DX == 1])
+    up2, other_r = map(int, re.search(r"constexpr int RUN_R = UX == 2 \? (\d+) : (\d+);",
+                                      src).groups())
+    for variant in range(k2.N_2D, len(VARIANTS)):
+        assert k2.run_r(variant) == (up2 if VARIANTS[variant][5] == 2 else other_r)
+        assert k2.sep_blocks(variant) == (up_or_1 if VARIANTS[variant][6] == 1 else other)
+    assert VARIANTS[-1] == k2.GUARDED_SEP and VARIANTS.count(k2.GUARDED_SEP) == 1
+    # the samples and rows a run reads (ksep::SEGMENT), at compile-time axes and at run time
+    seg = re.search(r"constexpr int SEGMENT = U \? \(\(R - 1\) \* D \+ F - 1 - P\) / U \+ 1 : "
+                    r"\(R - 1\) \* (\d) \+ F;", ksep)
+    assert seg is not None
+    for variant in range(k2.N_2D, len(VARIANTS)):
+        FY, FX, UY, DY, PY, UX, DX, PX = VARIANTS[variant]
+        most = int(seg.group(1))
+        want = [((R - 1) * D + F - 1 - P) // U + 1 if U else (R - 1) * most + F
+                for F, R, U, D, P in ((FX, k2.run_r(variant), UX, DX, PX),
+                                      (FY, k2.RUN_C, UY, DY, PY))]
+        assert k2.sep_segments(variant) == tuple(want)
+        if not UX:                         # the most any axis the guarded one takes reads
+            assert want == [max(((R - 1) * d + F - 1 - p) // u + 1 for u, d, p in k2.AXES)
+                            for F, R in ((FX, k2.run_r(variant)), (FY, k2.RUN_C))]
+    # the chunks a row-pass run loads (ksep::LOAD_CHUNKS)
+    expr = re.search(r"constexpr int LOAD_CHUNKS = (sizeof\(T\) == 2 \? [^;]+);", src).group(1)
+    for itemsize in (2, 4):
+        py = expr.replace("sizeof(T) == 2 ?", f"{itemsize == 2} and").replace(" : ", " or ")
+        for seg in range(1, 40):
+            assert eval(py.replace("SEG", str(seg)).replace("/", "//")) == \
+                k2.load_chunks(seg, itemsize)
+
+
+
+@pytest.mark.parametrize("name", sorted(n for d, n in
+                                        importlib.import_module(
+                                            "stylegan_v_tpu_torch.tools.k2_variants").VARIANTS
+                                        if d == "new"))
+def test_k2_variants_edits_apply_to_the_source(name):
+    """Every variant tools/k2_variants.py builds of this design edits the
+    kernel's source where the edit's text stands, once, and the calls it
+    times take K2 in one launch each."""
+    kv = importlib.import_module("stylegan_v_tpu_torch.tools.k2_variants")
+    src = kv.SOURCE.read_text()
+    edits, mode, kinds = kv.VARIANTS[("new", name)]
+    assert all(src.count(old) == 1 for old, _ in edits)
+    for which in kinds:
+        for _, shape, args in kv.calls(which):
+            ps = passes(*args)
+            assert k2_refusal(shape, torch.bfloat16, True, *args) is None
+            assert k2.call_launch(ps, shape, torch.bfloat16, 0)[0] == (
+                k2.pass_variant(ps[0]) if which == "2d" else k2.sep_variant(*k2.sep_passes(ps)))
+    assert len(list(kv.main_path_calls())) == 36
 
 
 # ------------------------------------------------------------ the export route
