@@ -11,8 +11,9 @@ holds them against the port's plain PyTorch paths:
               off for cuDNN and matmul (utils/misc.py:float32_precision);
               8 and 11 rely on the training step's own default.
   2. build:   the CUDA kernels (K1 downfirdn2d_x2, K1-bwd downfirdn2d_x2_bwd,
-              K4 affine_warp, K4-bwd affine_warp_bwd, K2 upfirdn2d), one nvcc
-              each for sm_90a, all started together.
+              K4 affine_warp, K4-bwd affine_warp_bwd, K2 upfirdn2d, K7
+              shear_resample, K7-bwd shear_resample_bwd, K8 shear_shift), one
+              nvcc each for sm_90a, all started together.
   3. kernel:  K1 against its plain version at the six shapes of the
               Discriminator's resnet skips, at 2 videos x 3 frames and at the
               step's 16 x 3, float32 and bf16, plus an asymmetric filter at
@@ -226,6 +227,29 @@ holds them against the port's plain PyTorch paths:
               times; (f) ms/step of the two ranks (one card: not a scaling
               number), the gradient all-reduce's ms, the batch-norm
               all_reduces' count and ms a step, peak memory per rank.
+ 20. shear:   the ADA pipe's shear warp executor (warp_mode="shear",
+              ops/shear_warp.py), run after phase 12 on phase 11's G and D;
+              phases 3-12 launch none of its kernels, and 13-19 none either:
+              (a) K7, K7-bwd and K8 (forward and adjoint) against their plain
+              versions at both passes of the step's canvas ([16, 9, 536^2] ->
+              524^2, the pipe's bgc maps and maps that take the rot90
+              branch, the clips and flips) and of a small odd case (C = 3,
+              67^2 -> 61^2), float32 and bf16; K7-bwd and K8 twice, equal to
+              the bit; CUDA-event times in bf16 at the canvas of each call,
+              its plain version and its library call: for K7 and K7-bwd
+              torch.bmm of the banded one-hot matrix (the JAX formulation),
+              for K8 and its adjoint F.grid_sample (bilinear, zeros,
+              align_corners=True) on a grid of the shift's positions, each
+              checked against the kernel; K7-bwd as the step calls it (its
+              CSR lists built in the call) and with the lists built before;
+              GB/s and share of the bound of the bytes this call's tables
+              read; (b) the anti-aliased warp at [16, 9, 256^2]
+              in bf16, shear against K4, forward and forward + backward, in
+              turns, with each call's launches; (c) phase 11's ADA step with
+              the shear pipe: five steps, finite, K1, K1-bwd, K4, K4-bwd, K2,
+              K7, K7-bwd, K8 launches per step (K4 and K4-bwd 0), ms, frames/s
+              and peak memory beside phase 11's; (d) phase 12's card vs CPU
+              with the shear pipe.
 
 K2's launches are asserted wherever K1's are: per step from the derived
 counts (LAUNCHES_PER_STEP, ADA_LAUNCHES_PER_STEP), per loop run with 12
@@ -233,8 +257,9 @@ more for each snapshot grid's synthesis, and on the paths that run G alone
 (14, 16 (c)-(e), 17 (e), 18 (a), (d), (e)) as 12 for every synthesis
 forward and every backward through one (SynthesisCalls).
 
-Any failed check exits non-zero. The last two lines are the kernel record
-(each kernel's launches in phase 11, worst error, time, plain and library
+Any failed check exits non-zero. Before the last two lines a `[timing]` line
+gives each phase's seconds on the host's clock. The last two lines are the
+kernel record (each kernel's launches in phase 11, worst error, time, plain and library
 time, and its bound: bytes at 3.35 TB/s or float32 operations at 67 TFLOP/s,
 whichever is larger; its launches per MoCoGAN step, K1's and K1-bwd's
 numbers at the MoCoGAN image D's skips and K4's and K4-bwd's at 48 channels,
@@ -243,7 +268,9 @@ numbers at the projection's pyramid, from phase 18; each kernel's launches
 per rank per MoCoGAN step over two ranks, K1's and K1-bwd's numbers at one
 rank's image D skips and K4's and K4-bwd's at its 48-channel warp, from
 phase 19; K2's numbers at G's r = 256 up-conv, with the sums over phase
-3b's calls and every call's numbers) and {"ok": true,
+3b's calls and every call's numbers; K7's, K7-bwd's and K8's launches in
+phase 20 (c) and their numbers summed over one warp's two passes at the
+step's canvas, from phase 20 (a)) and {"ok": true,
 "device": {...}}. There is no CPU path:
 without a CUDA device the script fails.
 """
@@ -291,6 +318,16 @@ def _kernels():
     from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
                                           downfirdn2d_x2_bwd, upfirdn2d_k2)
     return (downfirdn2d_x2, downfirdn2d_x2_bwd, affine_warp, affine_warp_bwd, upfirdn2d_k2)
+
+
+SHEAR_KERNELS = "K7, K7-bwd, K8"   # the order of _shear_kernels() and of their counts
+
+
+def _shear_kernels():
+    """The shear warp's three kernel wrappers (phase 20), counted apart from
+    _kernels(): only warp_mode="shear" launches them."""
+    from stylegan_v_tpu_torch.ops import shear_resample, shear_resample_bwd, shear_shift
+    return (shear_resample, shear_resample_bwd, shear_shift)
 
 
 def k2_per_synthesis(synthesis) -> int:
@@ -984,15 +1021,27 @@ K2_PER_SYNTHESIS_256 = 12
 # down, each its row and column pass in one launch), so the pipe adds 2 a K4
 # and 2 a K4-bwd: 72 + 8 = 80 without R1, 96 + 14 = 110 with.
 ADA_LAUNCHES_PER_STEP = {False: (18, 18, 3, 1, 80), True: (30, 30, 5, 2, 110)}
+# With warp_mode="shear" (phase 20) each warp of the pipe is two passes, K7
+# then K8 in each: a forward launches 2 K7 and 2 K8, a backward 2 K7-bwd and
+# 2 K8 (the transpose of a shift is a shift), and R1's backward of a
+# backward 2 K7 and 2 K8. So phase 11's 3 (5 with R1) K4 and 1 (2) K4-bwd a
+# step become 6 (10) K7, 2 (4) K7-bwd and 8 (14) K8; K4 and K4-bwd launch
+# no more, and K1, K1-bwd and K2 stay phase 11's. In the order K1, K1-bwd,
+# K4, K4-bwd, K2, K7, K7-bwd, K8:
+SHEAR_LAUNCHES_PER_STEP = {
+    r1: (k1, k1b, 0, 0, k2, 2 * k4, 2 * k4b, 2 * (k4 + k4b))
+    for r1, (k1, k1b, k4, k4b, k2) in ADA_LAUNCHES_PER_STEP.items()}
 TRAIN_SHAPE = (16, 3, 256)     # videos, frames, resolution: bench.py:bench_train_step's
 ADA_P = 0.5                    # the step's cost does not depend on p; at 0.5 transforms fire
 WARP_BATCH = (16, 9, 256)      # the pipe's input at TRAIN_SHAPE: videos, 3 frames x RGB, size
 
 
-def phase_train(dev, smi, G, D, augment, no_aug=None):
-    """Phase 8 (augment=False) or 11 (the bgc pipe, warp_upsample=2): five steps
-    (R1, three without, R1) on G and D as they are; returns the launches of the
-    run's kernels and (ms without R1, ms with R1, amortised ms, frames/s, peak GiB)."""
+def phase_train(dev, smi, G, D, augment, no_aug=None, warp_mode="auto", k4=None):
+    """Phase 8 (augment=False) or 11 (the bgc pipe, warp_upsample=2), or 20 (c)
+    (that pipe with warp_mode="shear"): five steps (R1, three without, R1) on G
+    and D as they are; returns the launches of the run's kernels and (ms
+    without R1, ms with R1, amortised ms, frames/s, peak GiB). `no_aug` and
+    `k4` are phase 8's and phase 11's numbers, printed beside."""
     import torch
     from stylegan_v_tpu_torch.ops import (affine_warp, affine_warp_bwd, downfirdn2d_x2,
                                           downfirdn2d_x2_bwd, upfirdn2d_k2)
@@ -1001,17 +1050,21 @@ def phase_train(dev, smi, G, D, augment, no_aug=None):
                                                init_train_state, make_augment_pipe,
                                                make_train_step)
 
+    shear = warp_mode == "shear"
     kernels = [downfirdn2d_x2, downfirdn2d_x2_bwd] + ([affine_warp, affine_warp_bwd]
                                                       if augment else []) + [upfirdn2d_k2]
-    expected = ADA_LAUNCHES_PER_STEP if augment else LAUNCHES_PER_STEP
-    names = ", ".join(("K1", "K1-bwd") + (("K4", "K4-bwd") if augment else ()) + ("K2",))
-    tag = "[11 ada]" if augment else "[8 train]"
+    kernels += list(_shear_kernels()) if shear else []
+    expected = (SHEAR_LAUNCHES_PER_STEP if shear else
+                ADA_LAUNCHES_PER_STEP if augment else LAUNCHES_PER_STEP)
+    names = ", ".join(("K1", "K1-bwd") + (("K4", "K4-bwd") if augment else ()) + ("K2",)
+                      + (("K7", "K7-bwd", "K8") if shear else ()))
+    tag = "[20 shear] (c)" if shear else "[11 ada]" if augment else "[8 train]"
     (B, F, res), r1_every = TRAIN_SHAPE, 16
     tcfg = TrainingConfig(batch_size=B, ada_target=0.6)
     lcfg = LossConfig(r1_gamma=0.0002 * res ** 2 / B, pl_weight=0.0, video_consistent_aug=True)
     opt = OptimizerConfig(0.0025)
-    aug = (make_augment_pipe(AugmentConfig(**AUGPIPE_SPECS["bgc"], warp_upsample=2))
-           if augment else None)
+    aug = (make_augment_pipe(AugmentConfig(**AUGPIPE_SPECS["bgc"], warp_upsample=2,
+                                           warp_mode=warp_mode)) if augment else None)
     state = init_train_state(G, D, opt, opt, tcfg, augment_p=ADA_P if augment else 0.0)
     step = make_train_step(G, D, lcfg, tcfg, augment_fn=aug)
     g = torch.Generator(device=dev).manual_seed(4)
@@ -1056,12 +1109,15 @@ def phase_train(dev, smi, G, D, augment, no_aug=None):
     ms_r1 = times[True][1] * 1e3                                   # the second R1 step
     ms_step = ((r1_every - 1) * ms_main + ms_r1) / r1_every          # bench.py:206
     fps = B * F / (ms_step * 1e-3)                                   # bench.py:210
-    what = (f"WITH ADA (bgc, warp_upsample=2, augment_p {ADA_P})" if augment
-            else "NO augment")
+    what = (f"WITH ADA (bgc, warp_upsample=2{', warp_mode shear' if shear else ''}, "
+            f"augment_p {ADA_P})" if augment else "NO augment")
     beside = ""
     if no_aug is not None:
         beside = (f"; phase 8 without augment: {no_aug[0]:.1f} / {no_aug[1]:.1f} ms, "
                   f"{no_aug[3]:.1f} frames/s")
+    if k4 is not None:
+        beside = (f"; phase 11 with K4 in this run: {k4[0]:.1f} / {k4[1]:.1f} ms, amortised "
+                  f"{k4[2]:.1f} ms/step, {k4[3]:.1f} frames/s, peak {k4[4]:.2f} GiB")
     print(f"{tag} FFS-256 step, {B}x{F} at {res}^2, {what}: "
           f"{ms_main:.1f} ms without R1 (first {times[False][0] * 1e3:.1f}), {ms_r1:.1f} ms with "
           f"R1 (first {times[True][0] * 1e3:.1f}); amortised at R1 every {r1_every}: "
@@ -1370,12 +1426,13 @@ class RecordedDraws:
         return self
 
 
-def phase_aug_parity(dev):
+def phase_aug_parity(dev, warp_mode="auto"):
     """Card vs CPU at phase 6's width with the bgc pipe (warp_upsample=2) and
     the same draws: the pipe's output, Gmain's dG and Dr1's dD. The geometry
     runs in float32 on both (on the card the pipe's default is bf16). D's
     input takes the CPU run's augmented values on the card (the gradient still
-    runs through the card's pipe), as phase 9 pins the frames."""
+    runs through the card's pipe), as phase 9 pins the frames. Phase 12, or
+    with warp_mode="shear" phase 20 (d)."""
     import torch
     from stylegan_v_tpu_torch.ops import affine_warp, affine_warp_bwd, upfirdn2d_k2
     from stylegan_v_tpu_torch.training import (AUGPIPE_SPECS, AugmentConfig, GANLoss,
@@ -1383,8 +1440,10 @@ def phase_aug_parity(dev):
 
     G, D, z, t, mz, gen = reduced_models()
     real = torch.rand(12, 3, 32, 32, generator=gen) * 2 - 1
+    shear = warp_mode == "shear"
+    tag = "[20 shear] (d)" if shear else "[12 augpar]"
     pipe = make_augment_pipe(AugmentConfig(**AUGPIPE_SPECS["bgc"], warp_upsample=2,
-                                           geom_dtype="float32"))
+                                           geom_dtype="float32", warp_mode=warp_mode))
     draws = {k: RecordedDraws(seed) for k, seed in (("pipe", 8), ("gmain", 9), ("dr1", 10))}
     outs = {}
 
@@ -1413,7 +1472,7 @@ def phase_aug_parity(dev):
                                     for (n, p), g in zip(m.named_parameters(), gs)}
                                    for m, gs in ((G, gG), (D, gD))]
 
-    kernels = (affine_warp, affine_warp_bwd, upfirdn2d_k2)
+    kernels = (affine_warp, affine_warp_bwd, upfirdn2d_k2) + (_shear_kernels() if shear else ())
     before = tuple(k.launches for k in kernels)
     want = run(copy.deepcopy(G), copy.deepcopy(D), torch.device("cpu"))
     check(tuple(k.launches for k in kernels) == before, "the CPU run launched a kernel")
@@ -1425,8 +1484,12 @@ def phase_aug_parity(dev):
     # K2: 2 beside each K4 and K4-bwd (12), G forward and backward (2 kG), D forward
     # and backward in Gmain, forward, first-order grad and its backward in Dr1 (6 kD)
     k2 = 12 + 2 * k2_per_synthesis(G.synthesis) + 6 * k2_per_d(D)
-    check(ran == (4, 2, k2),
-          f"the card run launched K4, K4-bwd, K2 {ran} times, expected (4, 2, {k2})")
+    # with the shear pipe: 2 K7 and 2 K8 for each of those 4 K4, 2 K7-bwd and 2 K8 for
+    # each of the 2 K4-bwd
+    want_ran = (0, 0, k2, 8, 4, 12) if shear else (4, 2, k2)
+    names = "K4, K4-bwd, K2" + (", K7, K7-bwd, K8" if shear else "")
+    check(ran == want_ran,
+          f"{tag} the card run launched {names} {ran} times, expected {want_ran}")
     msgs = []
     for name, g, w in (("pipe output", got[0], want[0]), ("Gmain dG", got[1], want[1]),
                        ("Dr1 dD", got[2], want[2])):
@@ -1434,10 +1497,11 @@ def phase_aug_parity(dev):
         err, worst = max((((g[k] - w[k]).abs().max().item()), k) for k in w)
         check(all(bool(torch.isfinite(v).all()) for v in g.values())
               and err <= PARITY_TOL * scale,
-              f"card vs CPU with ADA {name}: max err {err} at {worst} > {PARITY_TOL} * {scale}")
+              f"{tag} card vs CPU with ADA {name}: max err {err} at {worst} > {PARITY_TOL} * "
+              f"{scale}")
         msgs.append(f"{name} max_abs_err {err:.3g} (scale {scale:.3g})")
-    print(f"[12 augpar] reduced width, bgc at p {ADA_P}, card (K4, K4-bwd, K2 launched {ran}) vs "
-          f"CPU, tol {PARITY_TOL} x scale: " + "; ".join(msgs), flush=True)
+    print(f"{tag} reduced width, bgc at p {ADA_P}, warp_mode {warp_mode}, card ({names} launched "
+          f"{ran}) vs CPU, tol {PARITY_TOL} x scale: " + "; ".join(msgs), flush=True)
 
 
 LOOP_DATA = (16, 32, 256)   # videos, frames a video, resolution of phase 13's dataset
@@ -4377,6 +4441,354 @@ def phase_moco_ranks(dev, smi, zip_path, tmp):
     return launches, k1, k1_bwd, k4, k4_bwd
 
 
+# ---------------------------------------------------------------- phase 20
+
+SHEAR_ODD = (12, 3, 67, 61)     # (a)'s small case: samples, channels, canvas, output size
+
+
+def shear_bytes(kind, taps, shift, axis, x, y):
+    """The bytes that K7 ("K7"), K7-bwd ("K7-bwd") or K8 ("K8", with `shift`
+    its tables) must move from x into y: the input lines (elements) that
+    this call's tables read, once, and y once."""
+    import torch
+    C, other = x.shape[1], x.shape[3 - axis]
+    if kind == "K7":
+        seen = torch.zeros(taps.i0.shape[0], taps.in_len, dtype=torch.bool, device=x.device)
+        seen.scatter_(1, taps.i0.long(), True)
+        seen.scatter_(1, taps.i1.long(), True)
+        read = int(seen.sum()) * C * other
+    elif kind == "K7-bwd":
+        read = x.numel()
+    else:
+        L, n = x.shape[2 + axis], y.shape[2 + axis]
+        start = shift.start.long()
+        read = int(((start + n).clamp(max=L - 1) - start.clamp(min=0) + 1).clamp(min=0).sum()) * C
+    return (read + y.numel()) * x.element_size()
+
+
+def onehot_matrix(taps, C, dtype):
+    """The JAX formulation's banded one-hot matrix S [N C, out, L] of taps, a
+    copy a plane, in dtype: the library yardstick's operand."""
+    import torch
+    B, n = taps.i0.shape
+    S = torch.zeros(B, n, taps.in_len, device=taps.i0.device)
+    S.scatter_add_(2, taps.i0.long()[..., None], taps.w0[..., None])
+    S.scatter_add_(2, taps.i1.long()[..., None], taps.w1[..., None])
+    return S.to(dtype).repeat_interleave(C, dim=0)
+
+
+def shift_grid(shift, axis, in_shape, out_len):
+    """The grid [N, out_r, out_s, 2] on which F.grid_sample (bilinear, zeros,
+    align_corners=True) computes K8 with `shift` from in_shape [N, C, R, S]
+    to out_len along `axis`: each output reads position start + i + w1 of
+    its line (w0 = 1 - w1 for the forward's tables and the adjoint's), at
+    the line's own coordinate across it; float32, built in float64."""
+    import torch
+    from stylegan_v_tpu_torch.ops.shear_warp import ROWS
+    R, S = in_shape[2:]
+    dev = shift.start.device
+    i = torch.arange(out_len, dtype=torch.float64, device=dev)
+    pos = shift.start.double()[:, :, None] + shift.w1.double()[:, :, None] + i  # [N, lines, out]
+    if axis == ROWS:                     # lines are the columns: x = s, y = pos
+        y = pos.transpose(1, 2)
+        x = torch.arange(S, dtype=torch.float64, device=dev).expand_as(y)
+    else:                                # lines are the rows: x = pos, y = r
+        x = pos
+        y = torch.arange(R, dtype=torch.float64, device=dev)[:, None].expand_as(x)
+    return torch.stack([2 * x / (S - 1) - 1, 2 * y / (R - 1) - 1], dim=-1).float()
+
+
+def shear_record(pas, kind, shape, fns, moved, flops, library_call=None, lists_built=None):
+    """CUDA-event times in turns of fns (plain, kernel[, library]) and the
+    row of one call; `lists_built`, K7-bwd's wrapper with its CSR lists
+    built before, is timed too (`kernel_ms`)."""
+    fns = list(fns) + ([lists_built] if lists_built else [])
+    for fn in fns:                                  # warm-up
+        fn()
+    plain_t, kern, *rest = in_turns(fns, 10)
+    lib = rest[0] if library_call else None
+    bound, by = bound_ms(moved, flops)
+    row = dict(name=f"{kind} pass {pas}", shape=list(shape), ms=kern, plain_ms=plain_t,
+               library_ms=lib, library_call=library_call,
+               bound_ms=bound, bound_by=by, gb_per_s=moved / (kern * 1e-3) / 1e9,
+               share_of_bound=bound / kern)
+    if lists_built:
+        row.update(kernel_ms=rest[-1], kernel_share_of_bound=bound / rest[-1])
+    return row
+
+
+def shear_kernels(dev, G_bgc):
+    """(a): K7, K7-bwd and K8 (forward and adjoint) against their plain
+    versions at both passes of the step's canvas ([16, 9, 536^2] -> 524^2,
+    the bgc maps of the pipe and branch_maps) and of SHEAR_ODD (branch_maps),
+    float32 and bf16; K7-bwd and K8 twice, equal to the bit; at the canvas
+    with the bgc maps in bf16, CUDA-event times of each call, its plain
+    version and its library call (K7 and K7-bwd: torch.bmm of the banded
+    one-hot matrix, the JAX formulation; K8 and its adjoint: F.grid_sample
+    on shift_grid, on a float32 copy of the input, since grid_sample takes
+    its grid in the input's dtype and a bf16 grid cannot place a line past
+    256 to the pixel), each checked against the kernel, with the bound of
+    the bytes this call's tables read. K7-bwd's `ms` is its wrapper as the
+    step calls it, on a new LineTaps whose CSR lists it builds (a stable
+    sort and a search); its `kernel_ms` the wrapper with the lists built
+    before. Returns each kernel's worst error, its sums over the two passes
+    (K8: its forward's) and the rows."""
+    import torch
+    import torch.nn.functional as F
+    from stylegan_v_tpu_torch.ops import (shear_resample, shear_resample_bwd,
+                                          shear_resample_bwd_plain, shear_resample_plain,
+                                          shear_shift, shear_shift_plain)
+    from stylegan_v_tpu_torch.ops.shear_warp import (ROWS, LineTaps, branch_maps, shear_plan,
+                                                     warp_passes)
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    N, C, H, out = G_bgc.shape[0], WARP_BATCH[1], 2 * (WARP_BATCH[2] + 12), 2 * (WARP_BATCH[2] + 6)
+    cases = [("canvas", (N, C, H, out), {"bgc": G_bgc, "edges": branch_maps(N, dev)}),
+             ("odd", SHEAR_ODD, {"edges": branch_maps(SHEAR_ODD[0], dev)})]
+    worst = {"K7": 0.0, "K7-bwd": 0.0, "K8": 0.0}
+    equal = {k: [0, 0] for k in worst}          # calls equal to the plain version to the bit
+    rows = []
+    for case, (N, C, H, out), sets in cases:
+        for set_name, G in sets.items():
+            plan = shear_plan(G, H, H, out, out)
+            rot = int(plan.rot.sum())
+            check(set_name == "bgc" or 0 < rot < N,
+                  f"[20 shear] {case} {set_name}: {rot} of {N} samples take the rot90 branch")
+            for dtype_name in ("float32", "bfloat16"):
+                dtype, tol = getattr(torch, dtype_name), KERNEL_TOL[dtype_name]
+                for pas, taps, shift, axis, shape, out_len in warp_passes(plan, N, C, H, out):
+                    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+                    y = shear_resample(x, taps, axis)
+                    dy = torch.randn(y.shape, generator=g, device=dev).to(dtype)
+                    z = shear_shift(y, shift, axis, out_len)
+                    dz = torch.randn(z.shape, generator=g, device=dev).to(dtype)
+                    adj, L = shift.adjoint(), y.shape[2 + axis]
+                    dx = shear_resample_bwd(dy, taps, axis)
+                    dy_z = shear_shift(dz, adj, axis, L)
+                    for name, got, want in (
+                            ("K7", y, shear_resample_plain(x, taps, axis)),
+                            ("K7-bwd", dx, shear_resample_bwd_plain(dy, taps, axis)),
+                            ("K8", z, shear_shift_plain(y, shift, axis, out_len)),
+                            ("K8", dy_z, shear_shift_plain(dz, adj, axis, L))):
+                        torch.cuda.synchronize()
+                        e = (got.float() - want.float()).abs().max().item()
+                        check(got.shape == want.shape
+                              and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                              f"[20 shear] {name} vs plain, {case} {set_name} pass {pas} "
+                              f"{list(shape)} {dtype_name}: max err {e}")
+                        worst[name] = max(worst[name], e)
+                        equal[name][0] += torch.equal(got, want)
+                        equal[name][1] += 1
+                    check(torch.equal(shear_resample_bwd(dy, taps, axis), dx)
+                          and torch.equal(shear_shift(dz, adj, axis, L), dy_z),
+                          f"[20 shear] K7-bwd or K8 {case} {set_name} pass {pas} {dtype_name}: "
+                          f"two calls differ")
+                    if (case, set_name, dtype) != ("canvas", "bgc", torch.bfloat16):
+                        continue
+                    S = onehot_matrix(taps, C, dtype)
+                    P, R, Sx = N * C, shape[2], shape[3]
+                    if axis == ROWS:
+                        lib = lambda: torch.bmm(S, x.view(P, R, Sx))                # noqa: E731
+                        lib_bwd = lambda: torch.bmm(S.transpose(1, 2),              # noqa: E731
+                                                    dy.view(P, taps.out_len, Sx))
+                    else:
+                        lib = lambda: torch.bmm(x.view(P, R, Sx), S.transpose(1, 2))  # noqa: E731
+                        lib_bwd = lambda: torch.bmm(dy.view(P, R, taps.out_len), S)  # noqa: E731
+                    # K8's: grid_sample on float32 copies (module docstring of shear_kernels)
+                    y32, dz32 = y.float(), dz.float()
+                    grid = shift_grid(shift, axis, y.shape, out_len)
+                    grid_adj = shift_grid(adj, axis, dz.shape, L)
+                    lib_k8 = lambda: F.grid_sample(y32, grid, mode="bilinear",      # noqa: E731
+                                                   padding_mode="zeros", align_corners=True)
+                    lib_k8_adj = lambda: F.grid_sample(dz32, grid_adj,              # noqa: E731
+                                                       mode="bilinear", padding_mode="zeros",
+                                                       align_corners=True)
+                    for name, fn, want in (("K7", lib, y), ("K7-bwd", lib_bwd, dx),
+                                           ("K8", lib_k8, z), ("K8 adjoint", lib_k8_adj, dy_z)):
+                        e_lib = (fn().view(want.shape).float() - want.float()).abs().max().item()
+                        check(e_lib <= tol * max(want.float().abs().max().item(), 1.0),
+                              f"[20 shear] the library call of {name} pass {pas} differs from "
+                              f"the kernel by {e_lib}")
+                    bmm = "torch.bmm of the banded one-hot matrix, a copy a plane"
+                    gs = ("F.grid_sample(bilinear, zeros, align_corners=True) on the float32 "
+                          "input, grid of the shift's positions built before")
+                    rows += [
+                        shear_record(pas, "K7", shape, (
+                            lambda: shear_resample_plain(x, taps, axis),
+                            lambda: shear_resample(x, taps, axis), lib),
+                            shear_bytes("K7", taps, None, axis, x, y), 3 * y.numel(), bmm),
+                        shear_record(pas, "K7-bwd", list(dy.shape), (
+                            lambda: shear_resample_bwd_plain(dy, taps, axis),
+                            lambda: shear_resample_bwd(dy, LineTaps(
+                                taps.i0, taps.i1, taps.w0, taps.w1, taps.in_len), axis),
+                            lib_bwd),
+                            shear_bytes("K7-bwd", taps, None, axis, dy, dx), 4 * dy.numel(),
+                            f"{bmm}, transposed",
+                            lists_built=lambda: shear_resample_bwd(dy, taps, axis)),
+                        shear_record(pas, "K8", list(y.shape), (
+                            lambda: shear_shift_plain(y, shift, axis, out_len),
+                            lambda: shear_shift(y, shift, axis, out_len), lib_k8),
+                            shear_bytes("K8", None, shift, axis, y, z), 3 * z.numel(), gs),
+                        shear_record(pas, "K8 adjoint", list(dz.shape), (
+                            lambda: shear_shift_plain(dz, adj, axis, L),
+                            lambda: shear_shift(dz, adj, axis, L), lib_k8_adj),
+                            shear_bytes("K8", None, adj, axis, dz, dy_z), 3 * dy_z.numel(),
+                            gs)]
+                    del S, y32, dz32, grid, grid_adj
+                    torch.cuda.empty_cache()
+    for r in rows:
+        built = (f"; with its lists built before {r['kernel_ms']:.4f} ms "
+                 f"({r['kernel_share_of_bound']:.1%})" if "kernel_ms" in r else "")
+        print(f"[20 shear] (a) {r['name']} {r['shape']} bf16: kernel {r['ms']:.4f} ms "
+              f"({r['gb_per_s']:.0f} GB/s, {r['share_of_bound']:.1%} of the {r['bound_ms']:.4f} "
+              f"ms bound{built})  plain {r['plain_ms']:.4f} ms  library "
+              f"{r['library_ms']:.4f} ms", flush=True)
+    sums = {}
+    for kind in worst:
+        mine = [r for r in rows if r["name"].startswith(f"{kind} pass")]
+        t = {k: sum(r[k] for r in mine) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+        if kind == "K7-bwd":
+            t["kernel_ms"] = sum(r["kernel_ms"] for r in mine)
+        t["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in mine) else "operations"
+        sums[kind] = t
+    print(f"[20 shear] (a) max_abs_err vs plain (canvas bgc and edge maps, {SHEAR_ODD} edge "
+          f"maps, float32 and bf16): " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+          + "; equal to the plain version to the bit: "
+          + ", ".join(f"{k} {a} of {b}" for k, (a, b) in equal.items())
+          + "; K7-bwd and K8 repeat to the bit; one warp's two passes at the canvas in bf16: "
+          + ", ".join(f"{k} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f})"
+                      for k, t in sums.items()), flush=True)
+    return worst, sums, rows
+
+
+def shear_calls(dev):
+    """The anti-aliased warp of the ADA pipe with warp_mode="shear" on the
+    step's batch (WARP_BATCH, bgc draws at p = 1): its input and G_inv
+    (_warp_antialiased's) and the G_inv of its shear warp on the canvas."""
+    import torch
+    from stylegan_v_tpu_torch.training import augment as taug
+
+    (N, C, H), seen = WARP_BATCH, {}
+    warp, shear = taug._warp_antialiased, taug.shear_affine_grid_sample
+
+    def recorded(images, G_inv, *args, **kwargs):
+        seen["pipe"] = (images.detach().clone(), G_inv.detach().clone())
+        return warp(images, G_inv, *args, **kwargs)
+
+    def recorded_shear(x, G_inv, out_h, out_w):
+        seen["canvas"] = (tuple(x.shape), G_inv.detach().clone(), out_h, out_w)
+        return shear(x, G_inv, out_h, out_w)
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.rand(N, C, H, H, generator=g, device=dev) * 2 - 1
+    taug._warp_antialiased, taug.shear_affine_grid_sample = recorded, recorded_shear
+    try:
+        pipe = taug.make_augment_pipe(taug.AugmentConfig(**taug.AUGPIPE_SPECS["bgc"],
+                                                         warp_upsample=2, warp_mode="shear"))
+        with torch.no_grad():
+            pipe(g, x, torch.ones((), device=dev))
+    finally:
+        taug._warp_antialiased, taug.shear_affine_grid_sample = warp, shear
+    big, out = 2 * (H + 12), 2 * (H + 6)
+    check(seen["canvas"][0] == (N, C, big, big) and seen["canvas"][2:] == (out, out),
+          f"[20 shear] the pipe's shear warp: {seen['canvas']}")
+    return seen["pipe"], seen["canvas"][1]
+
+
+def shear_whole_warp(dev, smi, images, G_inv):
+    """(b): _warp_antialiased at the step's batch in bf16, shear against K4,
+    forward and forward + backward, CUDA-event times in turns; each call's
+    launches, how far the two executors' images lie apart (white noise in,
+    the whole canvas), and one forward + backward of each under
+    torch.profiler (tools/profile_split.py:profile: device time by class
+    and the longest kernels)."""
+    import torch
+    from stylegan_v_tpu_torch.ops import setup_filter
+    from stylegan_v_tpu_torch.tools.profile_split import profile
+    from stylegan_v_tpu_torch.training import augment as taug
+
+    Hz = setup_filter(taug._SYM6)
+    g = torch.Generator(device=dev).manual_seed(21)
+    x = images.detach().requires_grad_(True)
+
+    def forward(mode):
+        def call():
+            with torch.no_grad():
+                return taug._warp_antialiased(images, G_inv, Hz, 3, warp_mode=mode)
+        return call
+
+    dy = torch.randn(forward("gather")().shape, generator=g, device=dev)
+
+    def both(mode):
+        def call():
+            taug._warp_antialiased(x, G_inv, Hz, 3, warp_mode=mode).backward(dy)
+        return call
+
+    kernels = _kernels()[2:4] + _shear_kernels()
+    launched = {}
+    for what, fn in (("shear fwd", forward("shear")), ("shear fwd+bwd", both("shear")),
+                     ("K4 fwd", forward("gather")), ("K4 fwd+bwd", both("gather"))):
+        before = [k.launches for k in kernels]
+        fn()
+        launched[what] = tuple(k.launches - b for k, b in zip(kernels, before))
+    want = {"shear fwd": (0, 0, 2, 0, 2), "shear fwd+bwd": (0, 0, 2, 2, 4),
+            "K4 fwd": (1, 0, 0, 0, 0), "K4 fwd+bwd": (1, 1, 0, 0, 0)}
+    check(launched == want, f"[20 shear] (b) K4, K4-bwd, {SHEAR_KERNELS} launched {launched}, "
+                            f"expected {want}")
+    k4, sh = forward("gather")().float(), forward("shear")().float()
+    d = k4 - sh
+    peak = (k4.max() - k4.min()).item()
+    psnr = 10 * torch.log10(peak ** 2 / d.square().mean()).item()
+    fns = [forward("gather"), forward("shear"), both("gather"), both("shear")]
+    for fn in fns:                                  # warm-up
+        fn()
+    k4_f, sh_f, k4_fb, sh_fb = in_turns(fns, 10)
+    for what, fn in (("shear", both("shear")), ("K4", both("gather"))):
+        total, window, split, top, _ = profile(fn)
+        print(f"[20 shear] (b) one forward + backward under torch.profiler, {what}: kernels "
+              f"{total:.4f} ms of a {window:.4f} ms window (idle share {1 - total / window:.3f}); "
+              + ", ".join(f"{c} {ms:.4f}" for c, ms in sorted(split.items(), key=lambda kv: -kv[1]))
+              + "; longest: " + ", ".join(f"{name[:60]} {ms:.4f}" for name, ms in top[:6]),
+              flush=True)
+    print(f"[20 shear] (b) the anti-aliased warp at {list(images.shape)} (bf16 geometry): "
+          f"forward K4 {k4_f:.4f} ms, shear {sh_f:.4f} ms ({sh_f / k4_f:.2f}x); forward + "
+          f"backward K4 {k4_fb:.4f} ms, shear {sh_fb:.4f} ms ({sh_fb / k4_fb:.2f}x); launches "
+          f"(K4, K4-bwd, {SHEAR_KERNELS}) {launched}; shear vs K4 images: max abs diff "
+          f"{d.abs().max().item():.4g}, PSNR {psnr:.2f} dB over a peak of {peak:.3g} (two "
+          f"bilinear passes against one 2-D tap: not the same function); on {smi}", flush=True)
+    return dict(forward_k4_ms=k4_f, forward_shear_ms=sh_f, fwd_bwd_k4_ms=k4_fb,
+                fwd_bwd_shear_ms=sh_fb, psnr_db=psnr)
+
+
+def phase_shear(dev, smi, G, D, k4_step):
+    """Phase 20: the shear warp executor (warp_mode="shear"): (a) its kernels
+    (shear_kernels), (b) the whole anti-aliased warp against K4
+    (shear_whole_warp), (c) the FFS-256 ADA step with the shear pipe
+    (phase_train, beside phase 11's K4 numbers `k4_step`) and (d) card vs CPU
+    with it (phase_aug_parity). Phases 3-12 launched no shear kernel. Returns
+    (a)'s numbers, the launches of (c)'s run, (b)'s and (c)'s numbers."""
+    import torch
+    from stylegan_v_tpu_torch.utils.misc import float32_precision
+
+    ran = tuple(k.launches for k in _shear_kernels())
+    check(ran == (0, 0, 0), f"[20 shear] {SHEAR_KERNELS} launched {ran} times before phase 20")
+    t0 = time.perf_counter()
+    with float32_precision(False):
+        (images, G_pipe), G_canvas = shear_calls(dev)
+        kernels = shear_kernels(dev, G_canvas)
+        torch.cuda.empty_cache()
+        whole = shear_whole_warp(dev, smi, images, G_pipe)
+    del images
+    torch.cuda.empty_cache()
+    launches, step = phase_train(dev, smi, G, D, augment=True, warp_mode="shear", k4=k4_step)
+    torch.cuda.empty_cache()
+    with float32_precision(False):
+        phase_aug_parity(dev, warp_mode="shear")
+    print(f"[20 shear] done in {time.perf_counter() - t0:.1f} s; the port's 'auto' and "
+          f"'gather' ran K4 (phases 10-12), 'shear' K7, K7-bwd and K8", flush=True)
+    return kernels, launches[5:], whole, step
+
+
 def package_version(name):
     """The installed version of package `name`, or "absent"."""
     import importlib.metadata
@@ -4386,7 +4798,7 @@ def package_version(name):
     return f"{name} {importlib.metadata.version(name)}"
 
 
-def kernel_records(k1, k1_bwd, k4, k4_bwd, k2, launches, moco, cli, moco_ranks):
+def kernel_records(k1, k1_bwd, k4, k4_bwd, k2, launches, moco, cli, moco_ranks, shear):
     """The kernel record: each kernel's launches in the ADA run (phase 11),
     worst error against its plain version, and its time, its plain version's
     and its library call's beside its bound: K1 and K1-bwd summed over one D
@@ -4405,7 +4817,10 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, k2, launches, moco, cli, moco_ranks):
     rank's 48-channel warp). `k2` is phase 3b's: K2's record is G's r = 256
     up-conv call at 16 x 3, with the sums over one forward's calls and their
     adjoints, every call's numbers, and the ADA pipe's separable calls at
-    each batch phase_warp held them (K2_PIPE) and in phase 3b."""
+    each batch phase_warp held them (K2_PIPE) and in phase 3b. `shear` is
+    phase 20's: K7's, K7-bwd's and K8's launches in (c)'s five steps, worst
+    error and times summed over one warp's two passes at the step's canvas
+    (K8: its forward), each call's row, (b)'s whole warp and (c)'s step."""
     warp = "stylegan_v_tpu/ops/grid_sample.py:33 (XLA gather; no Pallas kernel)"
     conv = "depthwise, stride 2, padding 1, in the input's dtype"
     near = "not the same function (border half pixel)"
@@ -4484,6 +4899,34 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, k2, launches, moco, cli, moco_ranks):
         rec["mocogan_ranks_48ch"] = {"max_abs_err": m[0], "ms": m[1], "plain_ms": m[2],
                                      "library_ms": m[3], "bound_ms": m[4], "bound_by": m[5],
                                      "share_of_bound": m[4] / m[1]}
+    (worst, sums, rows), shear_launches, whole, step = shear
+    sw = "stylegan_v_tpu/ops/shear_warp.py"
+    bmm = "torch.bmm of the banded one-hot matrix (the JAX formulation), a copy a plane"
+    for (name, key, replaces, library), n in zip((
+            ("shear_resample", "K7", f"{sw}:104 (_line_pass_onehot: a one-hot matmul; no "
+                                     f"Pallas kernel)", bmm),
+            ("shear_resample_bwd", "K7-bwd", f"{sw}:104 (its gradient, from jax.grad: the "
+                                             f"transposed matmul)", f"{bmm}, transposed"),
+            ("shear_shift", "K8", f"{sw}:278 (_shift_lines_dense_impl) and :323 (its VJP, a "
+                                  f"shift too; no Pallas kernel)",
+             "F.grid_sample(bilinear, zeros, align_corners=True) on the float32 input, grid "
+             "of the shift's positions built before")), shear_launches):
+        t = sums[key]
+        records.append({"name": name, "route": "cuda",
+                        "source": f"stylegan_v_tpu_torch/csrc/{name}.cu", "replaces": replaces,
+                        "launches": n, "max_abs_err": worst[key], "ms": t["ms"],
+                        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                        "bound_by": t["bound_by"], "library_call": library,
+                        "library_ms": t["library_ms"], "share_of_bound": t["bound_ms"] / t["ms"],
+                        "shape": "one warp's two passes at the ADA step's canvas, [16, 9, 536^2] "
+                                 "-> 524^2 bf16, the pipe's bgc maps",
+                        "calls": [r for r in rows if r["name"].startswith(key + " ")]})
+        if "kernel_ms" in t:
+            records[-1].update(kernel_ms=t["kernel_ms"], ms_is="the wrapper as the step calls "
+                               "it, its CSR lists built in the call; kernel_ms with them built "
+                               "before")
+    records[-3].update(whole_warp_16x9=whole, shear_ada_step=dict(zip(
+        ("ms_without_r1", "ms_with_r1", "ms_amortised", "frames_per_s", "peak_gib"), step)))
     return records
 
 
@@ -4496,8 +4939,15 @@ def main() -> int:
                                           downfirdn2d_x2_bwd_plain, downfirdn2d_x2_plain)
     from stylegan_v_tpu_torch.utils.misc import float32_precision
     dev = torch.device("cuda", 0)
+    laps, clock = [], [time.perf_counter()]
+
+    def lap(phases):
+        now = time.perf_counter()
+        laps.append(f"{phases} {now - clock[0]:.1f}")
+        clock[0] = now
     smi = phase_device()
     phase_build()
+    lap("1-2")
     with float32_precision(False):
         k1 = phase_kernel(dev, "[3 kernel]", "down", downfirdn2d_x2, downfirdn2d_x2_plain)
         G, D = ffs256_models(dev)
@@ -4507,35 +4957,56 @@ def main() -> int:
         phase_speed(dev, G, smi)
         phase_parity(dev)
         k1_bwd = phase_bwd(dev)
+    lap("3-7")
     _, no_aug = phase_train(dev, smi, G, D, augment=False)     # the step's own default
     torch.cuda.empty_cache()
+    lap("8")
     with float32_precision(False):
         phase_grads(dev)
         k4, k4_bwd = phase_warp(dev)
     torch.cuda.empty_cache()
+    lap("9-10")
     launches, prestaged = phase_train(dev, smi, G, D, augment=True, no_aug=no_aug)
-    del G, D
     torch.cuda.empty_cache()
+    lap("11")
     with float32_precision(False):
         phase_aug_parity(dev)
+    lap("12")
+    shear = phase_shear(dev, smi, G, D, prestaged)
+    lap("20")
+    shear_launched = tuple(k.launches for k in _shear_kernels())
+    del G, D
+    torch.cuda.empty_cache()
     detectors = random_detectors()
     with tempfile.TemporaryDirectory() as tmp:
         zip_path, G_ema = phase_loop(dev, smi, prestaged, tmp)   # the loop's own TF32 default
+        lap("13")
         with float32_precision(False):
             phase_metrics(dev, smi, G_ema, zip_path, tmp, detectors)
         del G_ema
         torch.cuda.empty_cache()
+        lap("14")
         phase_parallel(dev, smi, zip_path, tmp)       # the steps' own TF32 default
         torch.cuda.empty_cache()
+        lap("15")
         # the loop's own TF32 default
         pkl, gen_rate = phase_legacy(dev, smi, zip_path, tmp, detectors)
         torch.cuda.empty_cache()
+        lap("16")
         moco = phase_mocogan(dev, smi, zip_path, tmp, detectors, (k4, k4_bwd))
         torch.cuda.empty_cache()
+        lap("17")
         cli = phase_cli(dev, smi, zip_path, tmp, pkl, gen_rate, k1, k1_bwd)
         torch.cuda.empty_cache()
+        lap("18")
         moco_ranks = phase_moco_ranks(dev, smi, zip_path, tmp)
-    records = kernel_records(k1, k1_bwd, k4, k4_bwd, k2, launches, moco, cli, moco_ranks)
+        lap("19")
+    after = tuple(k.launches for k in _shear_kernels())
+    check(after == shear_launched, f"phases 13-19 launched {SHEAR_KERNELS} "
+                                   f"{tuple(a - b for a, b in zip(after, shear_launched))} times")
+    records = kernel_records(k1, k1_bwd, k4, k4_bwd, k2, launches, moco, cli, moco_ranks, shear)
+    print(f"[timing] seconds a phase on the host's clock, in the order run: {', '.join(laps)}",
+          flush=True)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ stylegan_v_tpu/io/checkpoint.py:load_snapshot, converts the whole training
 state with stylegan_v_tpu_torch/io/bridge.py (G, D, G_ema, w_avg, both
 Adams' moments, pl_mean, augment_p, ada_sign_acc, step, cur_nimg), and
 writes network-snapshot-<kimg>.pt and its .meta.json into <out_dir>, where
-the port's loop resumes it (training.resume=latest, or the .pt path).
+the port's loop resumes it (training.resume=latest, or the .pt path). The
+meta names the ADA warp executor the JAX run ran (`jax_warp_mode`), which
+the port's loop keeps on resume where its warp_mode is "auto".
 
 It lives outside the port because Orbax imports jax. Adam's learning rate
 and betas are not in an Orbax snapshot (optax keeps them in the optimizer's
@@ -23,6 +25,15 @@ import os
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def jax_warp_mode(resolution: int) -> str:
+    """The executor the JAX package's warp_mode="auto", which its train_setup
+    leaves in place, runs on an accelerator at this image size
+    (stylegan_v_tpu/training/augment.py:_warp_antialiased): "shear" on the
+    sizes validated on the TPU, "gather" elsewhere."""
+    from stylegan_v_tpu.training.augment import SHEAR_TPU_VALIDATED_RES
+    return "shear" if resolution in SHEAR_TPU_VALIDATED_RES else "gather"
 
 
 def convert(snapshot: str, out_dir: str) -> str:
@@ -69,7 +80,8 @@ def convert(snapshot: str, out_dir: str) -> str:
     state.ada_sign_acc.fill_(pieces["ada_sign_acc"])
     state.step, state.cur_nimg = pieces["step"], pieces["cur_nimg"]
     cur_nimg = int(meta.get("cur_nimg", state.cur_nimg))
-    return tckpt.save_snapshot(out_dir, state, cur_nimg, configs={"G": tcfg["G"], "D": tcfg["D"]})
+    return tckpt.save_snapshot(out_dir, state, cur_nimg, configs={"G": tcfg["G"], "D": tcfg["D"]},
+                               extra_meta={"warp_mode": jax_warp_mode(tcfg["G"].img_resolution)})
 
 
 def main():

@@ -14,6 +14,15 @@ from .grid_sample import (  # noqa: F401
     affine_warp_bwd,
 )
 from .modulated_conv2d import modulated_conv2d  # noqa: F401
+from .shear_warp import (  # noqa: F401
+    shear_affine_grid_sample,
+    shear_resample,
+    shear_resample_bwd,
+    shear_resample_bwd_plain,
+    shear_resample_plain,
+    shear_shift,
+    shear_shift_plain,
+)
 from .upfirdn2d import (  # noqa: F401
     downsample2d,
     filter2d,

@@ -59,6 +59,7 @@ CLASSES = (  # (class, substrings of the kernel name), the first match wins
     ("K2 upfirdn2d", ("upfirdn2d_kernel", "upfirdn2d_2d_kernel", "upfirdn2d_sep_kernel")),
     ("K1, K1-bwd", ("downfirdn2d_x2",)),
     ("K4, K4-bwd", ("affine_warp",)),
+    ("K7, K7-bwd, K8", ("shear_resample", "shear_shift")),
     ("depthwise convs (plain upfirdn2d)", ("depthwise", "conv2d_grouped")),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("convs and GEMMs", ("conv", "cudnn", "xmma", "gemm", "cutlass", "sm90_", "wgrad",

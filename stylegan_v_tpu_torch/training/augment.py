@@ -6,7 +6,8 @@ src/training/augment.py, the 18-transform differentiable pipeline of
 
   * Pixel blitting and geometric transforms accumulate ONE inverse map
     G_inv per sample and run as one pass: reflect pad -> 12-tap 2x upsample
-    -> bilinear warp (K4, ops/grid_sample.py) -> 12-tap 2x downsample
+    -> bilinear warp (K4, ops/grid_sample.py; or the two-pass shear warp,
+    ops/shear_warp.py, for `warp_mode="shear"`) -> 12-tap 2x downsample
     (`warp_upsample=2`), or as a direct mirrored warp (`warp_upsample=1`).
   * Color transforms are one homogeneous 4x4 matrix per sample applied to
     RGB; C = F*3 channels (video-consistent augmentation) are frames, frame
@@ -42,7 +43,7 @@ the device, so the step's cost does not depend on p.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import scipy.signal
@@ -51,6 +52,7 @@ import torch.nn.functional as F
 
 from ..ops import downsample2d, setup_filter, upsample2d
 from ..ops.grid_sample import affine_grid_sample
+from ..ops.shear_warp import shear_affine_grid_sample
 
 # Wavelet low-pass decomposition coefficients (stylegan_v_tpu/training/augment.py:44-53).
 _SYM6 = [0.015404109327027373, 0.0034907120842174702, -0.11799011114819057,
@@ -101,8 +103,12 @@ class AugmentConfig:
     # geometric execution: 2 = the reference's anti-aliased pad -> 2x
     # upsample -> warp -> 2x downsample pipeline; 1 = direct mirrored warp.
     warp_upsample: int = 2
-    # warp executor: "auto" and "gather" both run the bilinear warp (K4) in
-    # the port; "shear" (the JAX package's TPU executor) is not ported.
+    # warp executor of the anti-aliased pipeline (warp_upsample=2): "auto"
+    # and "gather" run the bilinear warp (K4); "shear" the two-pass shear
+    # executor (K7, K8: ops/shear_warp.py), which the JAX package's "auto"
+    # picks on a CPU and on its validated TPU sizes. warp_upsample=1 always
+    # runs K4. The training loop resolves "auto" with `resolve_warp_mode`: a
+    # resumed run keeps the executor its snapshot names.
     warp_mode: str = "auto"
     # geometric-stage payload dtype: "auto" = bfloat16 on a CUDA tensor,
     # float32 on CPU (the JAX package's policy: bf16 on an accelerator);
@@ -229,10 +235,11 @@ def _resolve_geom_dtype(geom_dtype: str, device: torch.device) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[geom_dtype]
 
 
-def _warp_antialiased(images, G_inv, Hz_geom, Hz_pad, geom_dtype="auto"):
+def _warp_antialiased(images, G_inv, Hz_geom, Hz_pad, geom_dtype="auto", warp_mode="auto"):
     """The reference's anti-aliased geometric execution: symmetric static
-    reflect pad, 2x upsample, bilinear warp on the (H + Hz_pad*2)*2 canvas,
-    then downsample and crop (reference augment.py:286-300).
+    reflect pad, 2x upsample, warp on the (H + Hz_pad*2)*2 canvas (K4, or
+    the shear executor for warp_mode="shear"), then downsample and crop
+    (reference augment.py:286-300).
 
     Unchunked: the JAX package maps the warp over batch chunks and
     rematerializes each in the backward to bound TPU HBM
@@ -254,7 +261,10 @@ def _warp_antialiased(images, G_inv, Hz_geom, Hz_pad, geom_dtype="auto"):
              @ scale2d(out_w / 2 * ones, out_h / 2 * ones))
     x = F.pad(images.to(dt), [m, m, m, m], mode="reflect")
     x = upsample2d(x, Hz_geom, up=2)
-    x = affine_grid_sample(x, G_inv, out_h, out_w, mode="reflect")
+    if warp_mode == "shear":
+        x = shear_affine_grid_sample(x, G_inv, out_h, out_w)
+    else:
+        x = affine_grid_sample(x, G_inv, out_h, out_w, mode="reflect")
     x = downsample2d(x, Hz_geom, down=2, padding=-Hz_pad * 2, flip_filter=True)
     return x.to(images.dtype)
 
@@ -294,16 +304,31 @@ def _as_draws(draws):
     return draws
 
 
+WARP_MODES = ("auto", "gather", "shear")
+
+
+def resolve_warp_mode(warp_mode: str, snapshot_mode: Optional[str] = None) -> str:
+    """The executor that `warp_mode` runs, "gather" (K4) or "shear". "auto" is
+    `snapshot_mode`, the executor a resumed snapshot's meta names, where it
+    names one, so a resumed run keeps its augment (a JAX run converted by
+    scripts/convert_jax_snapshot_to_torch.py names the one the JAX package
+    ran); else "gather"."""
+    if warp_mode not in WARP_MODES:
+        raise ValueError(f"unknown warp_mode {warp_mode!r}")
+    if warp_mode != "auto":
+        return warp_mode
+    if snapshot_mode not in (None, "gather", "shear"):
+        raise ValueError(f"the snapshot names an unknown warp executor {snapshot_mode!r}")
+    return snapshot_mode or "gather"
+
+
 def make_augment_pipe(cfg: AugmentConfig):
     """Returns augment(draws, images [B, C, H, W], p, debug_percentile=None) -> images.
 
     `draws` is a draw source (module docstring) or a torch.Generator. C may
     be 3, 1, or F*3 (video-consistent, frame-major)."""
-    if cfg.warp_mode not in ("auto", "gather", "shear"):
+    if cfg.warp_mode not in WARP_MODES:
         raise ValueError(f"unknown warp_mode {cfg.warp_mode!r}")
-    if cfg.warp_mode == "shear":
-        raise NotImplementedError("the shear warp executor is not ported: ROADMAP ports it "
-                                  "only if K4 measures slower than it on the card")
     if cfg.warp_upsample not in (1, 2):
         raise ValueError(f"warp_upsample must be 1 or 2, got {cfg.warp_upsample}")
     Hz_geom = setup_filter(_SYM6)                     # orthogonal lowpass, 12 taps
@@ -397,7 +422,8 @@ def make_augment_pipe(cfg: AugmentConfig):
                 images = affine_grid_sample(images.to(gdt), Gn, H, W,
                                             mode="reflect").to(images.dtype)
             else:
-                images = _warp_antialiased(images, G_inv, Hz_geom, Hz_pad, cfg.geom_dtype)
+                images = _warp_antialiased(images, G_inv, Hz_geom, Hz_pad, cfg.geom_dtype,
+                                           cfg.warp_mode)
 
         # ---- color transforms --------------------------------------------
         if color_enabled:

@@ -34,7 +34,9 @@ metric-<name>.jsonl row per metric; a metric that fails is logged with its
 traceback and training goes on, as in the JAX loop.
 
 Resume: `resume='latest'` or a snapshot path restores the whole state
-(io/checkpoint.py). A reference `.pkl` (torch-era or TF-era, io/legacy.py)
+(io/checkpoint.py), and the ADA pipe's warp executor where the snapshot's
+meta names it and the setup's warp_mode is "auto" (augment.py:
+resolve_warp_mode; the loop's snapshots name theirs). A reference `.pkl` (torch-era or TF-era, io/legacy.py)
 is a weights-only import, as in the JAX loop and the reference's resume_pkl:
 a name-matched partial copy into G, G_ema and D where the pickle holds each
 (parameters and buffers; a shape that differs raises), while the counters,
@@ -76,7 +78,7 @@ from ..utils.summary import (check_replica_consistency, print_activation_summary
                              print_module_summary, train_state_tree)
 from ..utils.training_stats import (Collector, DeviceStatsAccumulator, StatsJsonlWriter,
                                     TensorboardWriter)
-from .augment import make_augment_pipe
+from .augment import make_augment_pipe, resolve_warp_mode
 from .train_step import init_train_state, make_train_step
 from .video_io import generate_videos, save_image_grid, save_video_frames_as_mp4, videos_as_grids
 
@@ -222,7 +224,7 @@ def _train(setup: TrainSetup, device: torch.device, abort_fn, progress_fn, log,
                                  title="Generator", log=log)
 
     # ---- resume (reference train.py:283-317, training_loop.py:167-183) ---
-    resume_nimg = 0
+    resume_nimg, snapshot_warp = 0, None
     if setup.resume and str(setup.resume).endswith(".pkl"):
         # weights only, from a reference snapshot pickle (reference resume_pkl:
         # partial copy, counters and optimizer fresh); rank 0 reads it and the
@@ -239,15 +241,22 @@ def _train(setup: TrainSetup, device: torch.device, abort_fn, progress_fn, log,
             payload, meta = load_snapshot(path)
             restore_train_state(state, payload)
             resume_nimg = int(meta.get("cur_nimg", state.cur_nimg))
+            snapshot_warp = meta.get("warp_mode")
         elif setup.resume != "latest":
             raise FileNotFoundError(setup.resume)
     # every rank starts from rank 0's state, drawn or resumed
     _broadcast_state(state, world)
 
     # ---- augmentation + train step ---------------------------------------
-    augment_fn = (make_augment_pipe(dataclasses.replace(setup.augment_cfg,
-                                                        data_shards=world.size))
-                  if setup.augment_cfg is not None else None)
+    augment_fn, snapshot_meta = None, None
+    if setup.augment_cfg is not None:
+        # a resumed run keeps the warp executor its snapshot names (where the
+        # setup leaves it "auto"), and every snapshot names the one it ran
+        warp_mode = resolve_warp_mode(setup.augment_cfg.warp_mode, snapshot_warp)
+        log(f"Augment warp executor: {warp_mode}")
+        augment_fn = make_augment_pipe(dataclasses.replace(
+            setup.augment_cfg, data_shards=world.size, warp_mode=warp_mode))
+        snapshot_meta = {"warp_mode": warp_mode}
     step_fn = make_train_step(G, D, setup.loss_cfg, setup.train_cfg, augment_fn=augment_fn,
                               world=world, allow_tf32=setup.allow_tf32)
 
@@ -364,7 +373,8 @@ def _train(setup: TrainSetup, device: torch.device, abort_fn, progress_fn, log,
                 if chief:
                     save_panels(setup, state.G_ema, vis_z, vis_c, vis_ts, cur_nimg)
                     save_snapshot(run_dir, state, cur_nimg,
-                                  configs={"G": setup.gen_cfg, "D": setup.disc_cfg})
+                                  configs={"G": setup.gen_cfg, "D": setup.disc_cfg},
+                                  extra_meta=snapshot_meta)
                 if world.size > 1 and setup.train_cfg.zero1:
                     log(f"  optimizer state on rank 0: "
                         f"{opt_state_bytes_per_device(state) / 2**20:.1f} MiB (ZeRO-1)")

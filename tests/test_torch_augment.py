@@ -6,7 +6,8 @@ port, compared in the JAX layout. The JAX pipe takes one key of
 `jax.random.split(rng, 64)` per draw; `JaxKeyDraws` replays exactly those
 draws into the port's pipe as its draw source. Every JAX pipe runs the
 gather warp (`warp_mode="gather"`: "auto" is the shear executor on a CPU)
-in float32 (`geom_dtype="auto"` is float32 on a CPU on both sides).
+in float32 (`geom_dtype="auto"` is float32 on a CPU on both sides); the
+pipe with the shear executor on both sides is held in test_torch_shear.py.
 
 Tolerances, float32 throughout:
   * the copied constants, config and filter bank are equal exactly;
@@ -51,9 +52,10 @@ class JaxKeyDraws:
         return torch.from_numpy(np.array(jax.random.normal(next(self.keys), shape)))
 
 
-def pipes(spec, **kw):
-    """The JAX pipe (gather warp) and the port's, from one augpipe preset."""
-    kw = dict(jaug.AUGPIPE_SPECS[spec], warp_mode="gather", **kw)
+def pipes(spec, warp_mode="gather", **kw):
+    """The JAX pipe and the port's, from one augpipe preset, with the gather
+    warp (or `warp_mode`'s executor)."""
+    kw = dict(jaug.AUGPIPE_SPECS[spec], warp_mode=warp_mode, **kw)
     return (jaug.make_augment_pipe(jaug.AugmentConfig(**kw)),
             taug.make_augment_pipe(taug.AugmentConfig(**kw)))
 
@@ -242,9 +244,11 @@ def test_pipe_draws_from_a_generator_and_takes_p_as_a_device_tensor():
         tpipe(None, x, p)
 
 
-@pytest.mark.parametrize("kw,match", [(dict(warp_mode="shear"), "ROADMAP")])
+@pytest.mark.parametrize("kw,match", [(dict(warp_mode="bilinear"), "warp_mode")])
 def test_unported_options_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
+    """A warp executor that neither package has is refused; "shear" is ported
+    (test_torch_shear.py)."""
+    with pytest.raises(ValueError, match=match):
         taug.make_augment_pipe(taug.AugmentConfig(**kw))
 
 

@@ -1,7 +1,9 @@
 """The hand-written kernels of the PyTorch port: the downfirdn2d_x2 kernel
 (K1) and its adjoint (K1-bwd), the bilinear affine warp (K4) and its
-adjoint (K4-bwd), and the general upfirdn2d pass (K2; its CPU tests are in
-tests/test_torch_upfirdn2d.py, its card tests here).
+adjoint (K4-bwd), the general upfirdn2d pass (K2; its CPU tests are in
+tests/test_torch_upfirdn2d.py, its card tests here), and the shear warp's
+resample (K7), its adjoint (K7-bwd) and shift (K8; their CPU tests are in
+tests/test_torch_shear.py, their card tests here).
 
 On CPU: K1's plain version against the JAX package's Pallas kernel in
 interpret mode (the same shapes as tests/test_pallas_kernels.py plus an
@@ -24,6 +26,10 @@ from stylegan_v_tpu_torch.ops import (affine_grid_sample, affine_grid_sample_bwd
                                       downfirdn2d_x2_bwd_plain, downfirdn2d_x2_plain,
                                       downsample2d, fir_kernels, grid_sample, setup_filter,
                                       upfirdn2d, upfirdn2d_k2, upfirdn2d_k2_plain)
+from stylegan_v_tpu_torch.ops import (shear_affine_grid_sample, shear_resample,
+                                      shear_resample_bwd, shear_resample_bwd_plain,
+                                      shear_resample_plain, shear_shift, shear_shift_plain,
+                                      shear_warp)
 from stylegan_v_tpu_torch.ops.upfirdn2d_kernel import passes
 from test_torch_upfirdn2d import ASYM, CASES, forward_and_adjoint
 
@@ -723,3 +729,75 @@ def test_k2_raises_on_cuda_input_it_does_not_take(cuda):
         upfirdn2d_k2(x, torch.ones(5, 5), [1, 1], [1, 1], [2, 2, 2, 2], False, 1.0)
     with pytest.raises(ValueError, match="not both 2"):
         upfirdn2d_k2(x, f, [2, 2], [2, 2], [1, 1, 1, 1], False, 1.0)
+
+
+# -------------------------------------------- the shear warp: K7, K7-bwd, K8
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("size,out", [(67, 61), (40, 40)])
+def test_shear_kernels_match_plain_and_repeat_to_the_bit_on_card(cuda, size, out, dtype):
+    """K7, K7-bwd and K8 (forward and adjoint) at both passes of a shear warp
+    of 12 maps that take every branch of the plan, C = 3, against their plain
+    versions; one launch each; K7-bwd and K8 twice, equal to the bit."""
+    G = shear_warp.branch_maps(12, cuda)
+    plan = shear_warp.shear_plan(G, size, size, out, out)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    kernels = (shear_resample, shear_resample_bwd, shear_shift)
+    for _, taps, shift, axis, shape, out_len in shear_warp.warp_passes(plan, 12, 3, size,
+                                                                       out):
+        x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        before = [k.launches for k in kernels]
+        y = shear_resample(x, taps, axis)
+        dy = torch.randn(y.shape, generator=g, device=cuda).to(dtype)
+        dx = shear_resample_bwd(dy, taps, axis)
+        z = shear_shift(y, shift, axis, out_len)
+        dz = torch.randn(z.shape, generator=g, device=cuda).to(dtype)
+        L = y.shape[2 + axis]
+        dzy = shear_shift(dz, shift.adjoint(), axis, L)
+        torch.cuda.synchronize()
+        assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 2]
+        assert_close(y, shear_resample_plain(x, taps, axis), dtype)
+        assert_close(dx, shear_resample_bwd_plain(dy, taps, axis), dtype)
+        assert_close(z, shear_shift_plain(y, shift, axis, out_len), dtype)
+        assert_close(dzy, shear_shift_plain(dz, shift.adjoint(), axis, L), dtype)
+        assert torch.equal(shear_resample_bwd(dy, taps, axis), dx)
+        assert torch.equal(shear_shift(dz, shift.adjoint(), axis, L), dzy)
+
+
+@pytest.mark.cuda
+def test_grads_through_the_shear_warp_launch_its_kernels(cuda):
+    """A forward launches K7 and K8 twice (two passes); the first order K7-bwd
+    twice and K8 twice more; the second order each again; the values equal
+    the same on CPU tensors (the plain versions)."""
+    G = shear_warp.branch_maps(3, cuda)
+    x = torch.randn(3, 5, 18, 18, device=cuda, requires_grad=True)
+    kernels = (shear_resample, shear_resample_bwd, shear_shift)
+    before = [k.launches for k in kernels]
+
+    def run(x, G):
+        y = shear_affine_grid_sample(x, G, 15, 15)
+        dx, = torch.autograd.grad(y.square().sum(), x, create_graph=True)
+        gx, = torch.autograd.grad(dx.square().sum(), x)
+        return y, dx, gx
+
+    got = run(x, G)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 4, 8]
+    want = run(x.detach().cpu().requires_grad_(True), G.cpu())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.detach().cpu(), b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_shear_kernels_raise_on_cuda_input_they_do_not_take(cuda):
+    taps = shear_warp.line_taps(torch.tensor([1.5], device=cuda), torch.tensor([0.7], device=cuda),
+                                6, 8)
+    x = torch.randn(1, 2, 8, 3, device=cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        shear_resample(x.double(), taps, shear_warp.ROWS)
+    with pytest.raises(ValueError, match="contiguous"):
+        shear_resample(x.transpose(2, 3).contiguous().transpose(2, 3), taps, shear_warp.ROWS)
+    with pytest.raises(ValueError, match="tables"):
+        shear_resample(x, shear_warp.line_taps(torch.tensor([1.5]), torch.tensor([0.7]), 6, 8),
+                       shear_warp.ROWS)

@@ -5,7 +5,8 @@ and tiny loop these tests use.
   * snapshots round-trip to the bit, `find_latest_snapshot` finds the newest,
     the meta equals the JAX package's, and the JAX-snapshot converter writes
     what the bridge gives;
-  * the loop resumes from `latest` to the bit, scores its metrics after each
+  * the loop resumes from `latest` to the bit, keeps the ADA warp executor
+    its snapshot names (a converted JAX run's shear), scores its metrics after each
     snapshot into rows with the JAX loop's fields, and a failed metric is
     logged while training goes on.
 """
@@ -25,6 +26,7 @@ from stylegan_v_tpu_torch.io import checkpoint as tckpt
 from stylegan_v_tpu_torch.io.bridge import jax_to_torch_train_state
 from stylegan_v_tpu_torch.metrics import metric_utils as tmu
 from stylegan_v_tpu_torch.models import Discriminator, Generator
+from stylegan_v_tpu_torch.training import augment as taug
 from stylegan_v_tpu_torch.training import loop as tloop
 from stylegan_v_tpu_torch.training import train_step as tts
 from stylegan_v_tpu_torch.training.loss import LossConfig
@@ -89,6 +91,8 @@ def test_jax_snapshot_converter_equals_the_bridge(tmp_path):
     assert path == tckpt.find_latest_snapshot(str(tmp_path / "torch"))
     payload, meta = tckpt.load_snapshot(path)
     assert meta["cur_nimg"] == 2048
+    # the warp executor the JAX run ran: "auto" is gather at 16^2, shear at 256^2
+    assert meta["warp_mode"] == "gather" and converter.jax_warp_mode(256) == "shear"
 
     G, D = Generator(port_cfg(SMALL16["G"])), Discriminator(port_cfg(SMALL16["D"]))
     want = jax_to_torch_train_state(jstate, G, D)
@@ -134,6 +138,42 @@ def test_loop_resumes_from_latest_to_the_bit(first_run, tmp_path):
     with pytest.raises(FileNotFoundError):
         tloop.training_loop(tiny_setup(ds, run, resume=os.path.join(run, "absent.pt")),
                             device=torch.device("cpu"), log=lambda *_: None)
+
+
+@pytest.mark.parametrize("named,setup_mode,runs", [
+    (None, "auto", "gather"), ("shear", "auto", "shear"), ("gather", "auto", "gather"),
+    ("shear", "gather", "gather")])
+def test_a_resumed_run_keeps_the_warp_executor_its_snapshot_names(first_run, tmp_path,
+                                                                   monkeypatch, named,
+                                                                   setup_mode, runs):
+    """training_loop resumed from a snapshot whose meta names a warp executor
+    (a converted JAX run names "shear" at 256^2) runs the ADA pipe with it
+    where the setup's warp_mode is "auto", and its next snapshot names it."""
+    root, ds, _, _ = first_run
+    run = str(tmp_path / "run")
+    shutil.copytree(root / "run", run)
+    meta_path = tckpt.find_latest_snapshot(run)[:-len(".pt")] + ".meta.json"
+    meta = json.load(open(meta_path))
+    meta.pop("warp_mode", None)
+    if named is not None:
+        meta["warp_mode"] = named
+    json.dump(meta, open(meta_path, "w"))
+    calls = {"shear": 0, "gather": 0}
+    shear, gather = taug.shear_affine_grid_sample, taug.affine_grid_sample
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+    monkeypatch.setattr(taug, "shear_affine_grid_sample", counted("shear", shear))
+    monkeypatch.setattr(taug, "affine_grid_sample", counted("gather", gather))
+    aug = taug.AugmentConfig(**taug.AUGPIPE_SPECS["bgc"], warp_mode=setup_mode)
+    tloop.training_loop(tiny_setup(ds, run, kimg=0.072, resume="latest", augment_cfg=aug),
+                        device=torch.device("cpu"), log=lambda *_: None)
+    assert calls[runs] > 0 and calls["shear" if runs == "gather" else "gather"] == 0, calls
+    _, meta = tckpt.load_snapshot(tckpt.find_latest_snapshot(run))
+    assert meta["cur_nimg"] == 72 and meta["warp_mode"] == runs
 
 
 def test_loop_scores_its_metrics_after_each_snapshot(first_run, tmp_path, monkeypatch):

@@ -1,0 +1,318 @@
+"""Parity of the PyTorch port's shear warp executor (ops/shear_warp.py:
+K7's and K8's plain versions, the whole warp, and the ADA pipe and step
+with `warp_mode="shear"`) against the JAX package, on CPU.
+
+Inputs are numpy arrays from a seed. The JAX side runs as its own tests run
+it: stylegan_v_tpu/ops/shear_warp.py with its default stage executors (the
+one-hot-matmul resample and the lane-dense shift), eagerly or under jit, in
+float32; the port runs its plain versions (CPU tensors) in float32.
+
+Tolerances (test_torch_augment.py's): value and vjp to TOL = 1e-4 of each
+array's scale, second order to TOL2 = 1e-3 (test_torch_grads.py:check_op);
+the coefficient tables are the same float32 operations in the same order,
+and only the sums' order differs (the one-hot matmul adds zeros). The step
+is held as test_torch_train.py holds it. K8's adjoint where the output is
+as long as the input is held to its dense transpose, not to JAX, whose VJP
+clips its start there.
+
+The card's cases (each kernel against its plain version, repeats to the
+bit, autograd's launches) are in test_torch_kernels.py, which runs without
+jax.
+"""
+import numpy as np
+import pytest
+import jax
+import jax.numpy as jnp
+import torch
+
+from stylegan_v_tpu.ops import setup_filter as jsetup_filter
+from stylegan_v_tpu.ops import shear_warp as jsw
+from stylegan_v_tpu.training import augment as jaug
+from stylegan_v_tpu_torch.ops import setup_filter, shear_warp as tsw
+from stylegan_v_tpu_torch.training import augment as taug
+from test_torch_augment import JaxKeyDraws, assert_close, pipes
+from test_torch_grads import NHWC, TOL, check_op
+from test_torch_train import (GPL_TOL, assert_state_close, assert_stats_close,  # noqa: F401
+                              jax_side, one_torch_thread, run_steps)
+
+# layout converters for one stage, JAX -> port and back: the JAX package's
+# [B, L, R] lines (R the payload), the port's [B, 1, L, R] along rows and
+# [B, 1, R, L] along columns
+ALONG_ROWS = (lambda a: torch.from_numpy(np.ascontiguousarray(a[:, None])),
+              lambda t: t.detach().numpy()[:, 0])
+ALONG_COLS = (lambda a: torch.from_numpy(np.ascontiguousarray(np.swapaxes(a, 1, 2)[:, None])),
+              lambda t: np.swapaxes(t.detach().numpy()[:, 0], 1, 2))
+# the JAX shift's [B, L, N, C] (shifted along L, lines n), the port's
+# [B, C, L, N] along rows and [B, C, N, L] along columns
+SHIFT_ROWS = NHWC
+SHIFT_COLS = (lambda a: torch.from_numpy(np.ascontiguousarray(np.transpose(a, (0, 3, 2, 1)))),
+              lambda t: t.detach().numpy().transpose(0, 3, 2, 1))
+
+
+# ------------------------------------------------------- copied constants
+
+@pytest.mark.parametrize("name", ["SCALE_MAX", "SHEAR_MAX"])
+def test_constants_equal_the_jax_package(name):
+    assert getattr(tsw, name) == getattr(jsw, name)
+
+
+@pytest.mark.parametrize("size", [1, 2, 7, 64])
+def test_index_helpers_equal_the_jax_package(size):
+    """_mirror_idx repeats the edge (-1 -> 0, size -> size - 1), whatever its
+    JAX docstring says; _reflect_pad_len is half the length."""
+    i = np.arange(-5 * size - 3, 5 * size + 4, dtype=np.int32)
+    want = np.asarray(jsw._mirror_idx(jnp.asarray(i), size))
+    got = tsw._mirror_idx(torch.from_numpy(i).long(), size).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert tsw._mirror_idx(torch.tensor([-1, size]), size).tolist() == [0, size - 1]
+    assert tsw._reflect_pad_len(size) == jsw._reflect_pad_len(size)
+
+
+def test_rot90_in_nchw_is_the_jax_packages():
+    """The conditioning's source: NHWC flip(swapaxes(x, 1, 2), axis=1) is
+    NCHW x.transpose(-1, -2).flip(-2)."""
+    x = np.random.RandomState(0).randn(2, 5, 5, 3).astype(np.float32)
+    want = np.asarray(jnp.flip(jnp.swapaxes(jnp.asarray(x), 1, 2), axis=1))
+    got = NHWC[0](x).transpose(-1, -2).flip(-2)
+    np.testing.assert_array_equal(NHWC[1](got), want)
+
+
+# ------------------------------------------------------------ the stages
+
+RESAMPLE = [  # (shift [B], scale [B], L, out_len): mirrored past both ends, negative scales,
+    #           the scale floor 1/4 and the clip 4
+    (np.float32([-5.3, 12.7, 3.1]), np.float32([0.25, -1.7, 3.9]), 11, 17),
+    (np.float32([0.0, -0.5, 20.2]), np.float32([1.0, 0.6, -4.0]), 9, 9),
+]
+
+
+@pytest.mark.parametrize("axis", ["rows", "cols"])
+@pytest.mark.parametrize("case", range(len(RESAMPLE)))
+def test_resample_plain_matches_jax(case, axis):
+    """K7's plain version (and K7-bwd's, its vjp) against _line_pass_onehot,
+    and the gather twin _line_pass, with mirrored edges and negative scales."""
+    shift, scale, L, out_len = RESAMPLE[case]
+    x = np.random.RandomState(case).randn(len(shift), L, 5).astype(np.float32)
+    taps = tsw.line_taps(torch.from_numpy(shift), torch.from_numpy(scale), out_len, L)
+    tax, lay = (tsw.ROWS, ALONG_ROWS) if axis == "rows" else (tsw.COLS, ALONG_COLS)
+    check_op(jax.jit(lambda x: jsw._line_pass_onehot(x, shift, scale, out_len)),
+             lambda x: tsw._ShearResample.apply(x, taps, tax), [x], [lay], lay)
+    gathered = np.asarray(jsw._line_pass(jnp.asarray(x), shift, scale, out_len))
+    assert_close(lay[1](tsw.shear_resample_plain(lay[0](x), taps, tax)), gathered, TOL, "gather")
+
+
+SHIFTS = [  # (k [B, N], frac [B, N], L, out_len): k past both clip ends, frac at 0
+    (np.int32([[-3, 0, 2, 4, 9], [5, 5, 1, 0, 3]]),
+     np.float32([[0.3, 0.0, 0.7, 0.99, 0.5], [0.1, 0.2, 0.0, 0.6, 0.45]]), 12, 7),
+    (np.int32([[0, 1, 2, 7], [2, 0, 1, 1]]), np.float32([[0.5, 0.25, 0.0, 0.8], [0.9, 0.4,
+                                                                                   0.3, 0.0]]),
+     5, 3),
+]
+
+
+def shift_tables(k, frac, L, out_len):
+    """The port's tables for the JAX shift's (k, frac): its clip, 1 - frac, frac."""
+    kc = np.clip(k, 0, max(L - out_len - 1, 0)).astype(np.int32)
+    return tsw.LineShift(torch.from_numpy(kc), torch.from_numpy(1.0 - frac),
+                         torch.from_numpy(frac))
+
+
+@pytest.mark.parametrize("axis", ["rows", "cols"])
+@pytest.mark.parametrize("case", range(len(SHIFTS)))
+def test_shift_plain_matches_jax(case, axis):
+    """K8's plain version (and K8 on the adjoint tables, its vjp) against
+    shift_lines_dense, with the start clipped at both ends."""
+    k, frac, L, out_len = SHIFTS[case]
+    B, N = k.shape
+    x = np.random.RandomState(case).randn(B, L, N, 2).astype(np.float32)
+    sh = shift_tables(k, frac, L, out_len)
+    tax, lay = (tsw.ROWS, SHIFT_ROWS) if axis == "rows" else (tsw.COLS, SHIFT_COLS)
+    check_op(jax.jit(lambda x: jsw.shift_lines_dense(x, jnp.asarray(k), jnp.asarray(frac),
+                                                     out_len)),
+             lambda x: tsw._ShearShift.apply(x, sh, tax, out_len), [x], [lay], lay)
+
+
+def dense_shift(shift, b, n, L, out_len):
+    """K8's matrix [out_len, L] for line n of sample b, from its definition."""
+    A = np.zeros((out_len, L), np.float64)
+    s, w0, w1 = int(shift.start[b, n]), float(shift.w0[b, n]), float(shift.w1[b, n])
+    for i in range(out_len):
+        for j, w in ((s + i, w0), (s + i + 1, w1)):
+            if 0 <= j < L:
+                A[i, j] += w
+    return A
+
+
+@pytest.mark.parametrize("axis", ["rows", "cols"])
+def test_shift_adjoint_is_exact_when_the_output_is_as_long_as_the_input(axis):
+    """out_len == L (pad 0): the forward reads zero past the end, and its
+    adjoint, K8 on LineShift.adjoint, equals the dense transpose; so does the
+    adjoint's adjoint (second order). Float64, to rounding."""
+    L, B, N, C = 6, 2, 4, 3
+    rng = np.random.RandomState(5)
+    frac = rng.rand(B, N).astype(np.float32)
+    sh = shift_tables(np.zeros((B, N), np.int32), frac, L, L)
+    tax = tsw.ROWS if axis == "rows" else tsw.COLS
+    shape = (B, C, L, N) if axis == "rows" else (B, C, N, L)
+    z = torch.from_numpy(rng.randn(*shape)).requires_grad_(True)
+    g = torch.from_numpy(rng.randn(*shape)).requires_grad_(True)
+    v = torch.from_numpy(rng.randn(*shape))
+    y = tsw._ShearShift.apply(z, sh, tax, L)
+    dz, = torch.autograd.grad(y, z, g, create_graph=True)
+    dg, = torch.autograd.grad(dz, g, v)
+
+    def lines(t):                                   # [B, C, N, L]: each line's samples
+        t = t.detach().numpy()
+        return t.transpose(0, 1, 3, 2) if axis == "rows" else t
+
+    want_y, want_dz, want_dg = (np.zeros((B, C, N, L)) for _ in range(3))
+    for b in range(B):
+        for n in range(N):
+            A = dense_shift(sh, b, n, L, L)
+            want_y[b, :, n] = lines(z)[b, :, n] @ A.T
+            want_dz[b, :, n] = lines(g)[b, :, n] @ A
+            want_dg[b, :, n] = lines(v)[b, :, n] @ A.T
+    for got, want in ((y, want_y), (dz, want_dz), (dg, want_dg)):
+        np.testing.assert_allclose(lines(got), want, rtol=1e-12, atol=1e-12)
+    assert torch.autograd.gradcheck(lambda z: tsw._ShearShift.apply(z, sh, tax, L), (z,))
+
+
+def test_resample_lists_sum_to_the_plain_adjoint():
+    """K7-bwd's kernel, emulated: each source line's CSR list summed in its
+    order equals the plain scatter-add, and every tap is in exactly one list."""
+    for shift, scale, L, out_len in RESAMPLE:
+        taps = tsw.line_taps(torch.from_numpy(shift), torch.from_numpy(scale), out_len, L)
+        ptr, line, weight = taps.lists
+        B = len(shift)
+        assert ptr.dtype == line.dtype == torch.int32 and ptr.shape == (B, L + 1)
+        assert (ptr[:, 0] == 0).all() and (ptr[:, -1] == 2 * out_len).all()
+        dy = torch.randn(B, 2, out_len, 4, generator=torch.Generator().manual_seed(1))
+        got = torch.zeros(B, 2, L, 4)
+        for b in range(B):
+            for l in range(L):
+                for e in range(int(ptr[b, l]), int(ptr[b, l + 1])):
+                    i = int(line[b, e])
+                    assert l in (int(taps.i0[b, i]), int(taps.i1[b, i]))
+                    got[b, :, l] += weight[b, e] * dy[b, :, i]
+            taps_of = sorted((int(line[b, e]), float(weight[b, e])) for e in range(2 * out_len))
+            assert taps_of == sorted([(i, float(taps.w0[b, i])) for i in range(out_len)]
+                                     + [(i, float(taps.w1[b, i])) for i in range(out_len)])
+        want = tsw.shear_resample_bwd_plain(dy, taps, tsw.ROWS)
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_wrappers_on_cpu_are_the_plain_versions_and_launch_nothing():
+    taps = tsw.line_taps(torch.tensor([1.5]), torch.tensor([0.7]), 6, 8)
+    sh = tsw.LineShift(torch.tensor([[1, 0, 2]], dtype=torch.int32), torch.rand(1, 3),
+                       torch.rand(1, 3))
+    x = torch.randn(1, 2, 8, 3)
+    kernels = (tsw.shear_resample, tsw.shear_resample_bwd, tsw.shear_shift)
+    before = [k.launches for k in kernels]
+    assert torch.equal(tsw.shear_resample(x, taps, tsw.ROWS),
+                       tsw.shear_resample_plain(x, taps, tsw.ROWS))
+    dy = torch.randn(1, 2, 6, 3)
+    assert torch.equal(tsw.shear_resample_bwd(dy, taps, tsw.ROWS),
+                       tsw.shear_resample_bwd_plain(dy, taps, tsw.ROWS))
+    assert torch.equal(tsw.shear_shift(x, sh, tsw.ROWS, 5), tsw.shear_shift_plain(x, sh, tsw.ROWS,
+                                                                                  5))
+    assert [k.launches for k in kernels] == before
+    with pytest.raises(ValueError, match="lines"):
+        tsw.shear_shift(x, sh, tsw.COLS, 5)            # 3 lines' tables for 8 rows
+    with pytest.raises(ValueError, match="taps of 8"):
+        tsw.shear_resample(x, taps, tsw.COLS)
+
+
+# -------------------------------------------------------------- the warp
+
+@pytest.mark.parametrize("size,out,C", [(16, 16, 3), (32, 28, 9), (64, 64, 3)])
+def test_shear_warp_matches_jax(size, out, C):
+    """Value, vjp and second order of shear_affine_grid_sample, over
+    branch_maps; the rot90 branch, the flips and every clip are taken."""
+    G = tsw.branch_maps(12).numpy()
+    plan = tsw.shear_plan(torch.from_numpy(G), size, size, out, out)
+    assert 0 < int(plan.rot.sum()) < len(G)
+    x = np.random.RandomState(size).randn(len(G), size, size, C).astype(np.float32)
+    jfn = jax.jit(lambda x: jsw.shear_affine_grid_sample(x, jnp.asarray(G), out, out))
+    check_op(jfn, lambda x: tsw.shear_affine_grid_sample(x, torch.from_numpy(G), out, out),
+             [x], [NHWC], NHWC)
+
+
+def test_shear_warp_refuses_a_g_inv_gradient_and_a_rectangle():
+    with pytest.raises(AssertionError, match="G_inv"):
+        tsw.shear_affine_grid_sample(torch.zeros(1, 1, 4, 4), torch.eye(3)[None].requires_grad_(),
+                                     4, 4)
+    with pytest.raises(ValueError, match="square"):
+        tsw.shear_affine_grid_sample(torch.zeros(1, 1, 4, 5), torch.eye(3)[None], 4, 4)
+
+
+def test_warp_antialiased_with_shear_matches_jax():
+    """The anti-aliased warp (pad, 12-tap 2x up, shear warp, 2x down) with
+    warp_mode="shear" on both sides, C = 9 at 32^2."""
+    G = tsw.branch_maps(6).numpy()
+    x = np.random.RandomState(3).randn(6, 32, 32, 9).astype(np.float32)
+    jHz = jsetup_filter(jaug._SYM6)
+    Hz = setup_filter(taug._SYM6)
+    jfn = jax.jit(lambda x: jaug._warp_antialiased(x, jnp.asarray(G), jHz, 3, warp_mode="shear"))
+    check_op(jfn, lambda x: taug._warp_antialiased(x, torch.from_numpy(G), Hz, 3,
+                                                   warp_mode="shear"), [x], [NHWC], NHWC)
+
+
+# -------------------------------------------------------------- the pipe
+
+@pytest.mark.parametrize("C,p", [(3, 1.0), (9, 0.5)])
+def test_bgc_pipe_with_shear_matches_jax(C, p):
+    """The bgc pipe with warp_mode="shear" on both sides under the JAX keys:
+    value, vjp and second order (R1 through ADA)."""
+    x = (np.random.RandomState(11).randn(4, 32, 32, C) * 0.5).astype(np.float32)
+    rng = jax.random.PRNGKey(12)
+    jpipe, tpipe = pipes("bgc", warp_mode="shear")
+    check_op(jax.jit(lambda x: jpipe(rng, x, p)),
+             lambda x: tpipe(JaxKeyDraws(rng), x, torch.tensor(p)), [x], [NHWC], NHWC)
+
+
+def test_gather_and_auto_keep_k4_and_shear_runs_the_shear_executor(monkeypatch):
+    """The port's "auto" (like "gather") warps with K4, unlike the JAX
+    package's "auto" on a CPU; "shear" calls the shear executor; warp_upsample=1
+    is K4 in every mode."""
+    calls = []
+    monkeypatch.setattr(taug, "affine_grid_sample",
+                        lambda *a, **k: calls.append("k4") or a[0][..., :a[2], :a[3]])
+    monkeypatch.setattr(taug, "shear_affine_grid_sample",
+                        lambda *a, **k: calls.append("shear") or a[0][..., :a[2], :a[3]])
+    x = torch.randn(2, 3, 16, 16)
+    for mode, upsample, want in (("auto", 2, "k4"), ("gather", 2, "k4"), ("shear", 2, "shear"),
+                                 ("shear", 1, "k4")):
+        calls.clear()
+        pipe = taug.make_augment_pipe(taug.AugmentConfig(xflip=1, warp_mode=mode,
+                                                         warp_upsample=upsample))
+        pipe(torch.Generator().manual_seed(0), x, torch.tensor(1.0))
+        assert calls == [want], (mode, upsample, calls)
+
+
+def test_auto_resolves_to_the_executor_a_snapshot_names():
+    """The loop's resolution of warp_mode (training/loop.py): "auto" is K4's
+    "gather" unless a resumed snapshot names an executor, as a converted JAX
+    run names "shear"; a mode the setup sets stays."""
+    for mode, named, want in (("auto", None, "gather"), ("auto", "shear", "shear"),
+                              ("auto", "gather", "gather"), ("gather", "shear", "gather"),
+                              ("shear", None, "shear"), ("shear", "gather", "shear")):
+        assert taug.resolve_warp_mode(mode, named) == want, (mode, named)
+    with pytest.raises(ValueError, match="unknown warp executor"):
+        taug.resolve_warp_mode("auto", "bilinear")
+    with pytest.raises(ValueError, match="unknown warp_mode"):
+        taug.resolve_warp_mode("bilinear")
+
+
+# -------------------------------------------------------------- the step
+
+def test_ada_step_with_shear_matches_jax(jax_side):
+    """test_torch_train.py's ADA step (bgc, warp_upsample=2, augment_p 0.5)
+    with warp_mode="shear" on both sides (the JAX package's "auto" on a
+    CPU): a step with every phase (R1 through the shear warp's second
+    order), then one with the main phases, each held after it."""
+    plan = [(True, True), (False, False)]
+    for state, stats, jstate, jstats in run_steps(jax_side, None, plan, augment=True,
+                                                  warp_mode="shear"):
+        assert_stats_close(stats, jstats, GPL_TOL if "Loss/pl_penalty" in jstats else TOL)
+        assert_state_close(state, jstate)
+    assert state.step == 2

@@ -79,10 +79,12 @@ AUG = dict(jaug.AUGPIPE_SPECS["bgc"], warp_upsample=2, warp_mode="gather")
 AUG_P = 0.5
 
 
-def augment_pipes():
-    """The JAX package's bgc pipe (gather warp) and the port's."""
-    return (jaug.make_augment_pipe(jaug.AugmentConfig(**AUG)),
-            taug.make_augment_pipe(taug.AugmentConfig(**AUG)))
+def augment_pipes(warp_mode="gather"):
+    """The JAX package's bgc pipe and the port's, with the gather warp (or
+    `warp_mode`'s executor)."""
+    kw = dict(AUG, warp_mode=warp_mode)
+    return (jaug.make_augment_pipe(jaug.AugmentConfig(**kw)),
+            taug.make_augment_pipe(taug.AugmentConfig(**kw)))
 
 
 def numpy(x):
@@ -402,14 +404,15 @@ def test_loss_phase_with_augment_matches_jax(jax_side, phase):
 
 # ---------------------------------------------------------------- the step
 
-def run_steps(jax_side, batch_chip, plan, augment=False):
+def run_steps(jax_side, batch_chip, plan, augment=False, warp_mode="gather"):
     """Run the JAX step and the port's on the same batches and draws; after
     each step, hold the port's state and stats against the JAX package's.
-    With `augment`, both run the bgc pipe from augment_p = AUG_P."""
+    With `augment`, both run the bgc pipe from augment_p = AUG_P, with
+    `warp_mode`'s warp."""
     JG, JD, jstate, jdraws = jax_side
     tcfg = jts.TrainingConfig(**TRAIN, batch_chip=batch_chip)
     opt = jts.OptimizerConfig(**OPT)
-    jpipe, tpipe = augment_pipes() if augment else (None, None)
+    jpipe, tpipe = augment_pipes(warp_mode) if augment else (None, None)
     if augment:
         jstate = jstate.replace(augment_p=jnp.float32(AUG_P))
     jstep = jts.make_train_step(JG, JD, jts.LossConfig(**LOSS), opt, opt, tcfg,
