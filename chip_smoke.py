@@ -12,7 +12,7 @@ holds them against the port's plain PyTorch paths:
               8 and 11 rely on the training step's own default.
   2. build:   the CUDA kernels (K1 downfirdn2d_x2, K1-bwd downfirdn2d_x2_bwd,
               K4 affine_warp, K4-bwd affine_warp_bwd, K2 upfirdn2d, K7
-              shear_resample, K7-bwd shear_resample_bwd, K8 shear_shift), one
+              shear_pass, K7-bwd shear_resample_bwd, K8 shear_shift), one
               nvcc each for sm_90a, all started together.
   3. kernel:  K1 against its plain version at the six shapes of the
               Discriminator's resnet skips, at 2 videos x 3 frames and at the
@@ -205,7 +205,7 @@ holds them against the port's plain PyTorch paths:
  19. moco-ranks: phase 17's slice over two ranks sharing the card over gloo,
               spawned as in phase 15: 16 videos x 16 frames a step globally
               in 2 rounds of 8, 4 videos a rank a round, the video D's batch
-              norms over both ranks: (a) four steps with deterministic
+              norms over both ranks: (a) three steps with deterministic
               kernels (R1 first and last), step 1's all-reduced Gmain and
               Dmain gradients against the one-process step on the same
               global batch and draws (phase 17's step) within 3x their noise
@@ -230,26 +230,30 @@ holds them against the port's plain PyTorch paths:
  20. shear:   the ADA pipe's shear warp executor (warp_mode="shear",
               ops/shear_warp.py), run after phase 12 on phase 11's G and D;
               phases 3-12 launch none of its kernels, and 13-19 none either:
-              (a) K7, K7-bwd and K8 (forward and adjoint) against their plain
-              versions at both passes of the step's canvas ([16, 9, 536^2] ->
-              524^2, the pipe's bgc maps and maps that take the rot90
-              branch, the clips and flips) and of a small odd case (C = 3,
-              67^2 -> 61^2), float32 and bf16; K7-bwd and K8 twice, equal to
-              the bit; CUDA-event times in bf16 at the canvas of each call,
-              its plain version and its library call: for K7 and K7-bwd
-              torch.bmm of the banded one-hot matrix (the JAX formulation),
-              for K8 and its adjoint F.grid_sample (bilinear, zeros,
-              align_corners=True) on a grid of the shift's positions, each
-              checked against the kernel; K7-bwd as the step calls it (its
-              CSR lists built in the call) and with the lists built before;
-              GB/s and share of the bound of the bytes this call's tables
-              read; (b) the anti-aliased warp at [16, 9, 256^2]
-              in bf16, shear against K4, forward and forward + backward, in
+              (a) K7 (the fused pass: resample then shift in one launch, the
+              reflect pad in its taps, pass V's rot90 samples read through
+              their map), K7-bwd and K8 (forward and adjoint) against their
+              plain versions at both passes of the step's canvas ([16, 9,
+              536^2] -> 524^2, the pipe's bgc maps and maps that take the
+              rot90 branch, the clips and flips) and of a small odd case (C =
+              3, 67^2 -> 61^2), float32 and bf16: K7 and K8 equal to them to
+              the bit; each twice, equal to the bit; CUDA-event times in bf16
+              at the canvas of each call, its plain version and its library
+              call: for K7 the earlier route in library calls (the rot90
+              select, F.pad's reflect, torch.bmm of the banded one-hot
+              matrix, F.grid_sample on a grid of the shift's positions), for
+              K7-bwd torch.bmm of the transposed matrix, for K8 and its
+              adjoint F.grid_sample (bilinear, zeros, align_corners=True),
+              each checked against the kernel; K7-bwd as the step calls it
+              (its CSR lists built in the call) and with the lists built
+              before; GB/s and share of the bound of the bytes this call's
+              tables read; (b) the anti-aliased warp at [16, 9, 256^2] in
+              bf16, shear against K4, forward and forward + backward, in
               turns, with each call's launches; (c) phase 11's ADA step with
               the shear pipe: five steps, finite, K1, K1-bwd, K4, K4-bwd, K2,
               K7, K7-bwd, K8 launches per step (K4 and K4-bwd 0), ms, frames/s
               and peak memory beside phase 11's; (d) phase 12's card vs CPU
-              with the shear pipe.
+              with the shear pipe. No path has a resample without its shift.
 
 K2's launches are asserted wherever K1's are: per step from the derived
 counts (LAUNCHES_PER_STEP, ADA_LAUNCHES_PER_STEP), per loop run with 12
@@ -270,7 +274,8 @@ rank's image D skips and K4's and K4-bwd's at its 48-channel warp, from
 phase 19; K2's numbers at G's r = 256 up-conv, with the sums over phase
 3b's calls and every call's numbers; K7's, K7-bwd's and K8's launches in
 phase 20 (c) and their numbers summed over one warp's two passes at the
-step's canvas, from phase 20 (a)) and {"ok": true,
+step's canvas, K8's for its forward with its adjoint, the call the path
+makes, beside, from phase 20 (a)) and {"ok": true,
 "device": {...}}. There is no CPU path:
 without a CUDA device the script fails.
 """
@@ -325,9 +330,10 @@ SHEAR_KERNELS = "K7, K7-bwd, K8"   # the order of _shear_kernels() and of their 
 
 def _shear_kernels():
     """The shear warp's three kernel wrappers (phase 20), counted apart from
-    _kernels(): only warp_mode="shear" launches them."""
-    from stylegan_v_tpu_torch.ops import shear_resample, shear_resample_bwd, shear_shift
-    return (shear_resample, shear_resample_bwd, shear_shift)
+    _kernels(): the fused pass K7, K7-bwd and K8; only warp_mode="shear"
+    launches them."""
+    from stylegan_v_tpu_torch.ops import shear_pass, shear_resample_bwd, shear_shift
+    return (shear_pass, shear_resample_bwd, shear_shift)
 
 
 def k2_per_synthesis(synthesis) -> int:
@@ -1021,15 +1027,16 @@ K2_PER_SYNTHESIS_256 = 12
 # down, each its row and column pass in one launch), so the pipe adds 2 a K4
 # and 2 a K4-bwd: 72 + 8 = 80 without R1, 96 + 14 = 110 with.
 ADA_LAUNCHES_PER_STEP = {False: (18, 18, 3, 1, 80), True: (30, 30, 5, 2, 110)}
-# With warp_mode="shear" (phase 20) each warp of the pipe is two passes, K7
-# then K8 in each: a forward launches 2 K7 and 2 K8, a backward 2 K7-bwd and
-# 2 K8 (the transpose of a shift is a shift), and R1's backward of a
-# backward 2 K7 and 2 K8. So phase 11's 3 (5 with R1) K4 and 1 (2) K4-bwd a
-# step become 6 (10) K7, 2 (4) K7-bwd and 8 (14) K8; K4 and K4-bwd launch
-# no more, and K1, K1-bwd and K2 stay phase 11's. In the order K1, K1-bwd,
-# K4, K4-bwd, K2, K7, K7-bwd, K8:
+# With warp_mode="shear" (phase 20) each warp of the pipe is two passes, each
+# one launch of the fused pass K7 (resample and shift): a forward launches 2
+# K7; a backward, the transpose of each pass, 2 K8 (the shift's adjoint) and
+# 2 K7-bwd; R1's backward of a backward is a forward again, 2 K7. So phase
+# 11's 3 (5 with R1) K4 and 1 (2) K4-bwd a step become 6 (10) K7, 2 (4)
+# K7-bwd and 2 (4) K8; K4 and K4-bwd launch no more, no path launches a
+# resample without its shift (the port has none), and K1, K1-bwd and K2 stay
+# phase 11's. In the order K1, K1-bwd, K4, K4-bwd, K2, K7, K7-bwd, K8:
 SHEAR_LAUNCHES_PER_STEP = {
-    r1: (k1, k1b, 0, 0, k2, 2 * k4, 2 * k4b, 2 * (k4 + k4b))
+    r1: (k1, k1b, 0, 0, k2, 2 * k4, 2 * k4b, 2 * k4b)
     for r1, (k1, k1b, k4, k4b, k2) in ADA_LAUNCHES_PER_STEP.items()}
 TRAIN_SHAPE = (16, 3, 256)     # videos, frames, resolution: bench.py:bench_train_step's
 ADA_P = 0.5                    # the step's cost does not depend on p; at 0.5 transforms fire
@@ -1484,9 +1491,9 @@ def phase_aug_parity(dev, warp_mode="auto"):
     # K2: 2 beside each K4 and K4-bwd (12), G forward and backward (2 kG), D forward
     # and backward in Gmain, forward, first-order grad and its backward in Dr1 (6 kD)
     k2 = 12 + 2 * k2_per_synthesis(G.synthesis) + 6 * k2_per_d(D)
-    # with the shear pipe: 2 K7 and 2 K8 for each of those 4 K4, 2 K7-bwd and 2 K8 for
-    # each of the 2 K4-bwd
-    want_ran = (0, 0, k2, 8, 4, 12) if shear else (4, 2, k2)
+    # with the shear pipe: 2 K7 (the fused pass) for each of those 4 K4, 2 K8 and 2
+    # K7-bwd for each of the 2 K4-bwd
+    want_ran = (0, 0, k2, 8, 4, 4) if shear else (4, 2, k2)
     names = "K4, K4-bwd, K2" + (", K7, K7-bwd, K8" if shear else "")
     check(ran == want_ran,
           f"{tag} the card run launched {names} {ran} times, expected {want_ran}")
@@ -2016,6 +2023,9 @@ def _par_batch(dev):
 
 
 PAR_PLAN = (True, False, False, True)    # R1 first; steps 3 and 4 timed warm
+# phase 19's: R1 first, whose step runs every phase; then steps 2 (without R1) and 3
+# (with R1), each timed after a step that ran its work
+MOCO_PAR_PLAN = (True, False, True)
 PAR_SEEDS = (11, 12, 13, 14)             # each step's draws: a generator seeded alike everywhere
 
 
@@ -4072,7 +4082,7 @@ def _moco_reference_step(dev, perturb: bool = False):
     with deterministic():
         _, stats = step(state, moco_memory.slice_batch(dev),
                         generator=torch.Generator(device=dev).manual_seed(MOCO_RANK_SEEDS[0]),
-                        do_dr1=PAR_PLAN[0])
+                        do_dr1=MOCO_PAR_PLAN[0])
     return grads, {k: float(v) for k, v in stats.items()}
 
 
@@ -4109,7 +4119,7 @@ def _bn_collectives_ms(shapes, world, dev, repeats: int = 3) -> float:
 
 
 def moco_rank(rank, world_size, init_method, tmp, device):
-    """Phase 19 (a)-(c) on one rank (spawned): four steps of the slice (R1
+    """Phase 19 (a)-(c) on one rank (spawned): three steps of the slice (R1
     first and last) against the one-process gradients, launches and batch-norm
     all_reduces per step, times, the consistency check, then ZeRO-1 on the
     first two steps. Writes its findings as JSON."""
@@ -4157,8 +4167,8 @@ def moco_rank(rank, world_size, init_method, tmp, device):
             torch.cuda.reset_peak_memory_stats()
             launches, collectives, ms, step1_stats = [], [], [], None
             # ZeRO-1 runs the first two steps, and is held to the plain state after them
-            for i, (do_dr1, seed) in enumerate(zip(PAR_PLAN[:2] if zero1 else PAR_PLAN,
-                                                   MOCO_RANK_SEEDS)):
+            r1_plan = MOCO_PAR_PLAN[:2] if zero1 else MOCO_PAR_PLAN
+            for i, (do_dr1, seed) in enumerate(zip(r1_plan, MOCO_RANK_SEEDS)):
                 for k in kernels:
                     k.launches = 0
                 tdist.all_reduce_sum.calls = 0
@@ -4235,7 +4245,7 @@ def moco_rank(rank, world_size, init_method, tmp, device):
 
 def moco_ranks_steps(dev, smi, tmp):
     """Phase 19 (a)-(c) and their part of (f): (a) the slice's step over two
-    ranks sharing the card, 4 videos a rank a round, four steps (R1 first and
+    ranks sharing the card, 4 videos a rank a round, three steps (R1 first and
     last) with deterministic kernels; step 1's all-reduced Gmain and Dmain
     gradients against the one-process step's on the same global batch and
     draws (phase 17's step) within PAR_FLOOR_FACTOR times their noise floor,
@@ -4267,7 +4277,8 @@ def moco_ranks_steps(dev, smi, tmp):
             check(len(set(p)) == 1, f"{tag} augment_p differs across ranks: {p}")
             check(r[name]["lrs"] == [lr, lr * 0.1], f"{tag} rank {r['rank']} ({name}): D's "
                                                     f"Adam groups {r[name]['lrs']}")
-            for do_dr1, got, bn in zip(PAR_PLAN, r[name]["launches"], r[name]["collectives"]):
+            for do_dr1, got, bn in zip(MOCO_PAR_PLAN, r[name]["launches"],
+                                       r[name]["collectives"]):
                 check(tuple(got) == MOCO_LAUNCHES_PER_STEP[do_dr1],
                       f"{tag} rank {r['rank']} ({name}) launched K1, K1-bwd, K4, K4-bwd, K2 {got} "
                       f"in a step with R1={do_dr1}, expected phase 17's "
@@ -4300,8 +4311,8 @@ def moco_ranks_steps(dev, smi, tmp):
           f"losses on rank 0 after the steps {r0['plain']['losses']}; consistency check "
           f"passed", flush=True)
     print(f"{tag} (b) K1, K1-bwd, K4, K4-bwd, K2 launches per step on each rank (R1 "
-          f"{list(PAR_PLAN)}): " + "; ".join(f"rank {r['rank']} {r['plain']['launches']}"
-                                             for r in ranks)
+          f"{list(MOCO_PAR_PLAN)}): " + "; ".join(f"rank {r['rank']} {r['plain']['launches']}"
+                                                  for r in ranks)
           + f" (phase 17's {MOCO_LAUNCHES_PER_STEP[False]}, {MOCO_LAUNCHES_PER_STEP[True]}); "
           f"batch-norm all_reduces per step " + "; ".join(
               f"rank {r['rank']} {r['plain']['collectives']}" for r in ranks)
@@ -4313,8 +4324,8 @@ def moco_ranks_steps(dev, smi, tmp):
               f"{r['plain']['opt_bytes'] / 2**20:.1f} MiB)" for r in ranks), flush=True)
     for r in ranks:
         ms, ar = r["plain"]["ms"], r["allreduce_ms"]
-        print(f"{tag} (f) rank {r['rank']}: {ms[2]:.1f} ms/step without R1, {ms[3]:.1f} with "
-              f"R1 (first steps {ms[0]:.1f}, {ms[1]:.1f}; ZeRO-1's two steps "
+        print(f"{tag} (f) rank {r['rank']}: {ms[1]:.1f} ms/step without R1, {ms[2]:.1f} with "
+              f"R1 (first step {ms[0]:.1f}; ZeRO-1's two steps "
               f"{r['zero1']['ms'][0]:.1f}, {r['zero1']['ms'][1]:.1f}); two ranks share one "
               f"card, so this is not a scaling number; the gradient all-reduce {ar['G']:.2f} ms "
               f"for G ({r['allreduce_bytes']['G'] / 2**20:.1f} MiB), {ar['D']:.2f} ms for D "
@@ -4433,7 +4444,7 @@ def phase_moco_ranks(dev, smi, zip_path, tmp):
         k4, k4_bwd = phase_warp(dev, MOCO_RANK_WARP, upsamples=(2,), tag=tag, autograd=False)
     parts["e"] = time.perf_counter() - t0
     grads_within_the_floor()
-    launches = {r1: tuple(ranks[0]["plain"]["launches"][PAR_PLAN.index(r1)])
+    launches = {r1: tuple(ranks[0]["plain"]["launches"][MOCO_PAR_PLAN.index(r1)])
                 for r1 in (False, True)}
     print(f"[19 moco-ranks] the parts took " + ", ".join(f"({k}) {v:.1f} s"
                                                          for k, v in parts.items())
@@ -4447,16 +4458,26 @@ SHEAR_ODD = (12, 3, 67, 61)     # (a)'s small case: samples, channels, canvas, o
 
 
 def shear_bytes(kind, taps, shift, axis, x, y):
-    """The bytes that K7 ("K7"), K7-bwd ("K7-bwd") or K8 ("K8", with `shift`
-    its tables) must move from x into y: the input lines (elements) that
-    this call's tables read, once, and y once."""
+    """The bytes that K7 ("K7", the fused pass), K7-bwd ("K7-bwd") or K8
+    ("K8") must move from x into y, with `taps` and `shift` their tables: the
+    input elements that this call's tables read, once, and y once. K7 reads,
+    for each line across the axis, the source elements behind the stage-1
+    lines start .. start + out_len of that line's shift (the rest of stage 1
+    is never shifted into the output); K8 the lines start .. start + out_len
+    of each of its lines."""
     import torch
-    C, other = x.shape[1], x.shape[3 - axis]
+    C = x.shape[1]
     if kind == "K7":
-        seen = torch.zeros(taps.i0.shape[0], taps.in_len, dtype=torch.bool, device=x.device)
-        seen.scatter_(1, taps.i0.long(), True)
-        seen.scatter_(1, taps.i1.long(), True)
-        read = int(seen.sum()) * C * other
+        B, Lz = taps.i0.shape
+        start = shift.start.long()[:, :, None]                   # [B, lines, 1]
+        j = torch.arange(Lz, device=x.device)
+        used = (j >= start) & (j <= start + y.shape[2 + axis])   # [B, lines, Lz]
+        # one bin past the source for the lines not used
+        seen = torch.zeros(B, start.shape[1], taps.in_len + 1, dtype=torch.bool, device=x.device)
+        for i in (taps.i0, taps.i1):
+            seen.scatter_(2, torch.where(used, i.long()[:, None, :], taps.in_len), True)
+        read = int(seen[..., :taps.in_len].sum()) * C
+        del used, seen
     elif kind == "K7-bwd":
         read = x.numel()
     else:
@@ -4498,6 +4519,36 @@ def shift_grid(shift, axis, in_shape, out_len):
     return torch.stack([2 * x / (S - 1) - 1, 2 * y / (R - 1) - 1], dim=-1).float()
 
 
+def earlier_route(x, ps):
+    """K7's library yardstick for the pass `ps` (a WarpPass) of x: the
+    executor's earlier route in library calls, the rot90 select
+    (torch.where), F.pad's reflect, torch.bmm of the banded one-hot matrix
+    over the padded axis (a copy a plane, built before), and F.grid_sample
+    (bilinear, zeros, align_corners=True) of the float32 intermediate on a
+    grid of the shift's positions (built before; a bf16 grid cannot place a
+    line past 256), cast back to x's dtype."""
+    import torch
+    import torch.nn.functional as F
+    from stylegan_v_tpu_torch.ops.shear_warp import ROWS, rot90_select
+    N, C, R, S = x.shape
+    padded, m = ps.taps.padded(), ps.taps.origin[2]
+    M = onehot_matrix(padded, C, x.dtype)
+    z_shape = [N, C, padded.out_len, S] if ps.axis == ROWS else [N, C, R, padded.out_len]
+    grid = shift_grid(ps.shift, ps.axis, z_shape, ps.out_len)
+
+    def call():
+        src = x if ps.rot is None else rot90_select(x, ps.rot)
+        if ps.axis == ROWS:
+            xp = F.pad(src, [0, 0, m, m], mode="reflect")
+            z = torch.bmm(M, xp.view(N * C, padded.in_len, S))
+        else:
+            xp = F.pad(src, [m, m, 0, 0], mode="reflect")
+            z = torch.bmm(xp.view(N * C, R, padded.in_len), M.transpose(1, 2))
+        return F.grid_sample(z.view(z_shape).float(), grid, mode="bilinear",
+                             padding_mode="zeros", align_corners=True).to(x.dtype)
+    return call
+
+
 def shear_record(pas, kind, shape, fns, moved, flops, library_call=None, lists_built=None):
     """CUDA-event times in turns of fns (plain, kernel[, library]) and the
     row of one call; `lists_built`, K7-bwd's wrapper with its CSR lists
@@ -4517,27 +4568,31 @@ def shear_record(pas, kind, shape, fns, moved, flops, library_call=None, lists_b
     return row
 
 
+SHEAR_KINDS = ("K7", "K7-bwd", "K8", "K8 adjoint")   # the rows of shear_kernels, a pass each
+
+
 def shear_kernels(dev, G_bgc):
-    """(a): K7, K7-bwd and K8 (forward and adjoint) against their plain
-    versions at both passes of the step's canvas ([16, 9, 536^2] -> 524^2,
-    the bgc maps of the pipe and branch_maps) and of SHEAR_ODD (branch_maps),
-    float32 and bf16; K7-bwd and K8 twice, equal to the bit; at the canvas
-    with the bgc maps in bf16, CUDA-event times of each call, its plain
-    version and its library call (K7 and K7-bwd: torch.bmm of the banded
-    one-hot matrix, the JAX formulation; K8 and its adjoint: F.grid_sample
-    on shift_grid, on a float32 copy of the input, since grid_sample takes
-    its grid in the input's dtype and a bf16 grid cannot place a line past
-    256 to the pixel), each checked against the kernel, with the bound of
-    the bytes this call's tables read. K7-bwd's `ms` is its wrapper as the
+    """(a): K7 (the fused pass), K7-bwd and K8 (forward and adjoint) against
+    their plain versions at both passes of the step's canvas ([16, 9, 536^2]
+    -> 524^2, the bgc maps of the pipe and branch_maps) and of SHEAR_ODD
+    (branch_maps), float32 and bf16: K7 and K8 equal to them to the bit,
+    K7-bwd within KERNEL_TOL (its sums' order); each called twice, equal to
+    the bit; at the canvas with the bgc maps in bf16, CUDA-event times of
+    each call, its plain version and its library call (K7: earlier_route;
+    K7-bwd: torch.bmm of the transposed one-hot matrix; K8 and its adjoint:
+    F.grid_sample on shift_grid, on a float32 copy of the input, since
+    grid_sample takes its grid in the input's dtype and a bf16 grid cannot
+    place a line past 256), each checked against the kernel, with the bound
+    of the bytes this call's tables read. K7-bwd's `ms` is its wrapper as the
     step calls it, on a new LineTaps whose CSR lists it builds (a stable
     sort and a search); its `kernel_ms` the wrapper with the lists built
-    before. Returns each kernel's worst error, its sums over the two passes
-    (K8: its forward's) and the rows."""
+    before. Returns each kernel's worst error, the sums of each of
+    SHEAR_KINDS over the two passes and the rows."""
     import torch
     import torch.nn.functional as F
-    from stylegan_v_tpu_torch.ops import (shear_resample, shear_resample_bwd,
-                                          shear_resample_bwd_plain, shear_resample_plain,
-                                          shear_shift, shear_shift_plain)
+    from stylegan_v_tpu_torch.ops import (shear_pass, shear_pass_plain, shear_resample_bwd,
+                                          shear_resample_bwd_plain, shear_shift,
+                                          shear_shift_plain)
     from stylegan_v_tpu_torch.ops.shear_warp import (ROWS, LineTaps, branch_maps, shear_plan,
                                                      warp_passes)
 
@@ -4556,54 +4611,62 @@ def shear_kernels(dev, G_bgc):
                   f"[20 shear] {case} {set_name}: {rot} of {N} samples take the rot90 branch")
             for dtype_name in ("float32", "bfloat16"):
                 dtype, tol = getattr(torch, dtype_name), KERNEL_TOL[dtype_name]
-                for pas, taps, shift, axis, shape, out_len in warp_passes(plan, N, C, H, out):
-                    x = torch.randn(shape, generator=g, device=dev).to(dtype)
-                    y = shear_resample(x, taps, axis)
+                for ps in warp_passes(plan, N, C, H, out):
+                    pas, taps, shift, axis = ps.name, ps.taps, ps.shift, ps.axis
+                    Lz = taps.out_len
+                    adj = shift.adjoint()
+                    x = torch.randn(ps.shape, generator=g, device=dev).to(dtype)
+                    y = shear_pass(x, taps, shift, axis, out, ps.rot)
+                    z_shape = list(y.shape)
+                    z_shape[2 + axis] = Lz
+                    zin = torch.randn(z_shape, generator=g, device=dev).to(dtype)
+                    z = shear_shift(zin, shift, axis, out)
                     dy = torch.randn(y.shape, generator=g, device=dev).to(dtype)
-                    z = shear_shift(y, shift, axis, out_len)
-                    dz = torch.randn(z.shape, generator=g, device=dev).to(dtype)
-                    adj, L = shift.adjoint(), y.shape[2 + axis]
-                    dx = shear_resample_bwd(dy, taps, axis)
-                    dy_z = shear_shift(dz, adj, axis, L)
+                    dy_z = shear_shift(dy, adj, axis, Lz)
+                    dx = shear_resample_bwd(zin, taps, axis)
                     for name, got, want in (
-                            ("K7", y, shear_resample_plain(x, taps, axis)),
-                            ("K7-bwd", dx, shear_resample_bwd_plain(dy, taps, axis)),
-                            ("K8", z, shear_shift_plain(y, shift, axis, out_len)),
-                            ("K8", dy_z, shear_shift_plain(dz, adj, axis, L))):
+                            ("K7", y, shear_pass_plain(x, taps, shift, axis, out, ps.rot)),
+                            ("K7-bwd", dx, shear_resample_bwd_plain(zin, taps, axis)),
+                            ("K8", z, shear_shift_plain(zin, shift, axis, out)),
+                            ("K8", dy_z, shear_shift_plain(dy, adj, axis, Lz))):
                         torch.cuda.synchronize()
                         e = (got.float() - want.float()).abs().max().item()
+                        same = torch.equal(got, want)
                         check(got.shape == want.shape
-                              and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol),
+                              and torch.allclose(got.float(), want.float(), rtol=tol, atol=tol)
+                              and (same or name == "K7-bwd"),
                               f"[20 shear] {name} vs plain, {case} {set_name} pass {pas} "
-                              f"{list(shape)} {dtype_name}: max err {e}")
+                              f"{list(ps.shape)} {dtype_name}: max err {e}, equal to the bit "
+                              f"{same}")
                         worst[name] = max(worst[name], e)
-                        equal[name][0] += torch.equal(got, want)
+                        equal[name][0] += same
                         equal[name][1] += 1
-                    check(torch.equal(shear_resample_bwd(dy, taps, axis), dx)
-                          and torch.equal(shear_shift(dz, adj, axis, L), dy_z),
-                          f"[20 shear] K7-bwd or K8 {case} {set_name} pass {pas} {dtype_name}: "
-                          f"two calls differ")
+                    check(torch.equal(shear_pass(x, taps, shift, axis, out, ps.rot), y)
+                          and torch.equal(shear_resample_bwd(zin, taps, axis), dx)
+                          and torch.equal(shear_shift(zin, shift, axis, out), z)
+                          and torch.equal(shear_shift(dy, adj, axis, Lz), dy_z),
+                          f"[20 shear] K7, K7-bwd or K8 {case} {set_name} pass {pas} "
+                          f"{dtype_name}: two calls differ")
                     if (case, set_name, dtype) != ("canvas", "bgc", torch.bfloat16):
                         continue
                     S = onehot_matrix(taps, C, dtype)
-                    P, R, Sx = N * C, shape[2], shape[3]
+                    P, other = N * C, x.shape[3 - axis]
                     if axis == ROWS:
-                        lib = lambda: torch.bmm(S, x.view(P, R, Sx))                # noqa: E731
                         lib_bwd = lambda: torch.bmm(S.transpose(1, 2),              # noqa: E731
-                                                    dy.view(P, taps.out_len, Sx))
+                                                    zin.view(P, Lz, other))
                     else:
-                        lib = lambda: torch.bmm(x.view(P, R, Sx), S.transpose(1, 2))  # noqa: E731
-                        lib_bwd = lambda: torch.bmm(dy.view(P, R, taps.out_len), S)  # noqa: E731
+                        lib_bwd = lambda: torch.bmm(zin.view(P, other, Lz), S)      # noqa: E731
+                    route = earlier_route(x, ps)
                     # K8's: grid_sample on float32 copies (module docstring of shear_kernels)
-                    y32, dz32 = y.float(), dz.float()
-                    grid = shift_grid(shift, axis, y.shape, out_len)
-                    grid_adj = shift_grid(adj, axis, dz.shape, L)
-                    lib_k8 = lambda: F.grid_sample(y32, grid, mode="bilinear",      # noqa: E731
+                    z32, dy32 = zin.float(), dy.float()
+                    grid = shift_grid(shift, axis, zin.shape, out)
+                    grid_adj = shift_grid(adj, axis, dy.shape, Lz)
+                    lib_k8 = lambda: F.grid_sample(z32, grid, mode="bilinear",      # noqa: E731
                                                    padding_mode="zeros", align_corners=True)
-                    lib_k8_adj = lambda: F.grid_sample(dz32, grid_adj,              # noqa: E731
+                    lib_k8_adj = lambda: F.grid_sample(dy32, grid_adj,              # noqa: E731
                                                        mode="bilinear", padding_mode="zeros",
                                                        align_corners=True)
-                    for name, fn, want in (("K7", lib, y), ("K7-bwd", lib_bwd, dx),
+                    for name, fn, want in (("K7", route, y), ("K7-bwd", lib_bwd, dx),
                                            ("K8", lib_k8, z), ("K8 adjoint", lib_k8_adj, dy_z)):
                         e_lib = (fn().view(want.shape).float() - want.float()).abs().max().item()
                         check(e_lib <= tol * max(want.float().abs().max().item(), 1.0),
@@ -4613,28 +4676,31 @@ def shear_kernels(dev, G_bgc):
                     gs = ("F.grid_sample(bilinear, zeros, align_corners=True) on the float32 "
                           "input, grid of the shift's positions built before")
                     rows += [
-                        shear_record(pas, "K7", shape, (
-                            lambda: shear_resample_plain(x, taps, axis),
-                            lambda: shear_resample(x, taps, axis), lib),
-                            shear_bytes("K7", taps, None, axis, x, y), 3 * y.numel(), bmm),
-                        shear_record(pas, "K7-bwd", list(dy.shape), (
-                            lambda: shear_resample_bwd_plain(dy, taps, axis),
-                            lambda: shear_resample_bwd(dy, LineTaps(
+                        shear_record(pas, "K7", list(ps.shape), (
+                            lambda: shear_pass_plain(x, taps, shift, axis, out, ps.rot),
+                            lambda: shear_pass(x, taps, shift, axis, out, ps.rot), route),
+                            shear_bytes("K7", taps, shift, axis, x, y),
+                            3 * (zin.numel() + y.numel()),
+                            "the earlier route: rot90 select, F.pad reflect, " + bmm
+                            + " over the padded axis, then " + gs.replace("input", "stage 1")),
+                        shear_record(pas, "K7-bwd", list(zin.shape), (
+                            lambda: shear_resample_bwd_plain(zin, taps, axis),
+                            lambda: shear_resample_bwd(zin, LineTaps(
                                 taps.i0, taps.i1, taps.w0, taps.w1, taps.in_len), axis),
                             lib_bwd),
-                            shear_bytes("K7-bwd", taps, None, axis, dy, dx), 4 * dy.numel(),
+                            shear_bytes("K7-bwd", taps, None, axis, zin, dx), 4 * zin.numel(),
                             f"{bmm}, transposed",
-                            lists_built=lambda: shear_resample_bwd(dy, taps, axis)),
-                        shear_record(pas, "K8", list(y.shape), (
-                            lambda: shear_shift_plain(y, shift, axis, out_len),
-                            lambda: shear_shift(y, shift, axis, out_len), lib_k8),
-                            shear_bytes("K8", None, shift, axis, y, z), 3 * z.numel(), gs),
-                        shear_record(pas, "K8 adjoint", list(dz.shape), (
-                            lambda: shear_shift_plain(dz, adj, axis, L),
-                            lambda: shear_shift(dz, adj, axis, L), lib_k8_adj),
-                            shear_bytes("K8", None, adj, axis, dz, dy_z), 3 * dy_z.numel(),
+                            lists_built=lambda: shear_resample_bwd(zin, taps, axis)),
+                        shear_record(pas, "K8", list(zin.shape), (
+                            lambda: shear_shift_plain(zin, shift, axis, out),
+                            lambda: shear_shift(zin, shift, axis, out), lib_k8),
+                            shear_bytes("K8", None, shift, axis, zin, z), 3 * z.numel(), gs),
+                        shear_record(pas, "K8 adjoint", list(dy.shape), (
+                            lambda: shear_shift_plain(dy, adj, axis, Lz),
+                            lambda: shear_shift(dy, adj, axis, Lz), lib_k8_adj),
+                            shear_bytes("K8", None, adj, axis, dy, dy_z), 3 * dy_z.numel(),
                             gs)]
-                    del S, y32, dz32, grid, grid_adj
+                    del S, route, z32, dy32, grid, grid_adj
                     torch.cuda.empty_cache()
     for r in rows:
         built = (f"; with its lists built before {r['kernel_ms']:.4f} ms "
@@ -4644,20 +4710,23 @@ def shear_kernels(dev, G_bgc):
               f"ms bound{built})  plain {r['plain_ms']:.4f} ms  library "
               f"{r['library_ms']:.4f} ms", flush=True)
     sums = {}
-    for kind in worst:
+    for kind in SHEAR_KINDS:
         mine = [r for r in rows if r["name"].startswith(f"{kind} pass")]
         t = {k: sum(r[k] for r in mine) for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
         if kind == "K7-bwd":
             t["kernel_ms"] = sum(r["kernel_ms"] for r in mine)
         t["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in mine) else "operations"
         sums[kind] = t
+    slower = [r["name"] for r in rows if r["name"].startswith("K8")
+              and not r["ms"] < r["library_ms"]]
     print(f"[20 shear] (a) max_abs_err vs plain (canvas bgc and edge maps, {SHEAR_ODD} edge "
           f"maps, float32 and bf16): " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
           + "; equal to the plain version to the bit: "
           + ", ".join(f"{k} {a} of {b}" for k, (a, b) in equal.items())
-          + "; K7-bwd and K8 repeat to the bit; one warp's two passes at the canvas in bf16: "
-          + ", ".join(f"{k} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f})"
-                      for k, t in sums.items()), flush=True)
+          + "; K7, K7-bwd and K8 repeat to the bit; one warp's two passes at the canvas in bf16: "
+          + ", ".join(f"{k} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, library "
+                      f"{t['library_ms']:.4f})" for k, t in sums.items())
+          + f"; K8's calls not faster than F.grid_sample: {slower or 'none'}", flush=True)
     return worst, sums, rows
 
 
@@ -4731,7 +4800,7 @@ def shear_whole_warp(dev, smi, images, G_inv):
         before = [k.launches for k in kernels]
         fn()
         launched[what] = tuple(k.launches - b for k, b in zip(kernels, before))
-    want = {"shear fwd": (0, 0, 2, 0, 2), "shear fwd+bwd": (0, 0, 2, 2, 4),
+    want = {"shear fwd": (0, 0, 2, 0, 0), "shear fwd+bwd": (0, 0, 2, 2, 2),
             "K4 fwd": (1, 0, 0, 0, 0), "K4 fwd+bwd": (1, 1, 0, 0, 0)}
     check(launched == want, f"[20 shear] (b) K4, K4-bwd, {SHEAR_KERNELS} launched {launched}, "
                             f"expected {want}")
@@ -4770,8 +4839,11 @@ def phase_shear(dev, smi, G, D, k4_step):
     import torch
     from stylegan_v_tpu_torch.utils.misc import float32_precision
 
+    import stylegan_v_tpu_torch.ops as ops
     ran = tuple(k.launches for k in _shear_kernels())
     check(ran == (0, 0, 0), f"[20 shear] {SHEAR_KERNELS} launched {ran} times before phase 20")
+    check(not hasattr(ops, "shear_resample") and not hasattr(ops.shear_warp, "shear_resample"),
+          "[20 shear] the port has a resample without its shift")
     t0 = time.perf_counter()
     with float32_precision(False):
         (images, G_pipe), G_canvas = shear_calls(dev)
@@ -4785,7 +4857,8 @@ def phase_shear(dev, smi, G, D, k4_step):
     with float32_precision(False):
         phase_aug_parity(dev, warp_mode="shear")
     print(f"[20 shear] done in {time.perf_counter() - t0:.1f} s; the port's 'auto' and "
-          f"'gather' ran K4 (phases 10-12), 'shear' K7, K7-bwd and K8", flush=True)
+          f"'gather' ran K4 (phases 10-12), 'shear' K7 (the fused pass), K7-bwd and K8, and "
+          f"no resample without its shift", flush=True)
     return kernels, launches[5:], whole, step
 
 
@@ -4902,29 +4975,40 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, k2, launches, moco, cli, moco_ranks, 
     (worst, sums, rows), shear_launches, whole, step = shear
     sw = "stylegan_v_tpu/ops/shear_warp.py"
     bmm = "torch.bmm of the banded one-hot matrix (the JAX formulation), a copy a plane"
+    gs = ("F.grid_sample(bilinear, zeros, align_corners=True) on the float32 input, grid of "
+          "the shift's positions built before")
     for (name, key, replaces, library), n in zip((
-            ("shear_resample", "K7", f"{sw}:104 (_line_pass_onehot: a one-hot matmul; no "
-                                     f"Pallas kernel)", bmm),
+            ("shear_pass", "K7", f"{sw}:104 (_line_pass_onehot: a one-hot matmul) and :278 "
+                                 f"(_shift_lines_dense_impl), with the reflect pads :423, :455 "
+                                 f"and the rot90 select :388; no Pallas kernel",
+             f"the earlier route: rot90 select, F.pad reflect, {bmm} over the padded axis, "
+             f"then {gs.replace('input', 'stage 1')}"),
             ("shear_resample_bwd", "K7-bwd", f"{sw}:104 (its gradient, from jax.grad: the "
-                                             f"transposed matmul)", f"{bmm}, transposed"),
-            ("shear_shift", "K8", f"{sw}:278 (_shift_lines_dense_impl) and :323 (its VJP, a "
-                                  f"shift too; no Pallas kernel)",
-             "F.grid_sample(bilinear, zeros, align_corners=True) on the float32 input, grid "
-             "of the shift's positions built before")), shear_launches):
+                                             f"transposed matmul) and the pads' gradient",
+             f"{bmm}, transposed"),
+            ("shear_shift", "K8", f"{sw}:278 (_shift_lines_dense_impl) and :333, :337 "
+                                          f"(its VJP, a shift too; no Pallas kernel)", gs)),
+            shear_launches):
         t = sums[key]
         records.append({"name": name, "route": "cuda",
                         "source": f"stylegan_v_tpu_torch/csrc/{name}.cu", "replaces": replaces,
-                        "launches": n, "max_abs_err": worst[key], "ms": t["ms"],
+                        "launches": n, "max_abs_err": worst[key.split()[0]], "ms": t["ms"],
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"], "library_call": library,
                         "library_ms": t["library_ms"], "share_of_bound": t["bound_ms"] / t["ms"],
                         "shape": "one warp's two passes at the ADA step's canvas, [16, 9, 536^2] "
                                  "-> 524^2 bf16, the pipe's bgc maps",
-                        "calls": [r for r in rows if r["name"].startswith(key + " ")]})
+                        "calls": [r for r in rows if r["name"].startswith(key.split()[0] + " ")]})
         if "kernel_ms" in t:
             records[-1].update(kernel_ms=t["kernel_ms"], ms_is="the wrapper as the step calls "
                                "it, its CSR lists built in the call; kernel_ms with them built "
                                "before")
+    adj = sums["K8 adjoint"]
+    records[-1].update(ms_is="its forward, as in earlier records (the step runs the forward "
+                             "fused in shear_pass); the step's calls are the adjoint's",
+                       adjoint={**{k: adj[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                       "library_ms")},
+                                "share_of_bound": adj["bound_ms"] / adj["ms"]})
     records[-3].update(whole_warp_16x9=whole, shear_ada_step=dict(zip(
         ("ms_without_r1", "ms_with_r1", "ms_amortised", "frames_per_s", "peak_gib"), step)))
     return records

@@ -16,7 +16,8 @@ from .grid_sample import (  # noqa: F401
 from .modulated_conv2d import modulated_conv2d  # noqa: F401
 from .shear_warp import (  # noqa: F401
     shear_affine_grid_sample,
-    shear_resample,
+    shear_pass,
+    shear_pass_plain,
     shear_resample_bwd,
     shear_resample_bwd_plain,
     shear_resample_plain,

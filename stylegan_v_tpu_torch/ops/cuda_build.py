@@ -27,7 +27,7 @@ import torch
 _PKG_DIR = Path(__file__).resolve().parents[1]
 SOURCES = {name: _PKG_DIR / "csrc" / f"{name}.cu"
            for name in ("downfirdn2d_x2", "downfirdn2d_x2_bwd", "affine_warp",
-                        "affine_warp_bwd", "upfirdn2d", "shear_resample",
+                        "affine_warp_bwd", "upfirdn2d", "shear_pass",
                         "shear_resample_bwd", "shear_shift")}
 BUILD_DIR = _PKG_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -8,15 +8,19 @@ affine map of each sample is factored into a vertical and a horizontal
 pass, each a shared-scale resample of whole lines (stage 1) followed by a
 per-line fractional shift (stage 2):
 
-    pass V:  reflect pad H by H // 2 -> K7 along H -> K8 along H (per column)
-    pass H:  reflect pad W by W // 2 -> K7 along W -> K8 along W (per row)
+    pass V:  resample along H (reflect pad by H // 2 in the taps) -> shift along H (per column)
+    pass H:  resample along W (reflect pad by W // 2 in the taps) -> shift along W (per row)
 
-Samples whose factorisation is ill-conditioned (|a| < |c|, near a quarter
-turn) are warped from their rot90 image, `x.transpose(-1, -2).flip(-2)`
-(the NHWC `flip(swapaxes(images, 1, 2), axis=1)` of the JAX package), with
-re-derived coefficients; shears and scales are clipped to SHEAR_MAX and
-SCALE_MAX. Two bilinear passes are not one 2-D bilinear tap, so the result
-differs from K4's by interpolation, as in the JAX package.
+The JAX package pads each pass's source by reflection and mirrors the taps
+into the padded axis; here `line_taps` composes both index maps, so the taps
+index the source itself and no padded copy is made. Samples whose
+factorisation is ill-conditioned (|a| < |c|, near a quarter turn) are
+warped from their rot90 image, `x.transpose(-1, -2).flip(-2)` (the NHWC
+`flip(swapaxes(images, 1, 2), axis=1)` of the JAX package), with
+re-derived coefficients; pass V reads it through that map. Shears and
+scales are clipped to SHEAR_MAX and SCALE_MAX. Two bilinear passes are not
+one 2-D bilinear tap, so the result differs from K4's by interpolation, as
+in the JAX package.
 
 The index and coefficient math (`shear_plan`) is the JAX package's, in
 float32 and in its order of operations, done once a call with torch
@@ -24,22 +28,23 @@ operations on G_inv's device into integer and weight tables: the kernels
 and their plain versions read the same tables, so no floor is taken inside
 a kernel (the shift's clip is not continuous where the position is 2 J0).
 
-Kernels: `shear_resample` (K7, csrc/shear_resample.cu) and its adjoint
-`shear_resample_bwd` (K7-bwd, csrc/shear_resample_bwd.cu), and
-`shear_shift` (K8, csrc/shear_shift.cu), whose adjoint is a K8 launch with
-the tables of `LineShift.adjoint`. On a CUDA tensor each launches its
-kernel (float32 or bf16) or raises; on a CPU tensor it runs its plain
-PyTorch version, which also takes float64. Each launch adds one to the
-wrapper's `launches`.
+Kernels: `shear_pass` (K7, csrc/shear_pass.cu), a whole pass in one
+launch, resample then shift with the intermediate in shared memory;
+`shear_shift` (K8, csrc/shear_shift.cu), the shift alone, which the
+backward runs on the tables of `LineShift.adjoint`; and `shear_resample_bwd`
+(K7-bwd, csrc/shear_resample_bwd.cu), the resample's adjoint. On a CUDA
+tensor each launches its kernel (float32 or bf16) or raises; on a CPU
+tensor it runs its plain PyTorch version, which also takes float64. Each
+launch adds one to the wrapper's `launches`.
 
 Numbers: weights and sums are float32 and each stage rounds once to the
 payload dtype. The JAX package casts the one-hot matrix and the shift's
 fraction to the payload dtype first, so in bf16 the two differ by that
 rounding; in float32 both are exact to rounding.
 
-`shear_affine_grid_sample` is differentiable to any order in x:
-`_ShearResample` and `_ShearResampleT` are each other's backward, and the
-backward of `_ShearShift` is `_ShearShift` with the adjoint tables, which R1
+`shear_affine_grid_sample` is differentiable to any order in x: `_ShearPass`
+(the fused pass) and `_ShearPassT` (K8 on the adjoint tables, K7-bwd, and in
+pass V the rot90 samples turned back) are each other's backward, which R1
 through the ADA pipe needs. G_inv takes no gradient (the JAX package's
 `dfrac` never reaches a parameter in training).
 """
@@ -48,10 +53,9 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from .cuda_build import DTYPE_CODES, entry_point, launch, on_cuda
 from .grid_sample import _compute_dtype
@@ -59,10 +63,16 @@ from .grid_sample import _compute_dtype
 SCALE_MAX = 4.0     # |per-axis scale| clip
 SHEAR_MAX = 2.0     # |shear slope| clip after the rot90 conditioning
 ROWS, COLS = 0, 1   # the axis a stage runs along: dim 2 (H) or dim 3 (W) of NCHW
+# the tiles of the fused pass and of K8 (csrc/shear_lines.cuh), (rows, columns) of
+# outputs; pass V's window of stage-1 rows: the tile's rows, the spread of its columns'
+# starts at SCALE_MAX rows a column with 2 for the floors, and one more
+V_TILE, H_TILE = (64, 32), (32, 64)
+V_WINDOW = V_TILE[0] + math.ceil(SCALE_MAX * (V_TILE[1] - 1)) + 2 + 1
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "shear_resample": (ctypes.c_void_p,) * 6 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,),
-    "shear_resample_bwd": (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,),
-    "shear_shift": (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 8 + (ctypes.c_void_p,),
+    "shear_pass": (_PTR,) * 10 + (_INT,) * 9 + (_PTR,),
+    "shear_resample_bwd": (_PTR,) * 5 + (_INT,) * 8 + (_PTR,),
+    "shear_shift": (_PTR,) * 5 + (_INT,) * 8 + (_PTR,),
 }
 
 
@@ -78,6 +88,12 @@ def _mirror_idx(i: torch.Tensor, size: int) -> torch.Tensor:
     return torch.where(i < size, i, period - 1 - i)
 
 
+def _reflect_idx(r: torch.Tensor, size: int) -> torch.Tensor:
+    """F.pad(mode="reflect")'s source index of r in [1 - size, 2 size - 2]:
+    -r below 0, 2 (size - 1) - r from size on (no edge repeat)."""
+    return torch.where(r < 0, -r, torch.where(r >= size, 2 * (size - 1) - r, r))
+
+
 class TapLists(NamedTuple):
     """The transpose of a LineTaps, for K7-bwd: for sample b and source line
     l, entries ptr[b, l] to ptr[b, l + 1] - 1 of line and weight are the
@@ -91,14 +107,30 @@ class TapLists(NamedTuple):
 class LineTaps:
     """Stage 1's taps: output line i of sample b is w0[b, i] times source
     line i0[b, i] plus w1[b, i] times line i1[b, i], of a source axis of
-    in_len lines (int32 i0, i1 and float32 w0, w1 [B, out_len])."""
+    in_len lines (int32 i0, i1 and float32 w0, w1 [B, out_len]). `origin`
+    is line_taps's (shift, scale, pad), for `padded`: the reflection that
+    composes the pad into the taps folds several padded lines onto one, so
+    the padded route cannot be recovered from the taps, and its shift and
+    scale are shear_plan's intermediates; keeping them here spares the
+    checks against that route a second copy of shear_plan's math."""
 
-    def __init__(self, i0, i1, w0, w1, in_len: int):
+    def __init__(self, i0, i1, w0, w1, in_len: int, origin=None):
         self.i0, self.i1, self.w0, self.w1, self.in_len = i0, i1, w0, w1, in_len
+        self.origin = origin
 
     @property
     def out_len(self) -> int:
         return self.i0.shape[1]
+
+    @property
+    def tables(self):
+        return self.i0, self.i1, self.w0, self.w1
+
+    def padded(self) -> "LineTaps":
+        """The same taps over the source reflect-padded by `pad` lines at both
+        ends, the JAX package's route (F.pad, then these taps)."""
+        shift, scale, pad = self.origin
+        return line_taps(shift, scale, self.out_len, self.in_len + 2 * pad)
 
     @functools.cached_property
     def lists(self) -> TapLists:
@@ -113,40 +145,55 @@ class LineTaps:
         return TapLists(ptr.int(), (order // 2).int(), weight.gather(1, order))
 
 
-def line_taps(shift: torch.Tensor, scale: torch.Tensor, out_len: int, in_len: int) -> LineTaps:
-    """_line_pass_onehot's taps: position scale[b] i + shift[b] of output line
-    i, its floor and the next line mirrored into [0, in_len)."""
+def line_taps(shift: torch.Tensor, scale: torch.Tensor, out_len: int, in_len: int,
+              pad: int = 0) -> LineTaps:
+    """_line_pass_onehot's taps on a source of in_len lines reflect-padded by
+    pad (< in_len) at both ends: position scale[b] i + shift[b] of output line
+    i (in the padded axis), its floor and the next line mirrored into the
+    padded axis, then reflected back into [0, in_len), so that the taps read
+    the unpadded source. One reflection is enough, since pad < in_len."""
     i = torch.arange(out_len, dtype=torch.float32, device=scale.device)
     pos = scale[:, None] * i[None, :] + shift[:, None]
     i0 = torch.floor(pos)
     f = pos - i0
     i0 = i0.long()
-    return LineTaps(_mirror_idx(i0, in_len).int(), _mirror_idx(i0 + 1, in_len).int(), 1.0 - f,
-                    f, in_len)
+
+    def source(i):
+        return _reflect_idx(_mirror_idx(i, in_len + 2 * pad) - pad, in_len).int()
+
+    return LineTaps(source(i0), source(i0 + 1), 1.0 - f, f, in_len, (shift, scale, pad))
 
 
 class LineShift(NamedTuple):
     """Stage 2's shift: output i of line n of sample b is w0[b, n] times input
     start[b, n] + i of that line plus w1[b, n] times input start[b, n] + i + 1,
-    reading zero past either end (int32 start, float32 w0, w1 [B, lines])."""
+    reading zero past either end (int32 start, float32 w0, w1 [B, lines]).
+    `slope` bounds |start[b, n + 1] - start[b, n]| up to the floors' rounding
+    (infinite where nothing bounds it): the pass-V tiles' windows need it."""
     start: torch.Tensor
     w0: torch.Tensor
     w1: torch.Tensor
+    slope: float = math.inf
+
+    @property
+    def tables(self):
+        return self.start, self.w0, self.w1
 
     def adjoint(self) -> "LineShift":
         """The transposed shift: dz[l] = w0 g[l - start] + w1 g[l - start - 1]."""
-        return LineShift(-1 - self.start, self.w1, self.w0)
+        return LineShift(-1 - self.start, self.w1, self.w0, self.slope)
 
 
-def line_shift(q: torch.Tensor, J0: int, out_len: int, in_len: int) -> LineShift:
-    """shift_lines_dense's tables for the per-line offsets q [B, lines]:
-    clipped to +-J0, the start k = floor(q + J0) clipped to [0, in_len -
-    out_len - 1], and the fraction."""
+def line_shift(q: torch.Tensor, J0: int, out_len: int, in_len: int,
+               slope: float = math.inf) -> LineShift:
+    """shift_lines_dense's tables for the per-line offsets q [B, lines]
+    (whose neighbours differ by at most `slope`): clipped to +-J0, the start
+    k = floor(q + J0) clipped to [0, in_len - out_len - 1], and the fraction."""
     pos = q.clamp(-float(J0), float(J0)) + J0
     k = torch.floor(pos)
     frac = pos - k
     kc = k.long().clamp(0, max(in_len - out_len - 1, 0))
-    return LineShift(kc.int(), 1.0 - frac, frac)
+    return LineShift(kc.int(), 1.0 - frac, frac, slope)
 
 
 class ShearPlan(NamedTuple):
@@ -168,7 +215,7 @@ def _floor_scale(s: torch.Tensor) -> torch.Tensor:
 def shear_plan(G_inv: torch.Tensor, H: int, W: int, out_h: int, out_w: int) -> ShearPlan:
     """stylegan_v_tpu/ops/shear_warp.py:366-469's coefficient and index math
     for an H x W input (H == W) and an out_h x out_w output, in float32 on
-    G_inv's device."""
+    G_inv's device; the taps index the unpadded source of each pass."""
     G = G_inv.float()
 
     def pix_row(g0, g1, g2, in_size):
@@ -192,27 +239,28 @@ def shear_plan(G_inv: torch.Tensor, H: int, W: int, out_h: int, out_w: int) -> S
     # factor M = H_x o V_y
     sgn_a = torch.where(a < 0, -1.0, 1.0)
     a_safe = sgn_a * a.abs().clamp_min(1e-3)
-    c1 = (c / a_safe).clamp(-SHEAR_MAX, SHEAR_MAX)          # vertical shear
+    c1 = (c / a_safe).clamp(-SHEAR_MAX, SHEAR_MAX)          # vertical shear, |c1| <= 1
     d1 = (d - c1 * b).clamp(-SCALE_MAX, SCALE_MAX)          # vertical scale
     e = ty - c1 * tx
     a_h = a.clamp(-SCALE_MAX, SCALE_MAX)                    # horizontal scale
     b_h = b.clamp(-SHEAR_MAX, SHEAR_MAX)                    # horizontal shear
     d1, a_h = _floor_scale(d1), _floor_scale(a_h)
 
-    # pass V: z[j] = src[d1 (j - J0) + s_mid], then mid[y, x] = z[y + J0 + q_x, x]
+    # pass V: z[j] = src[d1 (j - J0) + s_mid], then mid[y, x] = z[y + J0 + q_x, x];
+    # q moves |c1 / d1| <= SCALE_MAX a column
     Mv, J0 = _reflect_pad_len(H), H // 2
     Lz = out_h + 2 * J0
     s_mid = e + Mv + c1 * (W - 1.0) / 2.0
-    v_taps = line_taps(s_mid - d1 * J0, d1, Lz, H + 2 * Mv)
+    v_taps = line_taps(s_mid - d1 * J0, d1, Lz, H, pad=Mv)
     cols = torch.arange(W, dtype=torch.float32, device=G.device)[None, :]
     q = (c1 / d1)[:, None] * (cols - (W - 1.0) / 2.0)
-    v_shift = line_shift(q, J0, out_h, Lz)
+    v_shift = line_shift(q, J0, out_h, Lz, slope=SCALE_MAX)
 
     # pass H: the same along x, with the shift per output row
     Mh, J0h = _reflect_pad_len(W), W // 2
     Lz2 = out_w + 2 * J0h
     r_mid = tx + Mh + b_h * (out_h - 1.0) / 2.0
-    h_taps = line_taps(r_mid - a_h * J0h, a_h, Lz2, W + 2 * Mh)
+    h_taps = line_taps(r_mid - a_h * J0h, a_h, Lz2, W, pad=Mh)
     rows = torch.arange(out_h, dtype=torch.float32, device=G.device)[None, :]
     q2 = (b_h / a_h)[:, None] * (rows - (out_h - 1.0) / 2.0)
     h_shift = line_shift(q2, J0h, out_w, Lz2)
@@ -248,13 +296,50 @@ def branch_maps(N: int, device=None) -> torch.Tensor:
     return torch.stack([maps[i % len(maps)] for i in range(N)]).float().to(device)
 
 
-def warp_passes(plan: "ShearPlan", N: int, C: int, H: int, out: int):
-    """The two passes of a shear warp of [N, C, H, H] to out x out under
-    `plan`: (name, K7's taps, K8's shift, axis, K7's input shape, K8's
-    output length) each."""
-    Hp = H + 2 * _reflect_pad_len(H)
-    return [("V", plan.v_taps, plan.v_shift, ROWS, (N, C, Hp, H), out),
-            ("H", plan.h_taps, plan.h_shift, COLS, (N, C, out, Hp), out)]
+class WarpPass(NamedTuple):
+    """One pass of a shear warp of [N, C, H, H] to out x out: its name, its
+    tables, its axis, its input's shape, its output's length along the axis,
+    and the rot90 flags it reads its source through (pass V) or None."""
+    name: str
+    taps: LineTaps
+    shift: LineShift
+    axis: int
+    shape: tuple
+    out_len: int
+    rot: Optional[torch.Tensor]
+
+
+def warp_passes(plan: ShearPlan, N: int, C: int, H: int, out: int):
+    """The two passes of a shear warp of [N, C, H, H] to out x out under `plan`."""
+    return [WarpPass("V", plan.v_taps, plan.v_shift, ROWS, (N, C, H, H), out, plan.rot),
+            WarpPass("H", plan.h_taps, plan.h_shift, COLS, (N, C, out, H), out, None)]
+
+
+def tile_windows(shift: LineShift, axis: int, out_r: int, out_s: int):
+    """The stage-1 lines that each tile of the fused pass and of K8 stages,
+    as csrc/shear_lines.cuh:line_kernel computes them, for an output of
+    out_r x out_s: (first, count), int64 [B, tiles, tiles along the axis]
+    along rows (a V_TILE tile's rows first .. first + count - 1 of z, from
+    its least start plus its first row to its greatest start plus its last
+    row plus 1), [B, out_r, tiles along the columns] along columns (row r's
+    window of an H_TILE tile: first = start[r] plus the tile's first column,
+    count = its width plus 1)."""
+    start = shift.start.long()
+    B = start.shape[0]
+    if axis == ROWS:
+        (tr, ts), n = V_TILE, -(-out_s // V_TILE[1])
+        padded = torch.cat([start, start[:, -1:].expand(B, n * ts - out_s)], dim=1)
+        lo = padded.view(B, n, ts).amin(dim=2)
+        hi = padded.view(B, n, ts).amax(dim=2)
+        i_lo = torch.arange(0, out_r, tr, device=start.device)
+        rows = (out_r - i_lo).clamp(max=tr)
+        first = lo[:, None, :] + i_lo[None, :, None]
+        return first, (hi - lo)[:, None, :] + rows[None, :, None] + 1
+    ts = H_TILE[1]
+    s_lo = torch.arange(0, out_s, ts, device=start.device)
+    width = (out_s - s_lo).clamp(max=ts)
+    first = start[:, :, None] + s_lo[None, None, :]
+    return first, (width + 1).expand_as(first)
 
 
 # ------------------------------------------------------------ plain versions
@@ -271,9 +356,19 @@ def _stage_shape(x: torch.Tensor, axis: int, n: int):
     return shape
 
 
+def rot90_select(x: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """Pass V's source: x, or for the samples with rot set its rot90 image."""
+    return torch.where(rot[:, None, None, None], x.transpose(-1, -2).flip(-2), x)
+
+
+def _rot90_back(g: torch.Tensor, rot: torch.Tensor) -> torch.Tensor:
+    """The adjoint of rot90_select: the rot90 samples' g turned back."""
+    return torch.where(rot[:, None, None, None], g.flip(-2).transpose(-1, -2), g)
+
+
 def shear_resample_plain(x: torch.Tensor, taps: LineTaps, axis: int) -> torch.Tensor:
-    """Plain PyTorch version of K7: two gathers along `axis`, the two-tap sum
-    in float32 (float64 for a float64 x), cast back once."""
+    """Plain PyTorch version of stage 1: two gathers along `axis`, the
+    two-tap sum in float32 (float64 for a float64 x), cast back once."""
     ct = _compute_dtype(x)
     xf = x.to(ct)
     shape = _stage_shape(x, axis, taps.out_len)
@@ -316,6 +411,14 @@ def shear_shift_plain(z: torch.Tensor, shift: LineShift, axis: int, out_len: int
     return out.to(z.dtype)
 
 
+def shear_pass_plain(x: torch.Tensor, taps: LineTaps, shift: LineShift, axis: int,
+                     out_len: int, rot: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain PyTorch version of the fused pass: pass V's rot90 select (where
+    rot is given), stage 1, its output rounded to x's dtype, then stage 2."""
+    src = x if rot is None else rot90_select(x, rot)
+    return shear_shift_plain(shear_resample_plain(src, taps, axis), shift, axis, out_len)
+
+
 # ------------------------------------------------------------------- kernels
 
 def _check(t: torch.Tensor, axis: int, tables, name: str) -> None:
@@ -327,54 +430,82 @@ def _check(t: torch.Tensor, axis: int, tables, name: str) -> None:
         raise ValueError(f"{name} needs tables of {t.shape[0]} samples on {t.device}")
 
 
-def _launch(wrapper, t: torch.Tensor, out: torch.Tensor, tables, axis: int) -> None:
+def _check_lines(t: torch.Tensor, shift: LineShift, axis: int, name: str) -> None:
+    if shift.start.shape[1] != t.shape[3 - axis]:
+        raise ValueError(f"{name}: tables of {shift.start.shape[1]} lines for "
+                         f"{tuple(t.shape)} along axis {axis}")
+
+
+def _window_fits(shift: LineShift, axis: int, name: str) -> None:
+    """Raise where a pass-V tile's window could outgrow the V_WINDOW rows the
+    kernel holds in shared memory: tables whose slope exceeds SCALE_MAX."""
+    if axis == ROWS and not shift.slope <= SCALE_MAX:
+        raise ValueError(f"{name}: pass-V tables of slope {shift.slope} could need windows "
+                         f"past the {V_WINDOW} rows of shared memory (slope at most "
+                         f"{SCALE_MAX}, as shear_plan's)")
+
+
+def _launch(wrapper, t: torch.Tensor, out: torch.Tensor, tables, axis: int, *extra) -> None:
     """Launch the kernel of `wrapper` (its C entry point has the wrapper's
-    name) from t into out on the current stream; count it."""
+    name) from t into out on the current stream; count it. A table of None
+    is a null pointer; `extra` ints follow the shapes."""
     name = wrapper.__name__
     if t.dtype not in DTYPE_CODES:
         raise ValueError(f"{name} takes float32 or bfloat16, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} needs a contiguous NCHW tensor")
-    if not all(tab.is_contiguous() and tab.dtype in (torch.int32, torch.float32)
+    if not all(tab is None or (tab.is_contiguous()
+                               and tab.dtype in (torch.int32, torch.float32, torch.bool))
                for tab in tables):
-        raise ValueError(f"{name} needs contiguous int32 and float32 tables")
+        raise ValueError(f"{name} needs contiguous int32, float32 and bool tables")
     N, C, R, S = t.shape
     out_r, out_s = out.shape[2:]
     if N * C > 65535 or -(-out_r // 8) > 65535:          # the grid's z and y
         raise ValueError(f"{name} takes at most 65535 planes and {8 * 65535} output rows")
     if out.numel() == 0:
         return
-    args = (t.data_ptr(), out.data_ptr(), *(tab.data_ptr() for tab in tables),
-            DTYPE_CODES[t.dtype], axis, N * C, C, R, S, out_r, out_s)
+    args = (t.data_ptr(), out.data_ptr(), *(0 if tab is None else tab.data_ptr()
+                                            for tab in tables),
+            DTYPE_CODES[t.dtype], axis, N * C, C, R, S, out_r, out_s, *extra)
     launch(name, entry_point(name, _ARGTYPES[name]), args, t.device.index)
     wrapper.launches += 1
 
 
-def shear_resample(x: torch.Tensor, taps: LineTaps, axis: int) -> torch.Tensor:
-    """Resample x [N, C, R, S] along `axis` to taps.out_len lines (K7). A CPU
-    tensor goes to `shear_resample_plain`; a CUDA tensor (float32 or
-    bfloat16, contiguous; tables on its device) to the CUDA kernel, or
-    raises. No autograd graph: `_ShearResample` carries the gradient."""
-    tables = (taps.i0, taps.i1, taps.w0, taps.w1)
-    _check(x, axis, tables, "shear_resample")
+def shear_pass(x: torch.Tensor, taps: LineTaps, shift: LineShift, axis: int, out_len: int,
+               rot: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One pass of the shear warp (K7): x [N, C, R, S] resampled along `axis`
+    by taps (of taps.in_len == x's length there), then each line shifted to
+    out_len (along rows the lines are the columns, tables [N, S]; along
+    columns the rows, tables [N, R]); along rows, the samples with rot set
+    read x's rot90 image (R == S). A CPU tensor goes to `shear_pass_plain`; a
+    CUDA tensor (float32 or bfloat16, contiguous; tables on its device) to
+    the CUDA kernel, or raises. No autograd graph: `_ShearPass` carries the
+    gradient."""
+    _check(x, axis, (*taps.tables, *shift.tables) + ((rot,) if rot is not None else ()),
+           "shear_pass")
     if x.shape[2 + axis] != taps.in_len:
-        raise ValueError(f"shear_resample: taps of {taps.in_len} lines for {tuple(x.shape)}")
-    if not on_cuda(x, "shear_resample"):
-        return shear_resample_plain(x, taps, axis)
-    y = torch.empty(_stage_shape(x, axis, taps.out_len), dtype=x.dtype, device=x.device)
-    _launch(shear_resample, x, y, tables, axis)
+        raise ValueError(f"shear_pass: taps of {taps.in_len} lines for {tuple(x.shape)}")
+    _check_lines(x, shift, axis, "shear_pass")
+    if rot is not None and (axis != ROWS or x.shape[2] != x.shape[3]):
+        raise ValueError("shear_pass reads a rot90 image only along rows, of a square input")
+    if not on_cuda(x, "shear_pass"):
+        return shear_pass_plain(x, taps, shift, axis, out_len, rot)
+    _window_fits(shift, axis, "shear_pass")
+    y = torch.empty(_stage_shape(x, axis, out_len), dtype=x.dtype, device=x.device)
+    _launch(shear_pass, x, y, (*taps.tables, rot, *shift.tables), axis, taps.out_len)
     return y
 
 
-shear_resample.launches = 0
+shear_pass.launches = 0
 
 
 def shear_resample_bwd(dy: torch.Tensor, taps: LineTaps, axis: int) -> torch.Tensor:
-    """The adjoint of `shear_resample(., taps, axis)`: [N, C, out_len, S] ->
-    [N, C, in_len, S] along rows, likewise along columns (K7-bwd). A CPU
-    tensor goes to `shear_resample_bwd_plain`; a CUDA tensor to the CUDA
-    kernel, a gather over taps.lists that sums each element in float32 in a
-    fixed order and writes dx once in dy's dtype, or raises."""
+    """The adjoint of stage 1 (`shear_resample_plain(., taps, axis)`):
+    [N, C, out_len, S] -> [N, C, in_len, S] along rows, likewise along
+    columns (K7-bwd). A CPU tensor goes to `shear_resample_bwd_plain`; a CUDA
+    tensor to the CUDA kernel, a gather over taps.lists that sums each
+    element in float32 in a fixed order and writes dx once in dy's dtype, or
+    raises."""
     _check(dy, axis, (taps.i0,), "shear_resample_bwd")
     if dy.shape[2 + axis] != taps.out_len:
         raise ValueError(f"shear_resample_bwd: taps of {taps.out_len} lines for "
@@ -394,14 +525,13 @@ def shear_shift(z: torch.Tensor, shift: LineShift, axis: int, out_len: int) -> t
     (K8): along rows the lines are the columns (tables [N, S]), along columns
     the rows (tables [N, R]). A CPU tensor goes to `shear_shift_plain`; a
     CUDA tensor to the CUDA kernel, or raises."""
-    _check(z, axis, shift, "shear_shift")
-    if shift.start.shape[1] != z.shape[3 - axis]:
-        raise ValueError(f"shear_shift: tables of {shift.start.shape[1]} lines for "
-                         f"{tuple(z.shape)} along axis {axis}")
+    _check(z, axis, shift.tables, "shear_shift")
+    _check_lines(z, shift, axis, "shear_shift")
     if not on_cuda(z, "shear_shift"):
         return shear_shift_plain(z, shift, axis, out_len)
+    _window_fits(shift, axis, "shear_shift")
     y = torch.empty(_stage_shape(z, axis, out_len), dtype=z.dtype, device=z.device)
-    _launch(shear_shift, z, y, shift, axis)
+    _launch(shear_shift, z, y, shift.tables, axis)
     return y
 
 
@@ -410,46 +540,38 @@ shear_shift.launches = 0
 
 # ------------------------------------------------------------------ autograd
 
-class _ShearResample(torch.autograd.Function):
-    """K7 with a gradient: forward `shear_resample`, backward `_ShearResampleT`.
-    The tables are constants of the call."""
+class _ShearPass(torch.autograd.Function):
+    """The fused pass with a gradient: forward `shear_pass`, backward
+    `_ShearPassT`. The tables are constants of the call."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, taps: LineTaps, axis: int) -> torch.Tensor:
-        ctx.taps, ctx.axis = taps, axis
-        return shear_resample(x.contiguous(), taps, axis)
+    def forward(ctx, x: torch.Tensor, taps: LineTaps, shift: LineShift, axis: int,
+                out_len: int, rot: Optional[torch.Tensor]) -> torch.Tensor:
+        ctx.tables = taps, shift, axis, rot
+        return shear_pass(x.contiguous(), taps, shift, axis, out_len, rot)
 
     @staticmethod
     def backward(ctx, dy: torch.Tensor):
-        return _ShearResampleT.apply(dy, ctx.taps, ctx.axis), None, None
+        return (_ShearPassT.apply(dy, *ctx.tables),) + (None,) * 5
 
 
-class _ShearResampleT(torch.autograd.Function):
-    """K7-bwd with a gradient: forward `shear_resample_bwd`, backward `_ShearResample`."""
+class _ShearPassT(torch.autograd.Function):
+    """The transpose of the fused pass: K8 on the adjoint tables (back to
+    stage 1's length), K7-bwd, and along rows the rot90 samples turned back
+    with torch operations. Backward `_ShearPass`."""
 
     @staticmethod
-    def forward(ctx, dy: torch.Tensor, taps: LineTaps, axis: int) -> torch.Tensor:
-        ctx.taps, ctx.axis = taps, axis
-        return shear_resample_bwd(dy.contiguous(), taps, axis)
+    def forward(ctx, dy: torch.Tensor, taps: LineTaps, shift: LineShift, axis: int,
+                rot: Optional[torch.Tensor]) -> torch.Tensor:
+        ctx.tables, ctx.out_len = (taps, shift, axis), dy.shape[2 + axis]
+        ctx.rot = rot
+        dz = shear_shift(dy.contiguous(), shift.adjoint(), axis, taps.out_len)
+        dx = shear_resample_bwd(dz, taps, axis)
+        return dx if rot is None else _rot90_back(dx, rot)
 
     @staticmethod
     def backward(ctx, ddx: torch.Tensor):
-        return _ShearResample.apply(ddx, ctx.taps, ctx.axis), None, None
-
-
-class _ShearShift(torch.autograd.Function):
-    """K8 with a gradient. The transpose of a shift is a shift (of the
-    adjoint tables, LineShift.adjoint, to the input's length), so the
-    backward is this function again, and so is every higher order."""
-
-    @staticmethod
-    def forward(ctx, z: torch.Tensor, shift: LineShift, axis: int, out_len: int) -> torch.Tensor:
-        ctx.shift, ctx.axis, ctx.in_len = shift, axis, z.shape[2 + axis]
-        return shear_shift(z.contiguous(), shift, axis, out_len)
-
-    @staticmethod
-    def backward(ctx, dy: torch.Tensor):
-        return _ShearShift.apply(dy, ctx.shift.adjoint(), ctx.axis, ctx.in_len), None, None, None
+        return (_ShearPass.apply(ddx, *ctx.tables, ctx.out_len, ctx.rot),) + (None,) * 4
 
 
 def shear_affine_grid_sample(x: torch.Tensor, G_inv: torch.Tensor, out_h: int,
@@ -469,10 +591,5 @@ def shear_affine_grid_sample(x: torch.Tensor, G_inv: torch.Tensor, out_h: int,
         raise ValueError(f"shear_affine_grid_sample needs G_inv [{N}, 3, 3], "
                          f"got {tuple(G_inv.shape)}")
     plan = shear_plan(G_inv, H, W, out_h, out_w)
-    src = torch.where(plan.rot[:, None, None, None], x.transpose(-1, -2).flip(-2), x)
-    m = _reflect_pad_len(H)
-    z = _ShearResample.apply(F.pad(src, [0, 0, m, m], mode="reflect"), plan.v_taps, ROWS)
-    mid = _ShearShift.apply(z, plan.v_shift, ROWS, out_h)
-    m = _reflect_pad_len(W)
-    z2 = _ShearResample.apply(F.pad(mid, [m, m, 0, 0], mode="reflect"), plan.h_taps, COLS)
-    return _ShearShift.apply(z2, plan.h_shift, COLS, out_w)
+    mid = _ShearPass.apply(x, plan.v_taps, plan.v_shift, ROWS, out_h, plan.rot)
+    return _ShearPass.apply(mid, plan.h_taps, plan.h_shift, COLS, out_w, None)

@@ -2,6 +2,7 @@
 by kernel class, and how long each takes.
 
     python stylegan_v_tpu_torch/tools/profile_split.py [--repo DIR] [--json FILE]
+        [--warp-mode auto|gather|shear] [--k2-calls] [--shear-calls]
 
 Builds FFS-256's G and D from a seed (channel_base 16384, as chip_smoke.py
 does) and measures, with TF32 off (the step's default):
@@ -9,8 +10,9 @@ does) and measures, with TF32 off (the step's default):
     batch), ms a batch by CUDA events over 5 warm calls, then one call
     under torch.profiler;
   * the ADA step without R1 at 16 videos x 3 frames, bgc with
-    warp_upsample=2 at augment_p 0.5 (phase 11's), ms a step on the host
-    clock around 4 synchronised warm steps, then one step under the
+    warp_upsample=2 at augment_p 0.5 (phase 11's; with --warp-mode shear
+    phase 20 (c)'s, the shear executor), ms a step on the host clock around
+    4 synchronised warm steps and frames/s, then one step under the
     profiler;
   * a projection step, 8 frames at 256^2 (chip_smoke.py phase 18 (a)'s):
     project.projection_loss's fallback loss and its gradient in (w,
@@ -18,10 +20,10 @@ does) and measures, with TF32 off (the step's default):
     one step under the profiler.
 For each profiled window it prints the kernels' device time, the window's
 host time, the idle share (1 - kernel time / window) and the kernel time
-by class: K2, K1 and K1-bwd, K4 and K4-bwd (the port's kernels, by name),
-depthwise convolutions (the plain upfirdn2d's filter passes), layout
-transposes, other convolutions and GEMMs, elementwise and reductions, the
-rest; then K2's time by instantiation (its template arguments). The 2-D
+by class: K2, K1 and K1-bwd, K4 and K4-bwd, K7, K7-bwd and K8 (the port's
+kernels, by name), depthwise convolutions (the plain upfirdn2d's filter
+passes), layout transposes, other convolutions and GEMMs, elementwise and
+reductions, the rest; then K2's time by instantiation (its template arguments). The 2-D
 pass of this design, named "2d <...>": dtype, whether the output rows are
 odd in length, how it sums (0 the 2-D sum guarded by the filter's size, 1
 the 2-D sum of 4x4 taps, 2 rows then columns), then up, down and phase for
@@ -45,6 +47,11 @@ script (not with -m) for that. --k2-calls also runs that checkout's
 chip_smoke.py phase 3b (K2 at every distinct call of one forward at 16 x 3
 and its adjoint, against its plain version, timed beside it and the library
 call with a cold L2) on the same G and D, and prints and returns its rows.
+--shear-calls runs that checkout's chip_smoke.py phase 20 (a) and (b): the
+shear executor's kernels at the step's canvas against their plain versions,
+timed beside them, their library calls and their bounds, and the
+anti-aliased warp at [16, 9, 256^2] bf16, shear against K4, forward and
+forward + backward, with a profile of each.
 """
 from __future__ import annotations
 
@@ -59,7 +66,7 @@ CLASSES = (  # (class, substrings of the kernel name), the first match wins
     ("K2 upfirdn2d", ("upfirdn2d_kernel", "upfirdn2d_2d_kernel", "upfirdn2d_sep_kernel")),
     ("K1, K1-bwd", ("downfirdn2d_x2",)),
     ("K4, K4-bwd", ("affine_warp",)),
-    ("K7, K7-bwd, K8", ("shear_resample", "shear_shift")),
+    ("K7, K7-bwd, K8", ("shear_resample", "shear_shift", "shear::line_kernel")),
     ("depthwise convs (plain upfirdn2d)", ("depthwise", "conv2d_grouped")),
     ("layout transposes", ("nchwToNhwc", "nhwcToNchw")),
     ("convs and GEMMs", ("conv", "cudnn", "xmma", "gemm", "cutlass", "sm90_", "wgrad",
@@ -135,6 +142,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--json", default=None, help="also write the result here")
     ap.add_argument("--k2-calls", action="store_true",
                     help="also run the checkout's chip_smoke.py phase 3b")
+    ap.add_argument("--shear-calls", action="store_true",
+                    help="also run the checkout's chip_smoke.py phase 20 (a) and (b)")
+    ap.add_argument("--warp-mode", default="auto", choices=("auto", "gather", "shear"),
+                    help="the ADA step's warp executor (the port's auto is K4)")
     args = ap.parse_args(argv)
     if args.repo:
         if "stylegan_v_tpu_torch" in sys.modules:
@@ -163,14 +174,25 @@ def main(argv=None) -> dict:
                       generator=gen).to(dev).eval()
     out = {"device": smi.strip(), "repo": os.path.dirname(os.path.dirname(port.__file__))}
 
-    if args.k2_calls:
+    if args.k2_calls or args.shear_calls:
         sys.path.insert(0, out["repo"])
         import chip_smoke
         cuda_build = sys.modules["stylegan_v_tpu_torch.ops.cuda_build"]
         cuda_build.build_libraries()
+    if args.k2_calls:
         with float32_precision(False):
             err, head, sums, rows = chip_smoke.phase_k2(dev, G, D)
         out["k2_calls"] = {"max_abs_err": err, "sums": sums, "rows": rows}
+        torch.cuda.empty_cache()
+    if args.shear_calls:
+        with float32_precision(False):
+            (images, G_pipe), G_canvas = chip_smoke.shear_calls(dev)
+            worst, sums, rows = chip_smoke.shear_kernels(dev, G_canvas)
+            torch.cuda.empty_cache()
+            whole = chip_smoke.shear_whole_warp(dev, smi.strip(), images, G_pipe)
+        out["shear_calls"] = {"max_abs_err": worst, "sums": sums, "rows": rows,
+                              "whole_warp": whole}
+        del images
         torch.cuda.empty_cache()
 
     # synthesis, 32 x 8
@@ -200,7 +222,8 @@ def main(argv=None) -> dict:
     tcfg = TrainingConfig(batch_size=B, ada_target=0.6)
     lcfg = LossConfig(r1_gamma=0.0002 * res ** 2 / B, pl_weight=0.0, video_consistent_aug=True)
     opt = OptimizerConfig(0.0025)
-    aug = make_augment_pipe(AugmentConfig(**AUGPIPE_SPECS["bgc"], warp_upsample=2))
+    aug = make_augment_pipe(AugmentConfig(**AUGPIPE_SPECS["bgc"], warp_upsample=2,
+                                          warp_mode=args.warp_mode))
     state = init_train_state(G, D, opt, opt, tcfg, augment_p=0.5)
     step = make_train_step(G, D, lcfg, tcfg, augment_fn=aug)
     g = torch.Generator(device=dev).manual_seed(4)
@@ -226,10 +249,13 @@ def main(argv=None) -> dict:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     prof = profile(one_step)
-    out["ada_step"] = {"ms_per_step": times, "kernel_ms": prof[0], "window_ms": prof[1],
-                       "split_ms": prof[2], "k2_ms": prof[4]}
-    print(f"ADA step without R1, 16x3 at 256^2: {', '.join(f'{v:.1f}' for v in times)} ms",
-          flush=True)
+    fps = [B * F / (v * 1e-3) for v in times]
+    out["ada_step"] = {"warp_mode": args.warp_mode, "ms_per_step": times, "frames_per_s": fps,
+                       "kernel_ms": prof[0], "window_ms": prof[1], "split_ms": prof[2],
+                       "k2_ms": prof[4]}
+    print(f"ADA step without R1, 16x3 at 256^2, warp_mode {args.warp_mode}: "
+          f"{', '.join(f'{v:.1f}' for v in times)} ms, "
+          f"{', '.join(f'{v:.1f}' for v in fps)} frames/s", flush=True)
     report("ADA step without R1, one step", *prof)
     del state, step, box, batch
     torch.cuda.empty_cache()

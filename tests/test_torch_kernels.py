@@ -2,8 +2,9 @@
 (K1) and its adjoint (K1-bwd), the bilinear affine warp (K4) and its
 adjoint (K4-bwd), the general upfirdn2d pass (K2; its CPU tests are in
 tests/test_torch_upfirdn2d.py, its card tests here), and the shear warp's
-resample (K7), its adjoint (K7-bwd) and shift (K8; their CPU tests are in
-tests/test_torch_shear.py, their card tests here).
+fused pass (K7, resample then shift in one launch), its resample's adjoint
+(K7-bwd) and its shift (K8; their CPU tests are in tests/test_torch_shear.py,
+their card tests here).
 
 On CPU: K1's plain version against the JAX package's Pallas kernel in
 interpret mode (the same shapes as tests/test_pallas_kernels.py plus an
@@ -26,10 +27,9 @@ from stylegan_v_tpu_torch.ops import (affine_grid_sample, affine_grid_sample_bwd
                                       downfirdn2d_x2_bwd_plain, downfirdn2d_x2_plain,
                                       downsample2d, fir_kernels, grid_sample, setup_filter,
                                       upfirdn2d, upfirdn2d_k2, upfirdn2d_k2_plain)
-from stylegan_v_tpu_torch.ops import (shear_affine_grid_sample, shear_resample,
-                                      shear_resample_bwd, shear_resample_bwd_plain,
-                                      shear_resample_plain, shear_shift, shear_shift_plain,
-                                      shear_warp)
+from stylegan_v_tpu_torch.ops import (shear_affine_grid_sample, shear_pass, shear_pass_plain,
+                                      shear_resample_bwd, shear_resample_bwd_plain, shear_shift,
+                                      shear_shift_plain, shear_warp)
 from stylegan_v_tpu_torch.ops.upfirdn2d_kernel import passes
 from test_torch_upfirdn2d import ASYM, CASES, forward_and_adjoint
 
@@ -735,44 +735,54 @@ def test_k2_raises_on_cuda_input_it_does_not_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("size,out", [(67, 61), (40, 40)])
+@pytest.mark.parametrize("size,out", [(67, 61), (40, 40), (536, 524)])
 def test_shear_kernels_match_plain_and_repeat_to_the_bit_on_card(cuda, size, out, dtype):
-    """K7, K7-bwd and K8 (forward and adjoint) at both passes of a shear warp
-    of 12 maps that take every branch of the plan, C = 3, against their plain
-    versions; one launch each; K7-bwd and K8 twice, equal to the bit."""
+    """The fused pass, K7-bwd and K8 (forward and adjoint) at both passes of
+    a shear warp of 12 maps that take every branch of the plan (pass V with
+    its rot90 samples), C = 3, at the odd case, a square one and the ADA
+    step's canvas, against their plain versions: the fused pass and K8 equal
+    to the bit, K7-bwd to its sum's order; one launch each; each again,
+    equal to the bit."""
     G = shear_warp.branch_maps(12, cuda)
     plan = shear_warp.shear_plan(G, size, size, out, out)
     g = torch.Generator(device=cuda).manual_seed(3)
-    kernels = (shear_resample, shear_resample_bwd, shear_shift)
-    for _, taps, shift, axis, shape, out_len in shear_warp.warp_passes(plan, 12, 3, size,
-                                                                       out):
-        x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    kernels = (shear_pass, shear_resample_bwd, shear_shift)
+    for ps in shear_warp.warp_passes(plan, 12, 3, size, out):
+        taps, shift, axis, Lz = ps.taps, ps.shift, ps.axis, ps.taps.out_len
+        x = torch.randn(ps.shape, generator=g, device=cuda).to(dtype)
         before = [k.launches for k in kernels]
-        y = shear_resample(x, taps, axis)
+        y = shear_pass(x, taps, shift, axis, out, ps.rot)
+        dz = torch.randn(_shape_along(y, axis, Lz), generator=g, device=cuda).to(dtype)
+        dx = shear_resample_bwd(dz, taps, axis)
+        z = shear_shift(dz, shift, axis, out)
         dy = torch.randn(y.shape, generator=g, device=cuda).to(dtype)
-        dx = shear_resample_bwd(dy, taps, axis)
-        z = shear_shift(y, shift, axis, out_len)
-        dz = torch.randn(z.shape, generator=g, device=cuda).to(dtype)
-        L = y.shape[2 + axis]
-        dzy = shear_shift(dz, shift.adjoint(), axis, L)
+        dzy = shear_shift(dy, shift.adjoint(), axis, Lz)
         torch.cuda.synchronize()
         assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 2]
-        assert_close(y, shear_resample_plain(x, taps, axis), dtype)
-        assert_close(dx, shear_resample_bwd_plain(dy, taps, axis), dtype)
-        assert_close(z, shear_shift_plain(y, shift, axis, out_len), dtype)
-        assert_close(dzy, shear_shift_plain(dz, shift.adjoint(), axis, L), dtype)
-        assert torch.equal(shear_resample_bwd(dy, taps, axis), dx)
-        assert torch.equal(shear_shift(dz, shift.adjoint(), axis, L), dzy)
+        assert torch.equal(y, shear_pass_plain(x, taps, shift, axis, out, ps.rot))
+        assert_close(dx, shear_resample_bwd_plain(dz, taps, axis), dtype)
+        assert torch.equal(z, shear_shift_plain(dz, shift, axis, out))
+        assert torch.equal(dzy, shear_shift_plain(dy, shift.adjoint(), axis, Lz))
+        assert torch.equal(shear_pass(x, taps, shift, axis, out, ps.rot), y)
+        assert torch.equal(shear_resample_bwd(dz, taps, axis), dx)
+        assert torch.equal(shear_shift(dz, shift, axis, out), z)
+        assert torch.equal(shear_shift(dy, shift.adjoint(), axis, Lz), dzy)
+
+
+def _shape_along(t, axis, n):
+    shape = list(t.shape)
+    shape[2 + axis] = n
+    return shape
 
 
 @pytest.mark.cuda
 def test_grads_through_the_shear_warp_launch_its_kernels(cuda):
-    """A forward launches K7 and K8 twice (two passes); the first order K7-bwd
-    twice and K8 twice more; the second order each again; the values equal
-    the same on CPU tensors (the plain versions)."""
+    """A forward launches the fused pass twice (two passes); the first order
+    K8 and K7-bwd twice each; the second order each of the three twice more;
+    the values equal the same on CPU tensors (the plain versions)."""
     G = shear_warp.branch_maps(3, cuda)
     x = torch.randn(3, 5, 18, 18, device=cuda, requires_grad=True)
-    kernels = (shear_resample, shear_resample_bwd, shear_shift)
+    kernels = (shear_pass, shear_resample_bwd, shear_shift)
     before = [k.launches for k in kernels]
 
     def run(x, G):
@@ -783,7 +793,7 @@ def test_grads_through_the_shear_warp_launch_its_kernels(cuda):
 
     got = run(x, G)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 4, 8]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [4, 4, 4]
     want = run(x.detach().cpu().requires_grad_(True), G.cpu())
     for a, b in zip(got, want):
         torch.testing.assert_close(a.detach().cpu(), b, rtol=1e-4, atol=1e-4)
@@ -793,11 +803,18 @@ def test_grads_through_the_shear_warp_launch_its_kernels(cuda):
 def test_shear_kernels_raise_on_cuda_input_they_do_not_take(cuda):
     taps = shear_warp.line_taps(torch.tensor([1.5], device=cuda), torch.tensor([0.7], device=cuda),
                                 6, 8)
+    sh = shear_warp.LineShift(torch.zeros(1, 3, dtype=torch.int32, device=cuda),
+                              torch.ones(1, 3, device=cuda), torch.zeros(1, 3, device=cuda),
+                              shear_warp.SCALE_MAX)
     x = torch.randn(1, 2, 8, 3, device=cuda)
     with pytest.raises(ValueError, match="bfloat16"):
-        shear_resample(x.double(), taps, shear_warp.ROWS)
+        shear_pass(x.double(), taps, sh, shear_warp.ROWS, 4)
     with pytest.raises(ValueError, match="contiguous"):
-        shear_resample(x.transpose(2, 3).contiguous().transpose(2, 3), taps, shear_warp.ROWS)
+        shear_pass(x.transpose(2, 3).contiguous().transpose(2, 3), taps, sh, shear_warp.ROWS, 4)
     with pytest.raises(ValueError, match="tables"):
-        shear_resample(x, shear_warp.line_taps(torch.tensor([1.5]), torch.tensor([0.7]), 6, 8),
-                       shear_warp.ROWS)
+        shear_pass(x, shear_warp.line_taps(torch.tensor([1.5]), torch.tensor([0.7]), 6, 8), sh,
+                   shear_warp.ROWS, 4)
+    with pytest.raises(ValueError, match="shared memory"):      # no slope: the window is unbounded
+        shear_pass(x, taps, sh._replace(slope=float("inf")), shear_warp.ROWS, 4)
+    with pytest.raises(ValueError, match="shared memory"):
+        shear_shift(x, sh._replace(slope=2 * shear_warp.SCALE_MAX), shear_warp.ROWS, 4)

@@ -1,11 +1,15 @@
 """Parity of the PyTorch port's shear warp executor (ops/shear_warp.py:
-K7's and K8's plain versions, the whole warp, and the ADA pipe and step
-with `warp_mode="shear"`) against the JAX package, on CPU.
+the stages' plain versions, the fused pass and its transpose, the whole
+warp, and the ADA pipe and step with `warp_mode="shear"`) against the JAX
+package, on CPU; and the fused pass's own structure: the reflect pad
+composed into the taps, the kernels' tile windows, and K7-bwd's lists.
 
 Inputs are numpy arrays from a seed. The JAX side runs as its own tests run
 it: stylegan_v_tpu/ops/shear_warp.py with its default stage executors (the
 one-hot-matmul resample and the lane-dense shift), eagerly or under jit, in
-float32; the port runs its plain versions (CPU tensors) in float32.
+float32; the port runs its plain versions (CPU tensors) in float32. A stage
+alone runs through `_ShearPass` with the other stage's identity tables
+(one tap of weight 1), which adds nothing and rounds nothing.
 
 Tolerances (test_torch_augment.py's): value and vjp to TOL = 1e-4 of each
 array's scale, second order to TOL2 = 1e-3 (test_torch_grads.py:check_op);
@@ -13,17 +17,22 @@ the coefficient tables are the same float32 operations in the same order,
 and only the sums' order differs (the one-hot matmul adds zeros). The step
 is held as test_torch_train.py holds it. K8's adjoint where the output is
 as long as the input is held to its dense transpose, not to JAX, whose VJP
-clips its start there.
+clips its start there. The composed taps equal the pad and the padded taps
+to the bit; their lists sum to the pad's adjoint in float64 to 1e-12.
 
 The card's cases (each kernel against its plain version, repeats to the
 bit, autograd's launches) are in test_torch_kernels.py, which runs without
 jax.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
 import torch
+import torch.nn.functional as F
 
 from stylegan_v_tpu.ops import setup_filter as jsetup_filter
 from stylegan_v_tpu.ops import shear_warp as jsw
@@ -47,6 +56,18 @@ ALONG_COLS = (lambda a: torch.from_numpy(np.ascontiguousarray(np.swapaxes(a, 1, 
 SHIFT_ROWS = NHWC
 SHIFT_COLS = (lambda a: torch.from_numpy(np.ascontiguousarray(np.transpose(a, (0, 3, 2, 1)))),
               lambda t: t.detach().numpy().transpose(0, 3, 2, 1))
+
+
+def identity_taps(B, L):
+    """Stage 1 that copies each of L lines (one tap of weight 1)."""
+    i = torch.arange(L, dtype=torch.int32).expand(B, L).contiguous()
+    return tsw.LineTaps(i, i, torch.ones(B, L), torch.zeros(B, L), L)
+
+
+def identity_shift(B, lines):
+    """Stage 2 that copies each line (start 0, one tap of weight 1)."""
+    return tsw.LineShift(torch.zeros(B, lines, dtype=torch.int32), torch.ones(B, lines),
+                         torch.zeros(B, lines))
 
 
 # ------------------------------------------------------- copied constants
@@ -89,14 +110,16 @@ RESAMPLE = [  # (shift [B], scale [B], L, out_len): mirrored past both ends, neg
 @pytest.mark.parametrize("axis", ["rows", "cols"])
 @pytest.mark.parametrize("case", range(len(RESAMPLE)))
 def test_resample_plain_matches_jax(case, axis):
-    """K7's plain version (and K7-bwd's, its vjp) against _line_pass_onehot,
-    and the gather twin _line_pass, with mirrored edges and negative scales."""
+    """Stage 1's plain version (and K7-bwd's, its vjp), through _ShearPass
+    with an identity shift, against _line_pass_onehot, and the gather twin
+    _line_pass, with mirrored edges and negative scales."""
     shift, scale, L, out_len = RESAMPLE[case]
     x = np.random.RandomState(case).randn(len(shift), L, 5).astype(np.float32)
     taps = tsw.line_taps(torch.from_numpy(shift), torch.from_numpy(scale), out_len, L)
     tax, lay = (tsw.ROWS, ALONG_ROWS) if axis == "rows" else (tsw.COLS, ALONG_COLS)
+    ident = identity_shift(len(shift), x.shape[2])
     check_op(jax.jit(lambda x: jsw._line_pass_onehot(x, shift, scale, out_len)),
-             lambda x: tsw._ShearResample.apply(x, taps, tax), [x], [lay], lay)
+             lambda x: tsw._ShearPass.apply(x, taps, ident, tax, out_len, None), [x], [lay], lay)
     gathered = np.asarray(jsw._line_pass(jnp.asarray(x), shift, scale, out_len))
     assert_close(lay[1](tsw.shear_resample_plain(lay[0](x), taps, tax)), gathered, TOL, "gather")
 
@@ -120,8 +143,9 @@ def shift_tables(k, frac, L, out_len):
 @pytest.mark.parametrize("axis", ["rows", "cols"])
 @pytest.mark.parametrize("case", range(len(SHIFTS)))
 def test_shift_plain_matches_jax(case, axis):
-    """K8's plain version (and K8 on the adjoint tables, its vjp) against
-    shift_lines_dense, with the start clipped at both ends."""
+    """K8's plain version (and K8 on the adjoint tables, its vjp), through
+    _ShearPass with identity taps, against shift_lines_dense, with the start
+    clipped at both ends."""
     k, frac, L, out_len = SHIFTS[case]
     B, N = k.shape
     x = np.random.RandomState(case).randn(B, L, N, 2).astype(np.float32)
@@ -129,7 +153,8 @@ def test_shift_plain_matches_jax(case, axis):
     tax, lay = (tsw.ROWS, SHIFT_ROWS) if axis == "rows" else (tsw.COLS, SHIFT_COLS)
     check_op(jax.jit(lambda x: jsw.shift_lines_dense(x, jnp.asarray(k), jnp.asarray(frac),
                                                      out_len)),
-             lambda x: tsw._ShearShift.apply(x, sh, tax, out_len), [x], [lay], lay)
+             lambda x: tsw._ShearPass.apply(x, identity_taps(B, L), sh, tax, out_len, None),
+             [x], [lay], lay)
 
 
 def dense_shift(shift, b, n, L, out_len):
@@ -147,7 +172,8 @@ def dense_shift(shift, b, n, L, out_len):
 def test_shift_adjoint_is_exact_when_the_output_is_as_long_as_the_input(axis):
     """out_len == L (pad 0): the forward reads zero past the end, and its
     adjoint, K8 on LineShift.adjoint, equals the dense transpose; so does the
-    adjoint's adjoint (second order). Float64, to rounding."""
+    adjoint's adjoint (second order). Through _ShearPass with identity taps,
+    float64, to rounding."""
     L, B, N, C = 6, 2, 4, 3
     rng = np.random.RandomState(5)
     frac = rng.rand(B, N).astype(np.float32)
@@ -157,7 +183,8 @@ def test_shift_adjoint_is_exact_when_the_output_is_as_long_as_the_input(axis):
     z = torch.from_numpy(rng.randn(*shape)).requires_grad_(True)
     g = torch.from_numpy(rng.randn(*shape)).requires_grad_(True)
     v = torch.from_numpy(rng.randn(*shape))
-    y = tsw._ShearShift.apply(z, sh, tax, L)
+    ident = identity_taps(B, L)
+    y = tsw._ShearPass.apply(z, ident, sh, tax, L, None)
     dz, = torch.autograd.grad(y, z, g, create_graph=True)
     dg, = torch.autograd.grad(dz, g, v)
 
@@ -174,7 +201,8 @@ def test_shift_adjoint_is_exact_when_the_output_is_as_long_as_the_input(axis):
             want_dg[b, :, n] = lines(v)[b, :, n] @ A.T
     for got, want in ((y, want_y), (dz, want_dz), (dg, want_dg)):
         np.testing.assert_allclose(lines(got), want, rtol=1e-12, atol=1e-12)
-    assert torch.autograd.gradcheck(lambda z: tsw._ShearShift.apply(z, sh, tax, L), (z,))
+    assert torch.autograd.gradcheck(lambda z: tsw._ShearPass.apply(z, ident, sh, tax, L, None),
+                                    (z,))
 
 
 def test_resample_lists_sum_to_the_plain_adjoint():
@@ -206,20 +234,184 @@ def test_wrappers_on_cpu_are_the_plain_versions_and_launch_nothing():
     sh = tsw.LineShift(torch.tensor([[1, 0, 2]], dtype=torch.int32), torch.rand(1, 3),
                        torch.rand(1, 3))
     x = torch.randn(1, 2, 8, 3)
-    kernels = (tsw.shear_resample, tsw.shear_resample_bwd, tsw.shear_shift)
+    kernels = (tsw.shear_pass, tsw.shear_resample_bwd, tsw.shear_shift)
     before = [k.launches for k in kernels]
-    assert torch.equal(tsw.shear_resample(x, taps, tsw.ROWS),
-                       tsw.shear_resample_plain(x, taps, tsw.ROWS))
+    assert torch.equal(tsw.shear_pass(x, taps, sh, tsw.ROWS, 4),
+                       tsw.shear_shift_plain(tsw.shear_resample_plain(x, taps, tsw.ROWS), sh,
+                                             tsw.ROWS, 4))
     dy = torch.randn(1, 2, 6, 3)
     assert torch.equal(tsw.shear_resample_bwd(dy, taps, tsw.ROWS),
                        tsw.shear_resample_bwd_plain(dy, taps, tsw.ROWS))
     assert torch.equal(tsw.shear_shift(x, sh, tsw.ROWS, 5), tsw.shear_shift_plain(x, sh, tsw.ROWS,
                                                                                   5))
+    sq = torch.randn(1, 2, 8, 8)
+    rot = torch.tensor([True])
+    sh8 = tsw.LineShift(torch.zeros(1, 8, dtype=torch.int32), torch.rand(1, 8), torch.rand(1, 8))
+    assert torch.equal(tsw.shear_pass(sq, taps, sh8, tsw.ROWS, 4, rot),
+                       tsw.shear_pass_plain(sq.transpose(-1, -2).flip(-2), taps, sh8, tsw.ROWS, 4))
     assert [k.launches for k in kernels] == before
     with pytest.raises(ValueError, match="lines"):
         tsw.shear_shift(x, sh, tsw.COLS, 5)            # 3 lines' tables for 8 rows
     with pytest.raises(ValueError, match="taps of 8"):
-        tsw.shear_resample(x, taps, tsw.COLS)
+        tsw.shear_pass(x, taps, sh, tsw.COLS, 4)
+    with pytest.raises(ValueError, match="rot90"):
+        tsw.shear_pass(sq, taps, sh8, tsw.COLS, 4, rot)
+
+
+# ------------------------------------------------ the fused pass's structure
+
+def old_pass(x, taps, shift, axis, out_len, rot=None):
+    """The executor's earlier route for one pass: the rot90 select, F.pad's
+    reflect by the taps' pad, the padded taps, the shift."""
+    src = x if rot is None else tsw.rot90_select(x, rot)
+    m = taps.origin[2]
+    padded = F.pad(src, [0, 0, m, m] if axis == tsw.ROWS else [m, m, 0, 0], mode="reflect")
+    z = tsw.shear_resample_plain(padded, taps.padded(), axis)
+    return tsw.shear_shift_plain(z, shift, axis, out_len)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("axis", ["rows", "cols"])
+@pytest.mark.parametrize("size,out", [(16, 16), (32, 32), (64, 64), (67, 61)])
+def test_composed_taps_equal_the_reflect_pad_then_the_padded_taps(size, out, axis, dtype):
+    """line_taps with pad: the taps on the unpadded source equal F.pad's
+    reflect followed by the taps on the padded axis, to the bit, over
+    branch_maps (rot90 both ways, the shear and scale clips, flips); so does
+    the whole pass, the rot90 select included, against the earlier route."""
+    plan = tsw.shear_plan(tsw.branch_maps(12), size, size, out, out)
+    assert 0 < int(plan.rot.sum()) < 12
+    ps = tsw.warp_passes(plan, 12, 3, size, out)[0 if axis == "rows" else 1]
+    taps = ps.taps
+    assert taps.in_len == ps.shape[2 + ps.axis] and taps.origin[2] == size // 2
+    assert int(taps.i0.min()) >= 0 and int(taps.i1.max()) < taps.in_len
+    x = torch.randn(ps.shape, generator=torch.Generator().manual_seed(size)).to(dtype)
+    m = size // 2
+    padded = F.pad(x, [0, 0, m, m] if ps.axis == tsw.ROWS else [m, m, 0, 0], mode="reflect")
+    assert torch.equal(tsw.shear_resample_plain(x, taps, ps.axis),
+                       tsw.shear_resample_plain(padded, taps.padded(), ps.axis))
+    assert torch.equal(tsw.shear_pass_plain(x, taps, ps.shift, ps.axis, out, ps.rot),
+                       old_pass(x, taps, ps.shift, ps.axis, out, ps.rot))
+
+
+def canvas_maps(N=4):
+    """The G_inv that the bgc pipe (warp_upsample=2) hands the shear warp on
+    its canvas, 256^2 frames -> [N, 3, 536^2] -> 524^2, under seeded draws."""
+    seen = {}
+
+    def recorded(x, G_inv, out_h, out_w):
+        seen["G"] = G_inv.clone()
+        return x[..., :out_h, :out_w]
+
+    shear = taug.shear_affine_grid_sample
+    taug.shear_affine_grid_sample = recorded
+    try:
+        pipe = taug.make_augment_pipe(taug.AugmentConfig(**taug.AUGPIPE_SPECS["bgc"],
+                                                         warp_upsample=2, warp_mode="shear"))
+        with torch.no_grad():
+            pipe(torch.Generator().manual_seed(6), torch.rand(N, 3, 256, 256) * 2 - 1,
+                 torch.tensor(1.0))
+    finally:
+        taug.shear_affine_grid_sample = shear
+    return seen["G"]
+
+
+def test_tile_constants_equal_the_kernel_header():
+    """V_TILE, H_TILE and V_WINDOW are csrc/shear_lines.cuh's."""
+    src = (Path(tsw.__file__).parents[1] / "csrc" / "shear_lines.cuh").read_text()
+    const = {k: int(v) for k, v in re.findall(r"\b([VH]_T[RS]|SCALE_MAX|THREADS) = (\d+)", src)}
+    assert (const["V_TR"], const["V_TS"]) == tsw.V_TILE
+    assert (const["H_TR"], const["H_TS"]) == tsw.H_TILE
+    assert const["SCALE_MAX"] == tsw.SCALE_MAX
+    jw = re.search(r"V_JW = V_TR \+ SCALE_MAX \* \(V_TS - 1\) \+ 2 \+ 1;", src)
+    assert jw and tsw.V_WINDOW == const["V_TR"] + const["SCALE_MAX"] * (const["V_TS"] - 1) + 3
+
+
+@pytest.mark.parametrize("case", ["canvas bgc", "canvas edges", "odd edges"])
+def test_tile_windows_cover_every_tap(case):
+    """Each tile's window of stage-1 lines (tile_windows, computed as the
+    kernel computes it) holds both taps of every output of the tile, for the
+    fused pass's and K8's forward tables and for K8's adjoint ones, at both
+    passes; pass V's windows fit the V_WINDOW rows of shared memory."""
+    size, out = (67, 61) if case == "odd edges" else (536, 524)
+    G = canvas_maps() if case == "canvas bgc" else tsw.branch_maps(12)
+    plan = tsw.shear_plan(G, size, size, out, out)
+    for ps in tsw.warp_passes(plan, len(G), 3, size, out):
+        Lz = ps.taps.out_len
+        for shift, out_len in ((ps.shift, out), (ps.shift.adjoint(), Lz)):
+            lines = shift.start.shape[1]
+            out_r, out_s = (out_len, lines) if ps.axis == tsw.ROWS else (lines, out_len)
+            first, count = tsw.tile_windows(shift, ps.axis, out_r, out_s)
+            start = shift.start.long()
+            i = torch.arange(out_len)
+            if ps.axis == tsw.ROWS:
+                assert int(count.max()) <= tsw.V_WINDOW
+                j = start[:, None, :] + i[None, :, None]                    # [B, out_r, out_s]
+                tr, ts = tsw.V_TILE
+                rows, cols = i // tr, torch.arange(lines) // ts
+                f = first[:, rows][:, :, cols]
+                c = count[:, rows][:, :, cols]
+            else:
+                j = start[:, :, None] + i[None, None, :]                    # [B, out_r, out_s]
+                f = first[:, :, i // tsw.H_TILE[1]]
+                c = count[:, :, i // tsw.H_TILE[1]]
+            assert bool(((j >= f) & (j + 1 < f + c)).all()), (case, ps.name, out_len)
+            assert int(count.min()) >= 2
+
+
+def test_composed_lists_sum_to_the_adjoint_of_the_pad_then_the_padded_taps():
+    """K7-bwd's kernel on the composed taps, emulated: each source line's
+    CSR list summed in its order equals the adjoint of F.pad's reflect after
+    the padded taps (autograd's), float64, at both passes of branch_maps at
+    16^2 and 67^2 -> 61^2; every tap is in exactly one list."""
+    for size, out in ((16, 16), (67, 61)):
+        plan = tsw.shear_plan(tsw.branch_maps(12), size, size, out, out)
+        for ps in tsw.warp_passes(plan, 12, 2, size, out):
+            taps, ax, m = ps.taps, ps.axis, size // 2
+            ptr, line, weight = taps.lists
+            B, L = 12, taps.in_len
+            assert (ptr[:, 0] == 0).all() and (ptr[:, -1] == 2 * taps.out_len).all()
+            x = torch.zeros(ps.shape, dtype=torch.float64, requires_grad=True)
+            padded = F.pad(x, [0, 0, m, m] if ax == tsw.ROWS else [m, m, 0, 0], mode="reflect")
+            z = tsw.shear_resample_plain(padded, taps.padded(), ax)
+            dz = torch.randn(z.shape, dtype=torch.float64,
+                             generator=torch.Generator().manual_seed(2))
+            want, = torch.autograd.grad(z, x, dz)
+            lines_of = (lambda t: t) if ax == tsw.ROWS else (lambda t: t.transpose(2, 3))
+            g = lines_of(dz)                                      # [B, C, Lz, other]
+            got = torch.zeros(lines_of(want).shape, dtype=torch.float64)
+            for b in range(B):
+                for l in range(L):
+                    for e in range(int(ptr[b, l]), int(ptr[b, l + 1])):
+                        got[b, :, l] += float(weight[b, e]) * g[b, :, int(line[b, e])]
+            torch.testing.assert_close(got, lines_of(want), rtol=1e-12, atol=1e-12)
+            torch.testing.assert_close(tsw.shear_resample_bwd_plain(dz, taps, ax), want,
+                                       rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("fn", ["pass", "transpose"])
+@pytest.mark.parametrize("axis", ["rows", "cols"])
+def test_shear_pass_and_its_transpose_pass_gradcheck(axis, fn):
+    """_ShearPass and _ShearPassT, each the other's backward, pass gradcheck
+    and gradgradcheck in float64 at 8^2 -> 7^2 over branch_maps (pass V with
+    its rot90 samples)."""
+    size, out = 8, 7
+    plan = tsw.shear_plan(tsw.branch_maps(12), size, size, out, out)
+    ps = tsw.warp_passes(plan, 12, 1, size, out)[0 if axis == "rows" else 1]
+    if fn == "pass":
+        shape = ps.shape
+
+        def f(t):
+            return tsw._ShearPass.apply(t, ps.taps, ps.shift, ps.axis, out, ps.rot)
+    else:
+        shape = list(ps.shape)
+        shape[2 + ps.axis] = out
+
+        def f(t):
+            return tsw._ShearPassT.apply(t, ps.taps, ps.shift, ps.axis, ps.rot)
+    t = torch.randn(shape, dtype=torch.float64, generator=torch.Generator().manual_seed(4))
+    t.requires_grad_(True)
+    assert torch.autograd.gradcheck(f, (t,))
+    assert torch.autograd.gradgradcheck(f, (t,))
 
 
 # -------------------------------------------------------------- the warp
