@@ -232,7 +232,9 @@ holds them against the port's plain PyTorch paths:
               phases 3-12 launch none of its kernels, and 13-19 none either:
               (a) K7 (the fused pass: resample then shift in one launch, the
               reflect pad in its taps, pass V's rot90 samples read through
-              their map), K7-bwd and K8 (forward and adjoint) against their
+              their map), K7-bwd (its lists built on chip, pass V's rot90
+              samples turned back in its store) and K8 (forward and
+              adjoint) against their
               plain versions at both passes of the step's canvas ([16, 9,
               536^2] -> 524^2, the pipe's bgc maps and maps that take the
               rot90 branch, the clips and flips) and of a small odd case (C =
@@ -242,11 +244,12 @@ holds them against the port's plain PyTorch paths:
               call: for K7 the earlier route in library calls (the rot90
               select, F.pad's reflect, torch.bmm of the banded one-hot
               matrix, F.grid_sample on a grid of the shift's positions), for
-              K7-bwd torch.bmm of the transposed matrix, for K8 and its
-              adjoint F.grid_sample (bilinear, zeros, align_corners=True),
-              each checked against the kernel; K7-bwd as the step calls it
-              (its CSR lists built in the call) and with the lists built
-              before; GB/s and share of the bound of the bytes this call's
+              K7-bwd torch.bmm of the transposed matrix (then, in pass V,
+              the rot90 samples turned back), for K8 and its adjoint
+              F.grid_sample (bilinear, zeros, align_corners=True), each
+              checked against the kernel; K7-bwd as the step calls it (on a
+              fresh LineTaps, with rot) and launched straight through its C
+              entry point; GB/s and share of the bound of the bytes this call's
               tables read; (b) the anti-aliased warp at [16, 9, 256^2] in
               bf16, shear against K4, forward and forward + backward, in
               turns, with each call's launches; (c) phase 11's ADA step with
@@ -4549,11 +4552,32 @@ def earlier_route(x, ps):
     return call
 
 
-def shear_record(pas, kind, shape, fns, moved, flops, library_call=None, lists_built=None):
+def bwd_direct(dz, taps, axis, rot):
+    """A function that launches K7-bwd on dz straight through its C entry
+    point into one output: the kernel's time without the wrapper's host
+    path (the checks, the output's allocation). It counts no launch."""
+    import torch
+    from stylegan_v_tpu_torch.ops import cuda_build, shear_warp
+    fn = cuda_build.entry_point("shear_resample_bwd", shear_warp._ARGTYPES["shear_resample_bwd"])
+    dx = torch.empty(shear_warp._stage_shape(dz, axis, taps.in_len), dtype=dz.dtype,
+                     device=dz.device)
+    N, C, R, S = dz.shape
+    args = (dz.data_ptr(), dx.data_ptr(), *(t.data_ptr() for t in taps.tables),
+            0 if rot is None else rot.data_ptr(), cuda_build.DTYPE_CODES[dz.dtype], axis, N * C,
+            C, R, S, *dx.shape[2:])
+
+    def call():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"K7-bwd's direct launch failed with CUDA error {err}")
+        return dx
+    return call
+
+
+def shear_record(pas, kind, shape, fns, moved, flops, library_call=None, direct=None):
     """CUDA-event times in turns of fns (plain, kernel[, library]) and the
-    row of one call; `lists_built`, K7-bwd's wrapper with its CSR lists
-    built before, is timed too (`kernel_ms`)."""
-    fns = list(fns) + ([lists_built] if lists_built else [])
+    row of one call; `direct`, the kernel launched through its C entry
+    point, is timed too (`kernel_ms`)."""
+    fns = list(fns) + ([direct] if direct else [])
     for fn in fns:                                  # warm-up
         fn()
     plain_t, kern, *rest = in_turns(fns, 10)
@@ -4563,7 +4587,7 @@ def shear_record(pas, kind, shape, fns, moved, flops, library_call=None, lists_b
                library_ms=lib, library_call=library_call,
                bound_ms=bound, bound_by=by, gb_per_s=moved / (kern * 1e-3) / 1e9,
                share_of_bound=bound / kern)
-    if lists_built:
+    if direct:
         row.update(kernel_ms=rest[-1], kernel_share_of_bound=bound / rest[-1])
     return row
 
@@ -4576,25 +4600,28 @@ def shear_kernels(dev, G_bgc):
     their plain versions at both passes of the step's canvas ([16, 9, 536^2]
     -> 524^2, the bgc maps of the pipe and branch_maps) and of SHEAR_ODD
     (branch_maps), float32 and bf16: K7 and K8 equal to them to the bit,
-    K7-bwd within KERNEL_TOL (its sums' order); each called twice, equal to
-    the bit; at the canvas with the bgc maps in bf16, CUDA-event times of
-    each call, its plain version and its library call (K7: earlier_route;
-    K7-bwd: torch.bmm of the transposed one-hot matrix; K8 and its adjoint:
+    K7-bwd (with pass V's rot, its plain version then _rot90_back) within
+    KERNEL_TOL (its sums' order); each called twice, equal to the bit; at
+    the canvas with the bgc maps in bf16, CUDA-event times of each call, its
+    plain version and its library call (K7: earlier_route; K7-bwd: torch.bmm
+    of the transposed one-hot matrix, then in pass V _rot90_back, the same
+    function; K8 and its adjoint:
     F.grid_sample on shift_grid, on a float32 copy of the input, since
     grid_sample takes its grid in the input's dtype and a bf16 grid cannot
     place a line past 256), each checked against the kernel, with the bound
     of the bytes this call's tables read. K7-bwd's `ms` is its wrapper as the
-    step calls it, on a new LineTaps whose CSR lists it builds (a stable
-    sort and a search); its `kernel_ms` the wrapper with the lists built
-    before. Returns each kernel's worst error, the sums of each of
-    SHEAR_KINDS over the two passes and the rows."""
+    step calls it, with rot in pass V, on a fresh LineTaps (nothing prepared
+    before: its blocks build their lists from the taps); its `kernel_ms` the
+    kernel launched through its C entry point (bwd_direct). Returns each
+    kernel's worst error, the sums of each of SHEAR_KINDS over the two
+    passes and the rows."""
     import torch
     import torch.nn.functional as F
     from stylegan_v_tpu_torch.ops import (shear_pass, shear_pass_plain, shear_resample_bwd,
                                           shear_resample_bwd_plain, shear_shift,
                                           shear_shift_plain)
-    from stylegan_v_tpu_torch.ops.shear_warp import (ROWS, LineTaps, branch_maps, shear_plan,
-                                                     warp_passes)
+    from stylegan_v_tpu_torch.ops.shear_warp import (ROWS, LineTaps, _rot90_back, branch_maps,
+                                                     shear_plan, warp_passes)
 
     g = torch.Generator(device=dev).manual_seed(20)
     N, C, H, out = G_bgc.shape[0], WARP_BATCH[1], 2 * (WARP_BATCH[2] + 12), 2 * (WARP_BATCH[2] + 6)
@@ -4623,10 +4650,14 @@ def shear_kernels(dev, G_bgc):
                     z = shear_shift(zin, shift, axis, out)
                     dy = torch.randn(y.shape, generator=g, device=dev).to(dtype)
                     dy_z = shear_shift(dy, adj, axis, Lz)
-                    dx = shear_resample_bwd(zin, taps, axis)
+                    dx = shear_resample_bwd(zin, taps, axis, ps.rot)
+
+                    def bwd_plain():
+                        dx = shear_resample_bwd_plain(zin, taps, axis)
+                        return dx if ps.rot is None else _rot90_back(dx, ps.rot)
                     for name, got, want in (
                             ("K7", y, shear_pass_plain(x, taps, shift, axis, out, ps.rot)),
-                            ("K7-bwd", dx, shear_resample_bwd_plain(zin, taps, axis)),
+                            ("K7-bwd", dx, bwd_plain()),
                             ("K8", z, shear_shift_plain(zin, shift, axis, out)),
                             ("K8", dy_z, shear_shift_plain(dy, adj, axis, Lz))):
                         torch.cuda.synchronize()
@@ -4642,7 +4673,7 @@ def shear_kernels(dev, G_bgc):
                         equal[name][0] += same
                         equal[name][1] += 1
                     check(torch.equal(shear_pass(x, taps, shift, axis, out, ps.rot), y)
-                          and torch.equal(shear_resample_bwd(zin, taps, axis), dx)
+                          and torch.equal(shear_resample_bwd(zin, taps, axis, ps.rot), dx)
                           and torch.equal(shear_shift(zin, shift, axis, out), z)
                           and torch.equal(shear_shift(dy, adj, axis, Lz), dy_z),
                           f"[20 shear] K7, K7-bwd or K8 {case} {set_name} pass {pas} "
@@ -4652,8 +4683,8 @@ def shear_kernels(dev, G_bgc):
                     S = onehot_matrix(taps, C, dtype)
                     P, other = N * C, x.shape[3 - axis]
                     if axis == ROWS:
-                        lib_bwd = lambda: torch.bmm(S.transpose(1, 2),              # noqa: E731
-                                                    zin.view(P, Lz, other))
+                        lib_bwd = lambda: _rot90_back(torch.bmm(                    # noqa: E731
+                            S.transpose(1, 2), zin.view(P, Lz, other)).view(dx.shape), ps.rot)
                     else:
                         lib_bwd = lambda: torch.bmm(zin.view(P, other, Lz), S)      # noqa: E731
                     route = earlier_route(x, ps)
@@ -4673,6 +4704,9 @@ def shear_kernels(dev, G_bgc):
                               f"[20 shear] the library call of {name} pass {pas} differs from "
                               f"the kernel by {e_lib}")
                     bmm = "torch.bmm of the banded one-hot matrix, a copy a plane"
+                    direct = bwd_direct(zin, taps, axis, ps.rot)
+                    check(torch.equal(direct(), dx), f"[20 shear] K7-bwd pass {pas} through "
+                                                     f"its C entry point differs from its wrapper")
                     gs = ("F.grid_sample(bilinear, zeros, align_corners=True) on the float32 "
                           "input, grid of the shift's positions built before")
                     rows += [
@@ -4684,13 +4718,15 @@ def shear_kernels(dev, G_bgc):
                             "the earlier route: rot90 select, F.pad reflect, " + bmm
                             + " over the padded axis, then " + gs.replace("input", "stage 1")),
                         shear_record(pas, "K7-bwd", list(zin.shape), (
-                            lambda: shear_resample_bwd_plain(zin, taps, axis),
+                            bwd_plain,
                             lambda: shear_resample_bwd(zin, LineTaps(
-                                taps.i0, taps.i1, taps.w0, taps.w1, taps.in_len), axis),
+                                *taps.tables, taps.in_len, taps.origin), axis,
+                                ps.rot),
                             lib_bwd),
                             shear_bytes("K7-bwd", taps, None, axis, zin, dx), 4 * zin.numel(),
-                            f"{bmm}, transposed",
-                            lists_built=lambda: shear_resample_bwd(zin, taps, axis)),
+                            f"{bmm}, transposed" + (", then the rot90 samples turned back "
+                                                    "(_rot90_back)" if axis == ROWS else ""),
+                            direct=direct),
                         shear_record(pas, "K8", list(zin.shape), (
                             lambda: shear_shift_plain(zin, shift, axis, out),
                             lambda: shear_shift(zin, shift, axis, out), lib_k8),
@@ -4700,10 +4736,10 @@ def shear_kernels(dev, G_bgc):
                             lambda: shear_shift(dy, adj, axis, Lz), lib_k8_adj),
                             shear_bytes("K8", None, adj, axis, dy, dy_z), 3 * dy_z.numel(),
                             gs)]
-                    del S, route, z32, dy32, grid, grid_adj
+                    del S, route, z32, dy32, grid, grid_adj, direct
                     torch.cuda.empty_cache()
     for r in rows:
-        built = (f"; with its lists built before {r['kernel_ms']:.4f} ms "
+        built = (f"; launched through its C entry point {r['kernel_ms']:.4f} ms "
                  f"({r['kernel_share_of_bound']:.1%})" if "kernel_ms" in r else "")
         print(f"[20 shear] (a) {r['name']} {r['shape']} bf16: kernel {r['ms']:.4f} ms "
               f"({r['gb_per_s']:.0f} GB/s, {r['share_of_bound']:.1%} of the {r['bound_ms']:.4f} "
@@ -4717,7 +4753,7 @@ def shear_kernels(dev, G_bgc):
             t["kernel_ms"] = sum(r["kernel_ms"] for r in mine)
         t["bound_by"] = "bytes" if all(r["bound_by"] == "bytes" for r in mine) else "operations"
         sums[kind] = t
-    slower = [r["name"] for r in rows if r["name"].startswith("K8")
+    slower = [r["name"] for r in rows if r["name"].startswith(("K7-bwd", "K8"))
               and not r["ms"] < r["library_ms"]]
     print(f"[20 shear] (a) max_abs_err vs plain (canvas bgc and edge maps, {SHEAR_ODD} edge "
           f"maps, float32 and bf16): " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
@@ -4726,7 +4762,8 @@ def shear_kernels(dev, G_bgc):
           + "; K7, K7-bwd and K8 repeat to the bit; one warp's two passes at the canvas in bf16: "
           + ", ".join(f"{k} {t['ms']:.4f} ms (bound {t['bound_ms']:.4f}, library "
                       f"{t['library_ms']:.4f})" for k, t in sums.items())
-          + f"; K8's calls not faster than F.grid_sample: {slower or 'none'}", flush=True)
+          + f"; K7-bwd's and K8's calls not faster than their library calls: "
+            f"{slower or 'none'}", flush=True)
     return worst, sums, rows
 
 
@@ -4984,8 +5021,9 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, k2, launches, moco, cli, moco_ranks, 
              f"the earlier route: rot90 select, F.pad reflect, {bmm} over the padded axis, "
              f"then {gs.replace('input', 'stage 1')}"),
             ("shear_resample_bwd", "K7-bwd", f"{sw}:104 (its gradient, from jax.grad: the "
-                                             f"transposed matmul) and the pads' gradient",
-             f"{bmm}, transposed"),
+                                             f"transposed matmul), the pads' gradient and "
+                                             f"the rot90 select's :388",
+             f"{bmm}, transposed, then in pass V the rot90 samples turned back"),
             ("shear_shift", "K8", f"{sw}:278 (_shift_lines_dense_impl) and :333, :337 "
                                           f"(its VJP, a shift too; no Pallas kernel)", gs)),
             shear_launches):
@@ -5001,8 +5039,8 @@ def kernel_records(k1, k1_bwd, k4, k4_bwd, k2, launches, moco, cli, moco_ranks, 
                         "calls": [r for r in rows if r["name"].startswith(key.split()[0] + " ")]})
         if "kernel_ms" in t:
             records[-1].update(kernel_ms=t["kernel_ms"], ms_is="the wrapper as the step calls "
-                               "it, its CSR lists built in the call; kernel_ms with them built "
-                               "before")
+                               "it (pass V with rot); kernel_ms the kernel launched through its "
+                               "C entry point")
     adj = sums["K8 adjoint"]
     records[-1].update(ms_is="its forward, as in earlier records (the step runs the forward "
                              "fused in shear_pass); the step's calls are the adjoint's",

@@ -1,7 +1,7 @@
 // What the shear warp's kernels share: the tiled line kernel that the fused
 // pass (shear_pass.cu, K7) and the shift (shear_shift.cu, K8) instantiate,
-// and the loads in float32 or bfloat16, which the resample's adjoint
-// (shear_resample_bwd.cu, K7-bwd) also uses.
+// and the loads in float32 or bfloat16 and the vector type, which the
+// resample's adjoint (shear_resample_bwd.cu, K7-bwd) also uses.
 //
 // Each kernel maps NCHW planes [R, S] (the input) to planes [out_r, out_s]
 // (the output) along one axis: AXIS 0 (pass V) runs along the rows (dim 2),
@@ -44,6 +44,7 @@
 
 #include <limits.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace shear {
 
@@ -80,6 +81,29 @@ template <typename T, int G>
 struct alignas(G * sizeof(T)) Vec {
   T v[G];
 };
+
+// G neighbouring elements from p, which is aligned to their G * sizeof(T)
+// bytes, as one load through the read-only path.
+template <typename T, int G>
+__device__ __forceinline__ Vec<T, G> ldg_vec(const T* p) {
+  constexpr int B = G * (int)sizeof(T);
+  Vec<T, G> v;
+  if constexpr (B == 16) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    memcpy(&v, &u, B);
+  } else if constexpr (B == 8) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    memcpy(&v, &u, B);
+  } else if constexpr (B == 4) {
+    const unsigned u = __ldg(reinterpret_cast<const unsigned*>(p));
+    memcpy(&v, &u, B);
+  } else {
+    static_assert(B == 2, "a vector of 2, 4, 8 or 16 bytes");
+    const unsigned short u = __ldg(reinterpret_cast<const unsigned short*>(p));
+    memcpy(&v, &u, B);
+  }
+  return v;
+}
 
 // The tensors and tables of one line_kernel launch.
 struct Lines {

@@ -32,7 +32,8 @@ Kernels: `shear_pass` (K7, csrc/shear_pass.cu), a whole pass in one
 launch, resample then shift with the intermediate in shared memory;
 `shear_shift` (K8, csrc/shear_shift.cu), the shift alone, which the
 backward runs on the tables of `LineShift.adjoint`; and `shear_resample_bwd`
-(K7-bwd, csrc/shear_resample_bwd.cu), the resample's adjoint. On a CUDA
+(K7-bwd, csrc/shear_resample_bwd.cu), the resample's adjoint, which along
+rows also turns the rot90 samples back in its store. On a CUDA
 tensor each launches its kernel (float32 or bf16) or raises; on a CPU
 tensor it runs its plain PyTorch version, which also takes float64. Each
 launch adds one to the wrapper's `launches`.
@@ -43,8 +44,8 @@ fraction to the payload dtype first, so in bf16 the two differ by that
 rounding; in float32 both are exact to rounding.
 
 `shear_affine_grid_sample` is differentiable to any order in x: `_ShearPass`
-(the fused pass) and `_ShearPassT` (K8 on the adjoint tables, K7-bwd, and in
-pass V the rot90 samples turned back) are each other's backward, which R1
+(the fused pass) and `_ShearPassT` (K8 on the adjoint tables, then K7-bwd)
+are each other's backward, which R1
 through the ADA pipe needs. G_inv takes no gradient (the JAX package's
 `dfrac` never reaches a parameter in training).
 """
@@ -68,10 +69,15 @@ ROWS, COLS = 0, 1   # the axis a stage runs along: dim 2 (H) or dim 3 (W) of NCH
 # starts at SCALE_MAX rows a column with 2 for the floors, and one more
 V_TILE, H_TILE = (64, 32), (32, 64)
 V_WINDOW = V_TILE[0] + math.ceil(SCALE_MAX * (V_TILE[1] - 1)) + 2 + 1
+# K7-bwd (csrc/shear_resample_bwd.cu): a pass-V block owns V_LINES source
+# lines (a rot90 sample's V_ROW_BYTES of them: 128 in bf16, 64 in float32)
+# and builds their lists of taps; a pass-H block, those of all its sample's
+# lines
+V_LINES, V_ROW_BYTES = 32, 256
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
     "shear_pass": (_PTR,) * 10 + (_INT,) * 9 + (_PTR,),
-    "shear_resample_bwd": (_PTR,) * 5 + (_INT,) * 8 + (_PTR,),
+    "shear_resample_bwd": (_PTR,) * 7 + (_INT,) * 8 + (_PTR,),
     "shear_shift": (_PTR,) * 5 + (_INT,) * 8 + (_PTR,),
 }
 
@@ -95,9 +101,11 @@ def _reflect_idx(r: torch.Tensor, size: int) -> torch.Tensor:
 
 
 class TapLists(NamedTuple):
-    """The transpose of a LineTaps, for K7-bwd: for sample b and source line
-    l, entries ptr[b, l] to ptr[b, l + 1] - 1 of line and weight are the
-    output lines that tap l and their weights, ordered by line, then tap.
+    """The transpose of a LineTaps: for sample b and source line l, entries
+    ptr[b, l] to ptr[b, l + 1] - 1 of line and weight are the output lines
+    that tap l and their weights, ordered by line, then tap: the order in
+    which K7-bwd sums each source line, and the lists its blocks build on
+    the card are slices of these (a tile's lines, ptr[b, l0] onwards).
     int32 ptr [B, in_len + 1], int32 line and float32 weight [B, 2 out_len]."""
     ptr: torch.Tensor
     line: torch.Tensor
@@ -134,8 +142,8 @@ class LineTaps:
 
     @functools.cached_property
     def lists(self) -> TapLists:
-        """The transposed taps as CSR lists, built with a stable sort on the
-        tables' device (only when a backward needs them)."""
+        """The transposed taps as CSR lists, built with a stable sort: the
+        CPU's mirror of the order K7-bwd sums in (no CUDA path builds them)."""
         B, n = self.i0.shape
         key = torch.stack([self.i0, self.i1], dim=2).reshape(B, 2 * n).long()
         weight = torch.stack([self.w0, self.w1], dim=2).reshape(B, 2 * n)
@@ -499,21 +507,30 @@ def shear_pass(x: torch.Tensor, taps: LineTaps, shift: LineShift, axis: int, out
 shear_pass.launches = 0
 
 
-def shear_resample_bwd(dy: torch.Tensor, taps: LineTaps, axis: int) -> torch.Tensor:
+def shear_resample_bwd(dy: torch.Tensor, taps: LineTaps, axis: int,
+                       rot: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The adjoint of stage 1 (`shear_resample_plain(., taps, axis)`):
     [N, C, out_len, S] -> [N, C, in_len, S] along rows, likewise along
-    columns (K7-bwd). A CPU tensor goes to `shear_resample_bwd_plain`; a CUDA
-    tensor to the CUDA kernel, a gather over taps.lists that sums each
-    element in float32 in a fixed order and writes dx once in dy's dtype, or
-    raises."""
-    _check(dy, axis, (taps.i0,), "shear_resample_bwd")
+    columns (K7-bwd); along rows with `rot` given, then the adjoint of pass
+    V's rot90 select (in_len == S), which turns the samples with rot set
+    back. A CPU tensor goes to `shear_resample_bwd_plain` (and
+    `_rot90_back`); a CUDA tensor to one launch of the CUDA kernel, whose
+    blocks build their lists of taps from the tables, sum each element in
+    float32 in the order of `LineTaps.lists` and write dx once in dy's
+    dtype, or raises (where out_len is too long for the lists to fit in
+    shared memory, past about 6,800 lines: csrc/shear_resample_bwd.cu)."""
+    _check(dy, axis, (taps.i0,) + ((rot,) if rot is not None else ()), "shear_resample_bwd")
     if dy.shape[2 + axis] != taps.out_len:
         raise ValueError(f"shear_resample_bwd: taps of {taps.out_len} lines for "
                          f"{tuple(dy.shape)}")
+    if rot is not None and (axis != ROWS or taps.in_len != dy.shape[3]):
+        raise ValueError("shear_resample_bwd turns rot90 samples back only along rows, into a "
+                         "square output")
     if not on_cuda(dy, "shear_resample_bwd"):
-        return shear_resample_bwd_plain(dy, taps, axis)
+        dx = shear_resample_bwd_plain(dy, taps, axis)
+        return dx if rot is None else _rot90_back(dx, rot)
     dx = torch.empty(_stage_shape(dy, axis, taps.in_len), dtype=dy.dtype, device=dy.device)
-    _launch(shear_resample_bwd, dy, dx, taps.lists, axis)
+    _launch(shear_resample_bwd, dy, dx, (*taps.tables, rot), axis)
     return dx
 
 
@@ -552,13 +569,15 @@ class _ShearPass(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy: torch.Tensor):
-        return (_ShearPassT.apply(dy, *ctx.tables),) + (None,) * 5
+        taps, shift, axis, rot = ctx.tables
+        return (_ShearPassT.apply(dy, taps, shift, axis, rot),) + (None,) * 5
 
 
 class _ShearPassT(torch.autograd.Function):
-    """The transpose of the fused pass: K8 on the adjoint tables (back to
-    stage 1's length), K7-bwd, and along rows the rot90 samples turned back
-    with torch operations. Backward `_ShearPass`."""
+    """The transpose of the fused pass: the adjoint shift's start table (one
+    elementwise op on [N, lines] ints), K8 on the adjoint tables back to
+    stage 1's length, then K7-bwd, which along rows turns the rot90 samples
+    back in its store. Backward `_ShearPass`."""
 
     @staticmethod
     def forward(ctx, dy: torch.Tensor, taps: LineTaps, shift: LineShift, axis: int,
@@ -566,8 +585,7 @@ class _ShearPassT(torch.autograd.Function):
         ctx.tables, ctx.out_len = (taps, shift, axis), dy.shape[2 + axis]
         ctx.rot = rot
         dz = shear_shift(dy.contiguous(), shift.adjoint(), axis, taps.out_len)
-        dx = shear_resample_bwd(dz, taps, axis)
-        return dx if rot is None else _rot90_back(dx, rot)
+        return shear_resample_bwd(dz, taps, axis, rot)
 
     @staticmethod
     def backward(ctx, ddx: torch.Tensor):

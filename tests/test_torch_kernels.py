@@ -735,14 +735,15 @@ def test_k2_raises_on_cuda_input_it_does_not_take(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("size,out", [(67, 61), (40, 40), (536, 524)])
+@pytest.mark.parametrize("size,out", [(67, 61), (40, 40), (536, 524), (1048, 1036)])
 def test_shear_kernels_match_plain_and_repeat_to_the_bit_on_card(cuda, size, out, dtype):
     """The fused pass, K7-bwd and K8 (forward and adjoint) at both passes of
     a shear warp of 12 maps that take every branch of the plan (pass V with
-    its rot90 samples), C = 3, at the odd case, a square one and the ADA
-    step's canvas, against their plain versions: the fused pass and K8 equal
-    to the bit, K7-bwd to its sum's order; one launch each; each again,
-    equal to the bit."""
+    its rot90 samples, which K7-bwd turns back in its store), C = 3, at the
+    odd case, a square one, the ADA step's canvas and the 512^2 pipe's
+    (pass H: 1048 source lines, 4168 taps a sample), against their plain
+    versions: the fused pass and K8 equal to the bit, K7-bwd to its sum's
+    order; one launch each; each again, equal to the bit."""
     G = shear_warp.branch_maps(12, cuda)
     plan = shear_warp.shear_plan(G, size, size, out, out)
     g = torch.Generator(device=cuda).manual_seed(3)
@@ -753,18 +754,19 @@ def test_shear_kernels_match_plain_and_repeat_to_the_bit_on_card(cuda, size, out
         before = [k.launches for k in kernels]
         y = shear_pass(x, taps, shift, axis, out, ps.rot)
         dz = torch.randn(_shape_along(y, axis, Lz), generator=g, device=cuda).to(dtype)
-        dx = shear_resample_bwd(dz, taps, axis)
+        dx = shear_resample_bwd(dz, taps, axis, ps.rot)
         z = shear_shift(dz, shift, axis, out)
         dy = torch.randn(y.shape, generator=g, device=cuda).to(dtype)
         dzy = shear_shift(dy, shift.adjoint(), axis, Lz)
         torch.cuda.synchronize()
         assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 2]
         assert torch.equal(y, shear_pass_plain(x, taps, shift, axis, out, ps.rot))
-        assert_close(dx, shear_resample_bwd_plain(dz, taps, axis), dtype)
+        want = shear_resample_bwd_plain(dz, taps, axis)
+        assert_close(dx, want if ps.rot is None else shear_warp._rot90_back(want, ps.rot), dtype)
         assert torch.equal(z, shear_shift_plain(dz, shift, axis, out))
         assert torch.equal(dzy, shear_shift_plain(dy, shift.adjoint(), axis, Lz))
         assert torch.equal(shear_pass(x, taps, shift, axis, out, ps.rot), y)
-        assert torch.equal(shear_resample_bwd(dz, taps, axis), dx)
+        assert torch.equal(shear_resample_bwd(dz, taps, axis, ps.rot), dx)
         assert torch.equal(shear_shift(dz, shift, axis, out), z)
         assert torch.equal(shear_shift(dy, shift.adjoint(), axis, Lz), dzy)
 
@@ -800,6 +802,60 @@ def test_grads_through_the_shear_warp_launch_its_kernels(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_bwd_at_the_1024_pipes_canvas_on_card(cuda, dtype):
+    """K7-bwd at the 1024^2 pipe's canvas, 2072^2 -> 2060^2 (pass H: 2072
+    source lines, two a thread, and 8264 taps a sample, whose lists leave
+    room for only a quarter of the staged rows a group), both passes over
+    maps that take both rot90 branches and the scale clips, against its
+    plain version, then _rot90_back in pass V; again, equal to the bit."""
+    G = shear_warp.branch_maps(12, cuda)[[4, 10, 11]]
+    plan = shear_warp.shear_plan(G, 2072, 2072, 2060, 2060)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    for ps in shear_warp.warp_passes(plan, 3, 2, 2072, 2060):
+        shape = list(ps.shape)
+        shape[2 + ps.axis] = ps.taps.out_len
+        dz = torch.randn(shape, generator=g, device=cuda).to(dtype)
+        before = shear_resample_bwd.launches
+        dx = shear_resample_bwd(dz, ps.taps, ps.axis, ps.rot)
+        torch.cuda.synchronize()
+        assert shear_resample_bwd.launches - before == 1
+        want = shear_resample_bwd_plain(dz, ps.taps, ps.axis)
+        assert_close(dx, want if ps.rot is None else shear_warp._rot90_back(want, ps.rot), dtype)
+        assert torch.equal(shear_resample_bwd(dz, ps.taps, ps.axis, ps.rot), dx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["rows", "cols"])
+def test_shear_pass_transpose_runs_k8_and_k7_bwd_on_card(cuda, axis):
+    """One _ShearPassT forward at the step's canvas in bf16 (pass V with its
+    rot90 samples) runs three kernels under torch.profiler: the elementwise
+    op of the adjoint shift's start table, K8 and K7-bwd; no sort, search,
+    gather or where. It equals the plain chain, the rot90 samples turned
+    back, within K7-bwd's sums' order."""
+    from torch.profiler import ProfilerActivity, profile
+    G = shear_warp.branch_maps(12, cuda)
+    plan = shear_warp.shear_plan(G, 536, 536, 524, 524)
+    ps = shear_warp.warp_passes(plan, 12, 3, 536, 524)[0 if axis == "rows" else 1]
+    dy = torch.randn(_shape_along(torch.empty(ps.shape, device="meta"), ps.axis, 524),
+                     generator=torch.Generator(device=cuda).manual_seed(7), device=cuda)
+    dy = dy.to(torch.bfloat16)
+    shear_warp._ShearPassT.apply(dy, ps.taps, ps.shift, ps.axis, ps.rot)   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dx = shear_warp._ShearPassT.apply(dy, ps.taps, ps.shift, ps.axis, ps.rot)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(names) == 3 and "elementwise" in names[0] and \
+        "shear::line_kernel" in names[1] and "shear_resample_bwd" in names[2], names
+    want = shear_resample_bwd_plain(shear_shift_plain(dy, ps.shift.adjoint(), ps.axis,
+                                                      ps.taps.out_len), ps.taps, ps.axis)
+    if ps.rot is not None:
+        want = shear_warp._rot90_back(want, ps.rot)
+    assert_close(dx, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
 def test_shear_kernels_raise_on_cuda_input_they_do_not_take(cuda):
     taps = shear_warp.line_taps(torch.tensor([1.5], device=cuda), torch.tensor([0.7], device=cuda),
                                 6, 8)
@@ -818,3 +874,8 @@ def test_shear_kernels_raise_on_cuda_input_they_do_not_take(cuda):
         shear_pass(x, taps, sh._replace(slope=float("inf")), shear_warp.ROWS, 4)
     with pytest.raises(ValueError, match="shared memory"):
         shear_shift(x, sh._replace(slope=2 * shear_warp.SCALE_MAX), shear_warp.ROWS, 4)
+    n = 20000                                   # 2 n taps a sample: past K7-bwd's shared memory
+    wide = shear_warp.line_taps(torch.tensor([3.0], device=cuda), torch.tensor([0.5], device=cuda),
+                                n, 600, pad=300)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        shear_resample_bwd(torch.randn(1, 1, 2, n, device=cuda), wide, shear_warp.COLS)

@@ -24,6 +24,7 @@ The card's cases (each kernel against its plain version, repeats to the
 bit, autograd's launches) are in test_torch_kernels.py, which runs without
 jax.
 """
+import math
 import re
 from pathlib import Path
 
@@ -229,6 +230,186 @@ def test_resample_lists_sum_to_the_plain_adjoint():
         torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
+# ------------------------------------------------------- K7-bwd's lists
+
+def kernel_lists(taps, l0, lines, seed=0):
+    """csrc/shear_resample_bwd.cu:build_lists for the source lines l0 ..
+    l0 + lines - 1 of every sample, step by step: count the taps that land
+    there, scan the counts into starts, place the taps in an order that
+    stands for the shared atomics' (a seeded permutation), then order each
+    line's taps by their key 2 i + tap. Returns a (start [lines + 1], key,
+    weight) a sample."""
+    B, n = taps.i0.shape
+    line = torch.stack([taps.i0, taps.i1], dim=2).reshape(B, 2 * n).long()
+    weight = torch.stack([taps.w0, taps.w1], dim=2).reshape(B, 2 * n)
+    g = torch.Generator().manual_seed(seed)
+    out = []
+    for b in range(B):
+        j = line[b] - l0
+        kept = torch.nonzero((j >= 0) & (j < lines)).flatten()
+        start = torch.zeros(lines + 1, dtype=torch.long)
+        start[1:] = torch.bincount(j[kept], minlength=lines).cumsum(0)
+        placed = kept[torch.randperm(len(kept), generator=g)]
+        # the atomics put each tap somewhere in its line's slots; the sort by key
+        # inside each line leaves the lines in order and each sorted by key
+        key = placed[torch.argsort(j[placed] * 2 * n + placed)]
+        out.append((start, key, weight[b, key]))
+    return out
+
+
+def tile_counts(taps, lines=tsw.V_LINES):
+    """The taps each pass-V tile of K7-bwd collects, [B, tiles], from the lists."""
+    ptr = taps.lists.ptr.long()
+    edges = torch.arange(0, taps.in_len + lines, lines).clamp(max=taps.in_len)
+    return ptr[:, edges[1:]] - ptr[:, edges[:-1]]
+
+
+def extreme_taps(size, out, N=512, seed=0):
+    """Pass-V taps of size^2 -> out^2 under N seeded shifts anywhere and
+    scales of either sign over the whole promise, 1 / SCALE_MAX ... SCALE_MAX
+    (log-uniform), the ends among them."""
+    g = torch.Generator().manual_seed(seed)
+    lo = math.log(1 / tsw.SCALE_MAX)
+    scale = torch.exp(torch.empty(N).uniform_(lo, -lo, generator=g))
+    scale[:8], scale[8:16] = 1 / tsw.SCALE_MAX, tsw.SCALE_MAX
+    scale = scale * torch.where(torch.rand(N, generator=g) < 0.5, -1.0, 1.0)
+    shift = torch.empty(N).uniform_(-4 * size, 4 * size, generator=g)
+    pad = size // 2
+    return tsw.line_taps(shift, scale, out + 2 * pad, size, pad=pad)
+
+
+@pytest.mark.parametrize("case", ["canvas bgc", "canvas edges", "canvas extreme", "odd edges",
+                                  "odd extreme", "large edges"])
+def test_kernel_lists_are_slices_of_the_lists_and_hold_every_tap_once(case):
+    """K7-bwd's lists as its blocks build them (kernel_lists): a pass-V
+    tile's (V_LINES lines, a rot90 sample's V_ROW_BYTES / 2 in bf16 and
+    V_ROW_BYTES / 4 in float32) are the slice of LineTaps.lists from its
+    first line on, hold each tap of the sample in exactly one tile, and fit
+    the room for 2 out_len taps the kernel gives them; a pass-H block's,
+    every tap of its sample, are the lists themselves. Over the pipe's
+    seeded bgc draws and branch_maps at the step's canvas, at 67^2 -> 61^2
+    and at the 512^2 pipe's canvas, 1048^2 -> 1036^2, and over scales
+    across the whole of the plan's range."""
+    size, out = {"odd": (67, 61), "canvas": (536, 524), "large": (1048, 1036)}[case.split()[0]]
+    if case.endswith("extreme"):
+        passes = [("V", extreme_taps(size, out, N=64 if size > 100 else 512))]
+    else:
+        G = canvas_maps() if case == "canvas bgc" else tsw.branch_maps(12)
+        plan = tsw.shear_plan(G, size, size, out, out)
+        passes = [("V", plan.v_taps), ("H", plan.h_taps)]
+    for name, taps in passes:
+        lists = taps.lists
+        B, total = taps.i0.shape[0], 2 * taps.out_len
+        if name == "H":
+            for b, (start, key, weight) in enumerate(kernel_lists(taps, 0, taps.in_len)):
+                assert torch.equal(start, lists.ptr[b].long())
+                assert torch.equal(key // 2, lists.line[b].long())
+                assert torch.equal(weight, lists.weight[b])
+            continue
+        # a block's lines, a rot90 sample's in bf16 and in float32
+        for tile in (tsw.V_LINES, tsw.V_ROW_BYTES // 2, tsw.V_ROW_BYTES // 4):
+            assert int(tile_counts(taps, tile).max()) <= total, (case, tile)
+            seen = torch.zeros(B, total, dtype=torch.long)
+            for l0 in range(0, taps.in_len, tile):
+                lines = min(tile, taps.in_len - l0)
+                for b, (start, key, weight) in enumerate(kernel_lists(taps, l0, lines, seed=l0)):
+                    ptr = lists.ptr[b, l0:l0 + lines + 1].long()
+                    assert torch.equal(start, ptr - ptr[0])
+                    assert torch.equal(key // 2, lists.line[b, ptr[0]:ptr[-1]].long())
+                    assert torch.equal(weight, lists.weight[b, ptr[0]:ptr[-1]])
+                    seen[b, key] += 1
+            assert bool((seen == 1).all()), (case, tile)
+
+
+@pytest.mark.parametrize("case", range(len(RESAMPLE)))
+def test_kernel_lists_sum_like_the_lists_to_the_bit(case):
+    """K7-bwd's sums, emulated over the lists its blocks build (pass V's
+    tiles of V_LINES lines, pass H's whole sample), each element from 0 in
+    float32 in its list's order, equal the sums over LineTaps.lists to the
+    bit, and the plain adjoint to its sums' order."""
+    shift, scale, L, out_len = RESAMPLE[case]
+    taps = tsw.line_taps(torch.from_numpy(shift), torch.from_numpy(scale), out_len, L)
+    B = len(shift)
+    dy = torch.randn(B, 3, out_len, 4, generator=torch.Generator().manual_seed(case))
+    ptr, line, weight = taps.lists
+    want = torch.zeros(B, 3, L, 4)
+    for b in range(B):
+        for l in range(L):
+            for e in range(int(ptr[b, l]), int(ptr[b, l + 1])):
+                want[b, :, l] += weight[b, e] * dy[b, :, int(line[b, e])]
+    for lines in (tsw.V_LINES, 4, L):                   # pass V's tiles, small ones, pass H's
+        got = torch.zeros(B, 3, L, 4)
+        for l0 in range(0, L, lines):
+            n = min(lines, L - l0)
+            for b, (start, key, w) in enumerate(kernel_lists(taps, l0, n, seed=l0)):
+                for j in range(n):
+                    acc = torch.zeros(3, 4)
+                    for e in range(int(start[j]), int(start[j + 1])):
+                        acc = acc + w[e] * dy[b, :, int(key[e]) // 2]
+                    got[b, :, l0 + j] = acc
+        assert torch.equal(got, want), lines
+    torch.testing.assert_close(want, tsw.shear_resample_bwd_plain(dy, taps, tsw.ROWS),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_resample_bwd_with_rot_is_the_adjoint_of_the_select_then_the_resample(dtype):
+    """shear_resample_bwd with rot (K7-bwd's turn back in its store) is
+    _rot90_back of the plain adjoint on the CPU, which is the adjoint of
+    pass V's rot90 select followed by stage 1 (autograd's), over branch_maps
+    at 16^2 and 67^2 -> 61^2; without rot it is the plain adjoint."""
+    for size, out in ((16, 16), (67, 61)):
+        plan = tsw.shear_plan(tsw.branch_maps(12), size, size, out, out)
+        ps = tsw.warp_passes(plan, 12, 2, size, out)[0]
+        g = torch.Generator().manual_seed(size)
+        x = torch.randn(ps.shape, generator=g, dtype=dtype, requires_grad=True)
+        z = tsw.shear_resample_plain(tsw.rot90_select(x, ps.rot), ps.taps, ps.axis)
+        dz = torch.randn(z.shape, generator=g, dtype=dtype)
+        want, = torch.autograd.grad(z, x, dz)
+        got = tsw.shear_resample_bwd(dz, ps.taps, ps.axis, ps.rot)
+        assert torch.equal(got, tsw._rot90_back(tsw.shear_resample_bwd_plain(dz, ps.taps,
+                                                                             ps.axis), ps.rot))
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        assert torch.equal(tsw.shear_resample_bwd(dz, ps.taps, ps.axis),
+                           tsw.shear_resample_bwd_plain(dz, ps.taps, ps.axis))
+
+
+def test_resample_bwd_takes_long_taps_and_refuses_rot_along_columns():
+    """The wrapper takes taps of any length on the CPU, as the card does
+    (its lists have room for every tap of a sample): pass-V taps whose
+    2 out_len is past 2560 and pass-H taps of more than 1024 source lines
+    and 4096 taps equal the plain adjoint, with rot too; rot along columns,
+    or into a non-square output, raises."""
+    def taps_of(out_len, in_len):
+        return tsw.line_taps(torch.tensor([3.0]), torch.tensor([0.5]), out_len, in_len,
+                             pad=in_len // 2)
+
+    g = torch.Generator().manual_seed(5)
+    n = 1281
+    for dy, taps, axis, rot in (
+            (torch.randn(1, 1, n, 8, generator=g), taps_of(n, 600), tsw.ROWS, None),
+            (torch.randn(1, 1, n, 600, generator=g), taps_of(n, 600), tsw.ROWS,
+             torch.tensor([True])),
+            (torch.randn(1, 1, 2, 2085, generator=g), taps_of(2085, 1100), tsw.COLS, None)):
+        want = tsw.shear_resample_bwd_plain(dy, taps, axis)
+        want = want if rot is None else tsw._rot90_back(want, rot)
+        assert torch.equal(tsw.shear_resample_bwd(dy, taps, axis, rot), want)
+    sq = taps_of(6, 8)
+    with pytest.raises(ValueError, match="rot90"):
+        tsw.shear_resample_bwd(torch.randn(1, 1, 8, 6), sq, tsw.COLS, torch.tensor([True]))
+    with pytest.raises(ValueError, match="rot90"):
+        tsw.shear_resample_bwd(torch.randn(1, 1, 6, 5), sq, tsw.ROWS, torch.tensor([True]))
+
+
+def test_bwd_constants_equal_the_kernel_source():
+    """V_LINES and V_ROW_BYTES, the tiles of the lists' emulation, are
+    csrc/shear_resample_bwd.cu's."""
+    src = (Path(tsw.__file__).parents[1] / "csrc" / "shear_resample_bwd.cu").read_text()
+    const = dict(re.findall(r"constexpr int (V_LINES|V_ROW_BYTES) = (\d+);", src))
+    assert {k: int(v) for k, v in const.items()} == {"V_LINES": tsw.V_LINES,
+                                                     "V_ROW_BYTES": tsw.V_ROW_BYTES}
+
+
 def test_wrappers_on_cpu_are_the_plain_versions_and_launch_nothing():
     taps = tsw.line_taps(torch.tensor([1.5]), torch.tensor([0.7]), 6, 8)
     sh = tsw.LineShift(torch.tensor([[1, 0, 2]], dtype=torch.int32), torch.rand(1, 3),
@@ -412,6 +593,30 @@ def test_shear_pass_and_its_transpose_pass_gradcheck(axis, fn):
     t.requires_grad_(True)
     assert torch.autograd.gradcheck(f, (t,))
     assert torch.autograd.gradgradcheck(f, (t,))
+
+
+@pytest.mark.parametrize("size,out", [(536, 524), (1048, 1036), (2072, 2060)])
+def test_shear_warp_backward_at_the_pipes_canvases(size, out):
+    """shear_affine_grid_sample's VJP (_ShearPassT, the rot90 samples turned
+    back by shear_resample_bwd) equals autograd's through the plain stages
+    (rot90_select, shear_resample_plain, shear_shift_plain) in float32, at
+    the canvases of the 256^2, 512^2 and 1024^2 pipes (res + 12, doubled),
+    over maps that take both rot90 branches and the scale clips."""
+    G = tsw.branch_maps(12)[[4, 10, 11]]
+    g = torch.Generator().manual_seed(size)
+    x = torch.randn(3, 1, size, size, generator=g, requires_grad=True)
+    y = tsw.shear_affine_grid_sample(x, G, out, out)
+    dy = torch.randn(y.shape, generator=g)
+    got, = torch.autograd.grad(y, x, dy)
+    plan = tsw.shear_plan(G, size, size, out, out)
+    ref = x
+    for ps in tsw.warp_passes(plan, 3, 1, size, out):
+        src = ref if ps.rot is None else tsw.rot90_select(ref, ps.rot)
+        ref = tsw.shear_shift_plain(tsw.shear_resample_plain(src, ps.taps, ps.axis), ps.shift,
+                                    ps.axis, out)
+    torch.testing.assert_close(y, ref, rtol=0, atol=0)
+    want, = torch.autograd.grad(ref, x, dy)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 # -------------------------------------------------------------- the warp
