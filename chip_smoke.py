@@ -229,7 +229,7 @@ holds them against the port's plain PyTorch paths:
               all_reduces' count and ms a step, peak memory per rank.
  20. shear:   the ADA pipe's shear warp executor (warp_mode="shear",
               ops/shear_warp.py), run after phase 12 on phase 11's G and D;
-              phases 3-12 launch none of its kernels, and 13-19 none either:
+              phases 3-12 launch none of its kernels, and 13-19 and 21 none either:
               (a) K7 (the fused pass: resample then shift in one launch, the
               reflect pad in its taps, pass V's rot90 samples read through
               their map), K7-bwd (its lists built on chip, pass V's rot90
@@ -257,6 +257,20 @@ holds them against the port's plain PyTorch paths:
               K7, K7-bwd, K8 launches per step (K4 and K4-bwd 0), ms, frames/s
               and peak memory beside phase 11's; (d) phase 12's card vs CPU
               with the shear pipe. No path has a resample without its shift.
+ 21. demo:    the quality demo and profile_model, run last (after phase
+              19): (a) `python -m stylegan_v_tpu_torch.train_fvd_demo` in
+              process through its main(argv), at the demo's 64^2 widths
+              (channel_base 8192, 16 videos x 3 frames, bgc, gamma 1), on a
+              32-video moving-pattern zip it writes, for 2 ticks of 10 steps
+              with a snapshot and fvd2048_16f (16 real, 16 generated clips,
+              the demo's random I3D) after each: both FVD rows finite and
+              non-negative, every step's K1, K1-bwd, K4, K4-bwd, K2 launches
+              equal to DEMO_LAUNCHES_PER_STEP (by Gpl, every 4th step at
+              pl_weight 0 as in the JAX demo, and R1), the run's equal to the
+              steps' plus 8 K2 a synthesis outside them, the step's ms from
+              stats.jsonl; (b) profile_model's harness on phase 5's FFS-256 G
+              at 256^2, 4 videos x 8 frames, 2 iterations: s/iter, frames/s,
+              peak memory.
 
 K2's launches are asserted wherever K1's are: per step from the derived
 counts (LAUNCHES_PER_STEP, ADA_LAUNCHES_PER_STEP), per loop run with 12
@@ -4899,6 +4913,150 @@ def phase_shear(dev, smi, G, D, k4_step):
     return kernels, launches[5:], whole, step
 
 
+# Phase 21: the quality demo's step. Per D pass K1 runs once a D block (its
+# resnet skip) and K2 once (the filter before its down=2 conv); per synthesis
+# K2 runs twice a block above 4^2 (k2_per_d, k2_per_synthesis). A step is
+# two syntheses and one backward through one (3 x the synthesis's K2), three
+# D passes and their backwards without R1 (Gmain, Dgen, Dreal), five with
+# it, plus the ADA pipe's K4 and K4-bwd with 2 K2 each (as derived above
+# ADA_LAUNCHES_PER_STEP). At 256^2 (12 K2 a synthesis, 6 D blocks) this is
+# ADA_LAUNCHES_PER_STEP. The demo's setup, as the JAX demo's, keeps the
+# default G_reg_interval=4 at pl_weight=0, so every 4th step also runs Gpl: a
+# synthesis, its backward and the backward of that, 3 x the synthesis's K2
+# more. At the demo's 64^2 (8 K2 a synthesis, 4 D blocks), by (Gpl, R1):
+# (12, 12, 3, 1, 56), with Gpl (12, 12, 3, 1, 80), with both (20, 20, 5, 2, 102).
+def ada_launches_per_step(k2_synthesis, d_blocks):
+    return {False: (3 * d_blocks, 3 * d_blocks, 3, 1, 3 * k2_synthesis + 6 * d_blocks + 8),
+            True: (5 * d_blocks, 5 * d_blocks, 5, 2, 3 * k2_synthesis + 10 * d_blocks + 14)}
+
+
+def demo_launches_per_step(k2_synthesis, d_blocks):
+    """{(do_gpl, do_dr1): the launches of K1, K1-bwd, K4, K4-bwd, K2 a step}."""
+    per_r1 = ada_launches_per_step(k2_synthesis, d_blocks)
+    return {(gpl, r1): per_r1[r1][:4] + (per_r1[r1][4] + (3 * k2_synthesis if gpl else 0),)
+            for gpl in (False, True) for r1 in (False, True)}
+
+
+DEMO_K2_PER_SYNTHESIS, DEMO_D_BLOCKS = 8, 4
+DEMO_LAUNCHES_PER_STEP = demo_launches_per_step(DEMO_K2_PER_SYNTHESIS, DEMO_D_BLOCKS)
+DEMO_ARGS = ["--videos", "32", "--kimg-per-tick", "0.48", "--total-kimg", "0.96",
+             "--snap-ticks", "1", "--fvd-items", "16", "--workers", "3"]   # 2 ticks of 10 steps
+DEMO_STEPS = 20
+PROFILE_SHAPE = (4, 8, 2)        # (b): videos, frames, iterations at 256^2
+
+
+def demo_steps(record):
+    """Wrap training.loop.make_train_step so that every step the loop takes
+    appends ((do_gpl, do_dr1), the kernels' launches in it) to `record`;
+    returns the function that restores it."""
+    from stylegan_v_tpu_torch.training import loop
+    kernels, make = _kernels(), loop.make_train_step
+
+    def wrapped_make(*args, **kwargs):
+        step = make(*args, **kwargs)
+
+        def counted(state, batch, *, do_gpl, do_dr1, **kw):
+            before = tuple(k.launches for k in kernels)
+            out = step(state, batch, do_gpl=do_gpl, do_dr1=do_dr1, **kw)
+            record.append(((do_gpl, do_dr1),
+                           tuple(k.launches - b for k, b in zip(kernels, before))))
+            return out
+        return counted
+
+    loop.make_train_step = wrapped_make
+    return lambda: setattr(loop, "make_train_step", make)
+
+
+def phase_demo(dev, smi, G, tmp):
+    """Phase 21: (a) the quality demo in process for two ticks at 64^2 and
+    (b) profile_model's harness on phase 5's G (`G`). The run goes in `tmp`,
+    its metric cache in a HOME there."""
+    import contextlib
+    import hashlib
+    import io
+    import math
+    import os
+    import zipfile
+    import torch
+    from stylegan_v_tpu_torch import profile_model
+    from stylegan_v_tpu_torch import train_fvd_demo as demo
+    from stylegan_v_tpu_torch.metrics import metric_utils
+
+    check(ada_launches_per_step(K2_PER_SYNTHESIS_256, 6) == ADA_LAUNCHES_PER_STEP,
+          "[21 demo] the per-step derivation does not give phase 11's counts at 256^2")
+    kernels = _kernels()
+    registries = (metric_utils._custom_detectors, metric_utils._custom_detector_tags)
+    registered = [dict(d) for d in registries]
+    home = os.environ.get("HOME")
+    os.environ["HOME"] = os.path.join(tmp, "home")                # the metric stats cache
+    run, data = os.path.join(tmp, "demo"), os.path.join(tmp, "moving64.zip")
+    steps, out = [], io.StringIO()
+    restore = demo_steps(steps)
+    t0 = time.perf_counter()
+    try:
+        for k in kernels:
+            k.launches = 0
+        with contextlib.redirect_stdout(out), SynthesisCalls() as syn:
+            series = demo.main(["--outdir", run, "--data", data, "--device", str(dev)]
+                               + DEMO_ARGS)
+        torch.cuda.synchronize()
+        counts = tuple(k.launches for k in kernels)
+    finally:
+        restore()
+        for d, before in zip(registries, registered):
+            d.clear()
+            d.update(before)
+        if home is None:
+            os.environ.pop("HOME", None)
+        else:
+            os.environ["HOME"] = home
+    seconds = time.perf_counter() - t0
+
+    check(len(series) == 2 and all(math.isfinite(v) and v >= 0 for _, v in series),
+          f"[21 demo] FVD rows {series}")
+    variants = [variant for variant, _ in steps]
+    check(variants == [(i % 4 == 0, i % 16 == 0) for i in range(DEMO_STEPS)],
+          f"[21 demo] the steps' (Gpl, R1): {variants}")
+    for i, (variant, got) in enumerate(steps):
+        check(got == DEMO_LAUNCHES_PER_STEP[variant],
+              f"[21 demo] step {i} (Gpl, R1) = {variant} launched {KERNELS} {got} times, "
+              f"expected {DEMO_LAUNCHES_PER_STEP[variant]}")
+    # the run: its steps' launches, and K2 for every synthesis outside them
+    # (the activation summary, the snapshot grids, the FVD's clips). In a step
+    # SynthesisCalls sees two forwards and a backward, and with Gpl one more
+    # forward and its backward, but not the backward of that backward.
+    in_steps = sum(DEMO_K2_PER_SYNTHESIS * (3 + 2 * gpl) for gpl, _ in variants)
+    want = tuple(sum(DEMO_LAUNCHES_PER_STEP[v][j] for v in variants) for j in range(5))
+    want = want[:4] + (want[4] + syn.k2 - in_steps,)
+    check(counts == want, f"[21 demo] the run launched {KERNELS} {counts} times, expected {want}")
+    last = [json.loads(line) for line in open(os.path.join(run, "stats.jsonl"))][-1]
+    ms = last["Timing/Gmain_Dmain"]["mean"] * 1e3
+    with zipfile.ZipFile(data) as zf:
+        members = hashlib.sha256(b"".join(zf.read(n) for n in sorted(zf.namelist())))
+    ticks = [line for line in out.getvalue().splitlines() if line.startswith("tick ")]
+    print("\n".join(f"[21 demo] {line}" for line in ticks))
+    print(f"[21 demo] (a) train_fvd_demo at 64^2, channel_base 8192, 16 videos x 3 frames, "
+          f"bgc, gamma 1, {DEMO_STEPS} steps in 2 ticks, fvd2048_16f at 16 clips under the "
+          f"demo's random I3D (seed 17): {[(n, float(f'{v:.6g}')) for n, v in series]}; "
+          f"launches {KERNELS} a step {DEMO_LAUNCHES_PER_STEP[False, False]}, with Gpl (every "
+          f"4th) {DEMO_LAUNCHES_PER_STEP[True, False]}, with Gpl and R1 (every 16th) "
+          f"{DEMO_LAUNCHES_PER_STEP[True, True]} (every step asserted), the run {counts} "
+          f"({syn.k2} K2 by G's syntheses); the last tick's Timing/Gmain_Dmain {ms:.2f} ms/step "
+          f"(host, between dispatches, {last['Timing/Gmain_Dmain']['num']} steps); the zip's "
+          f"members' sha256 {members.hexdigest()[:16]}; {seconds:.1f} s on {smi}", flush=True)
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rows = profile_model.profile(G.eval(), [PROFILE_SHAPE[0]], PROFILE_SHAPE[1],
+                                     PROFILE_SHAPE[2])
+    print("\n".join(f"[21 demo] (b) {line}" for line in out.getvalue().splitlines()))
+    check(len(rows) == 1 and rows[0]["frames_per_sec"] > 0 and rows[0]["peak_gib"] > 0,
+          f"[21 demo] profile_model rows {rows}")
+    print(f"[21 demo] (b) profile_model on phase 5's FFS-256 G: {rows[0]['frames_per_sec']:.1f} "
+          f"frames/s at {PROFILE_SHAPE[0]} x {PROFILE_SHAPE[1]}, {PROFILE_SHAPE[2]} iterations, "
+          f"peak {rows[0]['peak_gib']:.2f} GiB on {smi}", flush=True)
+
+
 def package_version(name):
     """The installed version of package `name`, or "absent"."""
     import importlib.metadata
@@ -5097,7 +5255,8 @@ def main() -> int:
     shear = phase_shear(dev, smi, G, D, prestaged)
     lap("20")
     shear_launched = tuple(k.launches for k in _shear_kernels())
-    del G, D
+    del D
+    G.cpu()                                           # phase 21's, off the card until then
     torch.cuda.empty_cache()
     detectors = random_detectors()
     with tempfile.TemporaryDirectory() as tmp:
@@ -5123,8 +5282,11 @@ def main() -> int:
         lap("18")
         moco_ranks = phase_moco_ranks(dev, smi, zip_path, tmp)
         lap("19")
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_demo(dev, smi, G.to(dev), tmp)          # the loop's own TF32 default
+    lap("21")
     after = tuple(k.launches for k in _shear_kernels())
-    check(after == shear_launched, f"phases 13-19 launched {SHEAR_KERNELS} "
+    check(after == shear_launched, f"phases 13-19 and 21 launched {SHEAR_KERNELS} "
                                    f"{tuple(a - b for a, b in zip(after, shear_launched))} times")
     records = kernel_records(k1, k1_bwd, k4, k4_bwd, k2, launches, moco, cli, moco_ranks, shear)
     print(f"[timing] seconds a phase on the host's clock, in the order run: {', '.join(laps)}",

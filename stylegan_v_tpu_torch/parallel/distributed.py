@@ -31,6 +31,7 @@ With one rank nothing here issues a collective.
 from __future__ import annotations
 
 import datetime
+import os
 import socket
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional, Sequence
@@ -338,8 +339,26 @@ def launch(fn: Callable, world_size: int, args: tuple = ()) -> None:
     """Run fn(rank, world_size, init_method, *args) in `world_size` spawned
     processes (torch.multiprocessing.spawn, as the reference's train.py does)
     and wait for all of them. When a rank raises or dies, the others are ended
-    and this raises: no rank is left waiting in a collective. The ranks meet
-    at tcp://localhost on a free port."""
+    and this raises: no rank is left waiting in a collective. The error names
+    every rank that raised, in rank order: torch reports the first rank it
+    sees end, and once one rank has raised, a peer waiting in a collective
+    with it fails too and may be seen first. The ranks meet at
+    tcp://localhost on a free port."""
+    import pickle
     import torch.multiprocessing as mp
     init_method = f"tcp://localhost:{free_port()}"
-    mp.spawn(fn, args=(world_size, init_method) + tuple(args), nprocs=world_size, join=True)
+    context = mp.spawn(fn, args=(world_size, init_method) + tuple(args), nprocs=world_size,
+                       join=False)
+    try:
+        while not context.join():
+            pass
+    except mp.ProcessRaisedException as e:
+        raised = []
+        for rank, path in enumerate(context.error_files):
+            if os.access(path, os.R_OK):
+                with open(path, "rb") as f:
+                    raised.append(f"-- rank {rank} raised:\n{pickle.load(f)}")
+        if len(raised) < 2:
+            raise
+        raise mp.ProcessRaisedException("\n\n" + "\n".join(raised), e.error_index,
+                                        e.error_pid) from None

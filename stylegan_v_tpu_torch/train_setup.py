@@ -62,7 +62,7 @@ class TrainSetup:
     dataset_kwargs: Dict[str, Any]
     sampling_cfg: SamplingConfig
     use_fractional_t: bool
-    total_kimg: int
+    total_kimg: float                        # the quality demo runs fractions of a kimg
     kimg_per_tick: float
     snap_ticks: int
     metrics: List[str]
