@@ -126,9 +126,10 @@ holds them against the port's plain PyTorch paths:
               equal to (a)'s state after them to the bit, and the optimizer
               bytes per rank; (d) the
               loop through the entry point's spawn path (`num_gpus=2
-              --device cuda:0 --dist-backend gloo`) from phase 13's zip: 21
-              steps and a snapshot, then resume=latest, a snapshot and
-              fvd2048_16f over two replicas; (e) nccl at world size 1
+              --device cuda:0 --dist-backend gloo`) on phase 13's zip,
+              resumed from phase 13's last snapshot: a step and a snapshot,
+              then resume=latest, a step, a snapshot and fvd2048_16f over
+              two replicas; (e) nccl at world size 1
               through the entry point under torchrun's environment; (f)
               ms/step of the two ranks (they share one card: not a scaling
               number), the all-reduce's ms and peak memory per rank.
@@ -205,8 +206,8 @@ holds them against the port's plain PyTorch paths:
  19. moco-ranks: phase 17's slice over two ranks sharing the card over gloo,
               spawned as in phase 15: 16 videos x 16 frames a step globally
               in 2 rounds of 8, 4 videos a rank a round, the video D's batch
-              norms over both ranks: (a) three steps with deterministic
-              kernels (R1 first and last), step 1's all-reduced Gmain and
+              norms over both ranks: (a) two steps with deterministic
+              kernels (R1 first), step 1's all-reduced Gmain and
               Dmain gradients against the one-process step on the same
               global batch and draws (phase 17's step) within 3x their noise
               floor (phase 15's rule; checked at the phase's end), every
@@ -219,8 +220,9 @@ holds them against the port's plain PyTorch paths:
               two steps equal to (a)'s state to the bit, optimizer bytes per
               rank; (d) the loop through the entry point's spawn path
               (`model=mocogan num_gpus=2 --device cuda:0 --dist-backend
-              gloo`) on phase 13's zip: 4 steps and a snapshot, then
-              resume=latest, one step and a snapshot, both holding D's
+              gloo`) on phase 13's zip, resumed from phase 17 (d)'s last
+              snapshot: a step and a snapshot, then resume=latest, one step
+              and a snapshot, both holding D's
               groups at 1x and 0.1x; (e) K1 and K1-bwd at one rank's image D
               skips (4 x 16 frames) and K4 and K4-bwd at [4, 48, 536, 536]
               against their plain versions, with phase 17 (b)'s checks and
@@ -257,8 +259,8 @@ holds them against the port's plain PyTorch paths:
               K7, K7-bwd, K8 launches per step (K4 and K4-bwd 0), ms, frames/s
               and peak memory beside phase 11's; (d) phase 12's card vs CPU
               with the shear pipe. No path has a resample without its shift.
- 21. demo:    the quality demo and profile_model, run last (after phase
-              19): (a) `python -m stylegan_v_tpu_torch.train_fvd_demo` in
+ 21. demo:    the quality demo and profile_model, run after phase 19:
+              (a) `python -m stylegan_v_tpu_torch.train_fvd_demo` in
               process through its main(argv), at the demo's 64^2 widths
               (channel_base 8192, 16 videos x 3 frames, bgc, gamma 1), on a
               32-video moving-pattern zip it writes, for 2 ticks of 10 steps
@@ -271,6 +273,26 @@ holds them against the port's plain PyTorch paths:
               stats.jsonl; (b) profile_model's harness on phase 5's FFS-256 G
               at 256^2, 4 videos x 8 frames, 2 iterations: s/iter, frames/s,
               peak memory.
+ 22. gates:   the quality and stability gates, each through its entry
+              point's functions, run last, in phase 21's directory: (a)
+              `validate_detectors` on stand-in TorchScript files for the
+              three detectors (tools/standin_detectors.py: the port's
+              modules with seeded weights, traced, behind a scripted forward
+              on raw uint8 with the reference kwargs) at the full
+              fixture_inputs: the port on the card against the TorchScript
+              on the CPU within max_rel 1e-3 and mean_rel 1e-4, the fixtures
+              file's schema, no kernel launch; (b) `fvd_parity` in stub mode
+              over phase 21's snapshot and a copy with G_ema moved by 0.05,
+              against a reference-format jsonl: the report's fields, K2's 8 a
+              synthesis; (c) `validate_shear_onchip` at 32^2 to 256^2 on the
+              JAX script's draws: PASS at every size (PSNR > 28 dB, finite
+              gradient), ms of the forward and of forward + backward, K7,
+              K7-bwd, K8, K4 and K2 launches per resolution; (d)
+              `soak_train --rounds 2`: phase 11's FFS-256 G and D and step,
+              rounds of 15 main steps and one R1 step, finite, launches 15 x
+              phase 11's per step without R1 and 1 x with, a round; (e)
+              `diag_dynamics` for 10 steps on phase 21's zip, finite, its
+              launches per step as derived at 64^2 without augment.
 
 K2's launches are asserted wherever K1's are: per step from the derived
 counts (LAUNCHES_PER_STEP, ADA_LAUNCHES_PER_STEP), per loop run with 12
@@ -2040,9 +2062,9 @@ def _par_batch(dev):
 
 
 PAR_PLAN = (True, False, False, True)    # R1 first; steps 3 and 4 timed warm
-# phase 19's: R1 first, whose step runs every phase; then steps 2 (without R1) and 3
-# (with R1), each timed after a step that ran its work
-MOCO_PAR_PLAN = (True, False, True)
+# phase 19's: R1 first, whose step runs every phase; then step 2 (without R1),
+# timed after a step that ran its work
+MOCO_PAR_PLAN = (True, False)
 PAR_SEEDS = (11, 12, 13, 14)             # each step's draws: a generator seeded alike everywhere
 
 
@@ -2306,9 +2328,11 @@ def par_steps(dev, smi, tmp):
 
 def par_loop(dev, zip_path, tmp):
     """Phase 15 (d): the loop through the entry point's spawn path, two ranks
-    on `dev` over gloo, from phase 13's zip: 21 steps and a snapshot, then a
-    resumed step, a snapshot and fvd2048_16f over two replicas (the stub
-    detector: the ranks are fresh processes), only rank 0 writing."""
+    on `dev` over gloo, on phase 13's zip: resumed from phase 13's last
+    snapshot (2016 frames, past the run's 1 kimg), one step and a snapshot,
+    then resume=latest: a step, a snapshot and fvd2048_16f over two replicas
+    (the stub detector: the ranks are fresh processes), only rank 0
+    writing."""
     import contextlib
     import io
     import json as _json
@@ -2319,11 +2343,12 @@ def par_loop(dev, zip_path, tmp):
     run = os.path.join(tmp, "run_ranks")
     cache = os.path.join(tmp, "cache_ranks")
     real, gen = METRIC_ITEMS
+    start = os.path.join(tmp, "run", "network-snapshot-000002.pt")    # phase 13's last
     base = [f"dataset.path={zip_path}", "num_gpus=2", "training.batch_size=16",
             "training.kimg=1", "training.kimg_per_tick=0.5", "training.snap=2",
             f"project_release_dir={run}"]
     options = ["--device", str(dev), "--dist-backend", "gloo"]
-    runs = (["training.metrics=[]"],
+    runs = ([f"training.resume={start}", "training.metrics=[]"],
             ["training.resume=latest", "training.metrics=[fvd2048_16f]",
              f"training.metric_kwargs.max_real_override={real}",
              f"training.metric_kwargs.num_gen_override={gen}",
@@ -2353,14 +2378,18 @@ def par_loop(dev, zip_path, tmp):
     stats_rows = [line for line in open(os.path.join(run, "stats.jsonl"))]
     snaps = sorted(n for n in os.listdir(run) if n.endswith(".pt"))
     ticks = [line for line in log.splitlines() if line.startswith("tick ")]
-    check(snaps == ["network-snapshot-000001.pt"] and "Resuming from" in log
+    meta = _json.load(open(os.path.join(run, "network-snapshot-000002.meta.json")))
+    check(snaps == ["network-snapshot-000002.pt"] and meta["cur_nimg"] == 2016 + 2 * 48
+          and f"Resuming from {start}" in log
+          and f"Resuming from {os.path.join(run, snaps[0])}" in log
           and len(rows) == 1 and math.isfinite(rows[0]["results"]["fvd2048_16f"])
-          and len(stats_rows) == len(ticks) == 3,
-          f"[15 ranks] the two-rank loop: snapshots {snaps}, metric rows {rows}, "
-          f"{len(stats_rows)} stats rows for {len(ticks)} ticks")
+          and len(stats_rows) == len(ticks) == 2,
+          f"[15 ranks] the two-rank loop: snapshots {snaps} at {meta['cur_nimg']}, metric "
+          f"rows {rows}, {len(stats_rows)} stats rows for {len(ticks)} ticks")
     print(f"[15 ranks] (d) `python -m stylegan_v_tpu_torch.train num_gpus=2 --device {dev} "
-          f"--dist-backend gloo` from phase 13's zip: 21 steps and a snapshot, then "
-          f"resume=latest: one step, a snapshot and fvd2048_16f over two replicas "
+          f"--dist-backend gloo` on phase 13's zip: resumed from phase 13's snapshot 000002, "
+          f"a step and a snapshot, then resume=latest: a step, a snapshot and fvd2048_16f "
+          f"over two replicas "
           f"({real} / {gen}, stub I3D) {rows[0]['results']['fvd2048_16f']:.4f}; one stats row "
           f"a tick ({len(stats_rows)}), rank 0 alone writing; in {t_loop:.1f} s (the runs "
           f"{t_runs[0]:.1f} and {t_runs[1]:.1f} s, with their spawns); the log's ticks: "
@@ -3973,15 +4002,26 @@ def cli_grid(tmp):
 def cli_launch(dev, zip_path, tmp):
     """Phase 18 (g): `python -m stylegan_v_tpu_torch.launch --allow-dirty --jobs 2`
     on phase 13's zip (job 1: 1 kimg, 21 steps; job 2 resumes at its end and
-    takes one step), then batch_launch --print-only over configs/experiments.yaml."""
+    takes one step), in a release dir whose code snapshot holds phase 2's
+    kernel libraries, then batch_launch --print-only over
+    configs/experiments.yaml."""
     import contextlib
     import io
     import os
+    import shutil
     import yaml
-    from stylegan_v_tpu_torch import batch_launch
+    from stylegan_v_tpu_torch import batch_launch, launch
 
     tag = "[18 cli (g)]"
     run = os.path.join(tmp, "run_launch")
+    # the release dir's code snapshot, made by launch's own copy, with the
+    # libraries phase 2 built beside it: launch keeps a code snapshot it
+    # finds, so the jobs load the kernels instead of building all eight again
+    # (nvcc, about 40 s); their sources are the same, so are their names
+    launch.snapshot_code(os.path.join(run, "code"))
+    shutil.copytree(os.path.join(REPO, "stylegan_v_tpu_torch", "_build"),
+                    os.path.join(run, "code", "stylegan_v_tpu_torch", "_build"),
+                    ignore=shutil.ignore_patterns("*.lock", "*.tmp"))
     cmd = [sys.executable, "-m", "stylegan_v_tpu_torch.launch", f"dataset.path={zip_path}",
            *LAUNCH_ARGS, f"project_release_dir={run}", "--jobs", "2", "--allow-dirty",
            "--device", str(dev)]
@@ -4136,8 +4176,8 @@ def _bn_collectives_ms(shapes, world, dev, repeats: int = 3) -> float:
 
 
 def moco_rank(rank, world_size, init_method, tmp, device):
-    """Phase 19 (a)-(c) on one rank (spawned): three steps of the slice (R1
-    first and last) against the one-process gradients, launches and batch-norm
+    """Phase 19 (a)-(c) on one rank (spawned): two steps of the slice (R1
+    first) against the one-process gradients, launches and batch-norm
     all_reduces per step, times, the consistency check, then ZeRO-1 on the
     first two steps. Writes its findings as JSON."""
     import json as _json
@@ -4262,8 +4302,8 @@ def moco_rank(rank, world_size, init_method, tmp, device):
 
 def moco_ranks_steps(dev, smi, tmp):
     """Phase 19 (a)-(c) and their part of (f): (a) the slice's step over two
-    ranks sharing the card, 4 videos a rank a round, three steps (R1 first and
-    last) with deterministic kernels; step 1's all-reduced Gmain and Dmain
+    ranks sharing the card, 4 videos a rank a round, two steps (R1 first)
+    with deterministic kernels; step 1's all-reduced Gmain and Dmain
     gradients against the one-process step's on the same global batch and
     draws (phase 17's step) within PAR_FLOOR_FACTOR times their noise floor,
     everything finite, augment_p equal on both ranks, the ranks' state (the
@@ -4341,8 +4381,8 @@ def moco_ranks_steps(dev, smi, tmp):
               f"{r['plain']['opt_bytes'] / 2**20:.1f} MiB)" for r in ranks), flush=True)
     for r in ranks:
         ms, ar = r["plain"]["ms"], r["allreduce_ms"]
-        print(f"{tag} (f) rank {r['rank']}: {ms[1]:.1f} ms/step without R1, {ms[2]:.1f} with "
-              f"R1 (first step {ms[0]:.1f}; ZeRO-1's two steps "
+        print(f"{tag} (f) rank {r['rank']}: {ms[1]:.1f} ms/step without R1, {ms[0]:.1f} with "
+              f"R1 (the first step; ZeRO-1's two steps "
               f"{r['zero1']['ms'][0]:.1f}, {r['zero1']['ms'][1]:.1f}); two ranks share one "
               f"card, so this is not a scaling number; the gradient all-reduce {ar['G']:.2f} ms "
               f"for G ({r['allreduce_bytes']['G'] / 2**20:.1f} MiB), {ar['D']:.2f} ms for D "
@@ -4366,8 +4406,9 @@ def moco_ranks_steps(dev, smi, tmp):
 
 def moco_ranks_loop(dev, zip_path, tmp):
     """Phase 19 (d): the loop through the entry point's spawn path, model=
-    mocogan over two ranks on `dev` over gloo, phase 17's overrides, from
-    phase 13's zip: 4 steps (2 ticks) and a snapshot, then resume=latest for
+    mocogan over two ranks on `dev` over gloo, phase 17's overrides, on phase
+    13's zip: resumed from phase 17 (d)'s last snapshot (step 8, 2048 frames,
+    past the run's 1 kimg), one step and a snapshot, then resume=latest for
     one more step and a snapshot; only rank 0 writes; the snapshots' D Adam
     groups 1x and 0.1x, and both ranks' groups equal (the consistency check
     before each snapshot hashes them)."""
@@ -4382,6 +4423,7 @@ def moco_ranks_loop(dev, zip_path, tmp):
 
     tag = "[19 moco-ranks (d)]"
     run = os.path.join(tmp, "run_moco_ranks")
+    start = os.path.join(tmp, "run_moco", "network-snapshot-000002.pt")   # phase 17 (d)'s
     base = [f"dataset.path={zip_path}"] + moco_memory.OVERRIDES + [
         f"training.batch_gpu={MOCO_BATCH_GPU}", "num_gpus=2", "training.kimg=1",
         "training.kimg_per_tick=0.5", "training.snap=2", "training.metrics=[]",
@@ -4392,12 +4434,12 @@ def moco_ranks_loop(dev, zip_path, tmp):
     try:
         with open(os.path.join(tmp, "moco_ranks_stdout.txt"), "w") as f:
             os.dup2(f.fileno(), 1)
-            for extra in ([], ["training.resume=latest"]):
+            for extra in ([f"training.resume={start}"], ["training.resume=latest"]):
                 t0 = time.perf_counter()
                 with contextlib.redirect_stdout(io.StringIO()):
                     entry.main(base + extra)
                 t_runs.append(time.perf_counter() - t0)
-                payload, meta = load_snapshot(os.path.join(run, "network-snapshot-000001.pt"))
+                payload, meta = load_snapshot(os.path.join(run, "network-snapshot-000002.pt"))
                 lrs.append(([g["lr"] for g in payload["opt_D"]["param_groups"]],
                             payload["step"], meta["cur_nimg"]))
     finally:
@@ -4406,22 +4448,25 @@ def moco_ranks_loop(dev, zip_path, tmp):
     log = open(os.path.join(run, "log.txt")).read()
     rows = [_json.loads(line) for line in open(os.path.join(run, "stats.jsonl"))]
     ticks = [line for line in log.splitlines() if line.startswith("tick ")]
-    check([(s, n) for _, s, n in lrs] == [(4, 1024), (5, 1280)],
+    check([(s, n) for _, s, n in lrs] == [(9, 2304), (10, 2560)],
           f"{tag} snapshots at (step, frames) {[(s, n) for _, s, n in lrs]}")
     check(all(len(g) == 2 and g[1] == g[0] * 0.1 for g, _, _ in lrs),
           f"{tag} the snapshots' D Adam groups {[g for g, _, _ in lrs]}")
-    check("Resuming from" in log and "2 ranks (gloo), 8 videos a rank a step" in log
-          and len(rows) == len(ticks) == 3,
+    check(f"Resuming from {start}" in log
+          and f"Resuming from {os.path.join(run, 'network-snapshot-000002.pt')}" in log
+          and "2 ranks (gloo), 8 videos a rank a step" in log
+          and len(rows) == len(ticks) == 2,
           f"{tag} {len(rows)} stats rows for {len(ticks)} ticks; the log: {log[-2000:]}")
     for k in ("Loss/G/loss_video", "Loss/scores/fake_video", "Loss/scores/real_video"):
-        # a value a step from each rank: ticks of 2, 2 and 1 steps
-        check([row[k]["num"] for row in rows] == [4, 4, 2], f"{tag} {k} in the stats rows {rows}")
+        # a value a step from each rank: ticks of one step each
+        check([row[k]["num"] for row in rows] == [2, 2], f"{tag} {k} in the stats rows {rows}")
     for row in rows:
         check(all(math.isfinite(v["mean"]) for k, v in row.items() if k != "timestamp"),
               f"{tag} a non-finite stat in {row}")
     print(f"{tag} `python -m stylegan_v_tpu_torch.train` model=mocogan num_gpus=2 --device "
-          f"{dev} --dist-backend gloo from phase 13's zip, batch_gpu {MOCO_BATCH_GPU}: 4 steps "
-          f"and snapshot 000001, then resume=latest for one step and a snapshot; the "
+          f"{dev} --dist-backend gloo on phase 13's zip, batch_gpu {MOCO_BATCH_GPU}: resumed "
+          f"from phase 17 (d)'s snapshot 000002, a step and a snapshot, then resume=latest "
+          f"for one step and a snapshot; the "
           f"snapshots' D Adam groups lr {[g for g, _, _ in lrs]}, equal on both ranks "
           f"(consistency check); one stats row a tick ({len(rows)}, both logit streams from both "
           f"ranks); in {t_runs[0]:.1f} and {t_runs[1]:.1f} s with their spawns; the log's "
@@ -5057,6 +5102,274 @@ def phase_demo(dev, smi, G, tmp):
           f"peak {rows[0]['peak_gib']:.2f} GiB on {smi}", flush=True)
 
 
+# ---------------------------------------------------------------- phase 22
+# The quality and stability gates, each through its entry point's functions,
+# run last, after phase 21 and in its temporary directory (its run and zip).
+GATE_SEED = 5                    # (a): the stand-in detectors' weights
+GATE_FVD_ITEMS = 16              # (b): max_real, num_gen of the stub-mode sweep
+SHEAR_GATE_RES = (32, 64, 128, 256)   # (c): the validator's resolutions
+SHEAR_GATE_ITERS = 5             # (c): timed calls of each direction
+SOAK_ROUNDS = 2                  # (d): rounds of 15 main steps and one R1 step
+DIAG_STEPS = 10                  # (e)
+
+
+def gate_detectors(dev, smi, tmp):
+    """(a): stand-ins for the three reference detector files
+    (tools/standin_detectors.py: the port's modules with seeded weights,
+    traced at the full fixture_inputs' shapes), validated by
+    validate_detectors.main on the card against their TorchScript on the CPU
+    at the full fixture_inputs: exit 0, every case within the gate, the
+    fixtures file's schema; no K kernel launches."""
+    import contextlib
+    import io
+    import os
+    from stylegan_v_tpu_torch import validate_detectors as vd
+    from stylegan_v_tpu_torch.metrics.metric_utils import DETECTOR_FILES
+    from stylegan_v_tpu_torch.tools import standin_detectors as sd
+
+    tag = "[22 gates (a)]"
+    directory = os.path.join(tmp, "gate_detectors")
+    os.makedirs(directory)
+    t0 = time.perf_counter()
+    for name in sd.NAMES:
+        sd.write_standin(name, os.path.join(directory, DETECTOR_FILES[name]),
+                         vd.fixture_inputs(name)[0][1], vd.CASE_TORCH_KWARGS[name][0],
+                         seed=GATE_SEED)
+    t_write = time.perf_counter() - t0
+    out_path = os.path.join(tmp, "detector_fixtures.json")
+    before = tuple(k.launches for k in _kernels())
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = vd.main(["--detector-dir", directory, "--out", out_path, "--device", str(dev)])
+    t_gate = time.perf_counter() - t0
+    print("\n".join(f"{tag} {line}" for line in out.getvalue().splitlines()), flush=True)
+    check(rc == 0, f"{tag} validate_detectors exited {rc}")
+    launched = tuple(k.launches - b for k, b in zip(_kernels(), before))
+    check(launched == (0,) * 5, f"{tag} the detectors launched {KERNELS} {launched} times")
+    fixtures = json.load(open(out_path))
+    check(set(fixtures) == set(sd.NAMES), f"{tag} fixtures for {sorted(fixtures)}")
+    worst = {}
+    for name, rec in fixtures.items():
+        labels = [label for label, _ in vd.fixture_inputs(name)]
+        check(rec["ok"] is True and rec["input_seed"] == 0 and list(rec["cases"]) == labels,
+              f"{tag} {name}: {rec}")
+        for label, case in rec["cases"].items():
+            check(case["ok"] and case["max_rel"] <= vd.MAX_REL
+                  and case["mean_rel"] <= vd.MEAN_REL and len(case["want_sample"]) == 16,
+                  f"{tag} {name} {label}: {case}")
+        worst[name] = (max(c["max_rel"] for c in rec["cases"].values()),
+                       max(c["mean_rel"] for c in rec["cases"].values()))
+    print(f"{tag} validate_detectors on stand-ins for {', '.join(sd.NAMES)} at the full "
+          f"fixture_inputs: the port on {dev} against the TorchScript on the CPU, worst (max_rel, "
+          f"mean_rel) " + ", ".join(f"{n} ({a:.2e}, {b:.2e})" for n, (a, b) in worst.items())
+          + f" within ({vd.MAX_REL:g}, {vd.MEAN_REL:g}); stand-ins written in {t_write:.1f} s, "
+          f"the gate {t_gate:.1f} s; on {smi}", flush=True)
+
+
+def gate_parity(dev, tmp):
+    """(b): fvd_parity.main in stub mode over phase 21's snapshot and a copy
+    of it with G_ema's parameters moved by 0.05 (phase 21's two ticks both
+    fall in kimg 000000, so its run keeps one file; tests/test_fvd_parity.py
+    makes its second checkpoint so), against a reference-format jsonl:
+    exit 0 or 2, the report's fields, K2 12 a synthesis at 256^2 (8 at the
+    demo's 64^2), nothing else launched."""
+    import contextlib
+    import io
+    import math
+    import os
+    import shutil
+    import torch
+    from stylegan_v_tpu_torch import fvd_parity
+    from stylegan_v_tpu_torch.io.checkpoint import load_snapshot, meta_decode
+    from stylegan_v_tpu_torch.models import Generator
+
+    tag = "[22 gates (b)]"
+    run, data = os.path.join(tmp, "demo"), os.path.join(tmp, "moving64.zip")
+    ckpts = os.path.join(tmp, "parity_ckpts")
+    os.makedirs(ckpts)
+    src = os.path.join(run, "network-snapshot-000000")
+    for ext in (".pt", ".meta.json"):
+        shutil.copy(src + ext, os.path.join(ckpts, "network-snapshot-000000" + ext))
+    payload, meta = load_snapshot(src + ".pt")
+    G = Generator(meta_decode(meta["configs"]["G"]))
+    G.load_state_dict(payload["G_ema"])
+    with torch.no_grad():
+        for p in G.parameters():
+            p.add_(0.05)
+    payload["G_ema"] = G.state_dict()
+    torch.save(payload, os.path.join(ckpts, "network-snapshot-000001.pt"))
+    meta["cur_nimg"] = 1000
+    json.dump(meta, open(os.path.join(ckpts, "network-snapshot-000001.meta.json"), "w"))
+    ref = os.path.join(tmp, "metric-fvd2048_16f.jsonl")
+    with open(ref, "w") as f:
+        for snap, v in (("network-snapshot-000000.pkl", 120.0), ("network-snapshot-000001.pkl", 80.0)):
+            f.write(json.dumps({"results": {"fvd2048_16f": v}, "metric": "fvd2048_16f",
+                                "snapshot_pkl": snap}) + "\n")
+    report_path = os.path.join(tmp, "fvd_parity.json")
+    env = {"SGV_STUB_DETECTORS": "1", "HOME": os.path.join(tmp, "home_parity")}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    kernels, out = _kernels(), io.StringIO()
+    before = tuple(k.launches for k in kernels)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out), SynthesisCalls() as syn:
+            rc = fvd_parity.main(["--data", data, "--ckpts",
+                                  os.path.join(ckpts, "network-snapshot-*"), "--ref-jsonl", ref,
+                                  "--out", report_path, "--max-real", str(GATE_FVD_ITEMS),
+                                  "--num-gen", str(GATE_FVD_ITEMS), "--device", str(dev)])
+        torch.cuda.synchronize()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    seconds = time.perf_counter() - t0
+    launched = tuple(k.launches - b for k, b in zip(kernels, before))
+    print("\n".join(f"{tag} {line}" for line in out.getvalue().splitlines()), flush=True)
+    report = json.load(open(report_path))
+    ra = report["rank_agreement"]
+    check(rc in (0, 2) and report["parity"] == (rc == 0), f"{tag} fvd_parity exited {rc}")
+    check(report["detector_gate"]["status"] == "stubbed"
+          and set(report["ours"]) == {"000000", "000001"}
+          and all(math.isfinite(v) for v in report["ours"].values())
+          and ra["status"] == "ok" and ra["n"] == 2
+          and {"spearman_rho", "kendall_tau", "best_ckpt_agrees", "pairs"} <= set(ra),
+          f"{tag} the report {report}")
+    check(syn.forwards > 0 and launched == (0, 0, 0, 0, syn.k2),
+          f"{tag} launched {KERNELS} {launched} times, expected (0, 0, 0, 0, {syn.k2}) "
+          f"({syn.forwards} syntheses)")
+    print(f"{tag} fvd_parity in stub mode over phase 21's snapshot and a moved copy, "
+          f"fvd2048_16f at {GATE_FVD_ITEMS} real / {GATE_FVD_ITEMS} generated clips: "
+          f"{report['ours']}, rank agreement {ra['spearman_rho']} (best agrees "
+          f"{ra['best_ckpt_agrees']}), exit {rc}; K2 {launched[4]} in {syn.forwards} "
+          f"syntheses; {seconds:.1f} s", flush=True)
+
+
+def gate_shear(dev, smi):
+    """(c): validate_shear_onchip at SHEAR_GATE_RES, the JAX script's draws:
+    PASS at every size (PSNR > 28 dB, finite outputs and gradient), each
+    resolution's K7, K7-bwd, K8, K4 and K2 launches as derived."""
+    from stylegan_v_tpu_torch import validate_shear_onchip as vs
+
+    tag = "[22 gates (c)]"
+    kernels = _kernels() + _shear_kernels()
+    names = ("K1", "K1-bwd", "K4", "K4-bwd", "K2", "K7", "K7-bwd", "K8")
+    # A shear warp's forward is 2 K7 (a pass each) and 2 K2 (the 12-tap 2x up
+    # and down); its backward 2 K8, 2 K7-bwd (phase 20's) and 2 K2 (the
+    # resamples' adjoints). validate runs the forward alone n = iters + 2
+    # times (the compared call, a warm one, the timed ones), forward and
+    # backward as often, and the gather reference once (1 K4, 2 K2).
+    n = SHEAR_GATE_ITERS + 2
+    want = (0, 0, 1, 0, 6 * n + 2, 4 * n, 2 * n, 2 * n)
+    rows = []
+    for res, case in vs.draws(SHEAR_GATE_RES).items():
+        before = tuple(k.launches for k in kernels)
+        r = vs.validate(res, case, dev, SHEAR_GATE_ITERS)
+        got = tuple(k.launches - b for k, b in zip(kernels, before))
+        check(r["ok"], f"{tag} {res}^2: {r}")
+        check(got == want, f"{tag} {res}^2 launched {', '.join(names)} {got} times, "
+                           f"expected {want}")
+        rows.append(r)
+        print(f"{tag} res {res:4d} (B={r['batch']}, canvas {r['canvas']}^2): psnr "
+              f"{r['psnr']:.2f} dB, grad finite {r['grad_finite']}, forward {r['fwd_ms']:.3f} "
+              f"ms, forward + backward {r['fwd_bwd_ms']:.3f} ms (CUDA events, "
+              f"{SHEAR_GATE_ITERS} calls) -> PASS; launches {dict(zip(names, got))}", flush=True)
+    return rows
+
+
+def gate_soak(dev, smi):
+    """(d): soak_train.main for SOAK_ROUNDS rounds: phase 11's FFS-256 G and D
+    (seed 0, channel_base 16384) and step, 15 main steps and one R1 step a
+    round on the fixed batch, every watched stat finite (the soak raises
+    otherwise); the launches, 15 x phase 11's per step without R1 and 1 x
+    with, a round."""
+    import contextlib
+    import io
+    import math
+    import torch
+    from stylegan_v_tpu_torch import soak_train
+
+    tag = "[22 gates (d)]"
+    kernels, out = _kernels(), io.StringIO()
+    before = tuple(k.launches for k in kernels)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        summary = soak_train.main(["--rounds", str(SOAK_ROUNDS), "--device", str(dev)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = tuple(k.launches - b for k, b in zip(kernels, before))
+    per_round = tuple(15 * a + b for a, b in zip(ADA_LAUNCHES_PER_STEP[False],
+                                                 ADA_LAUNCHES_PER_STEP[True]))
+    want = tuple(SOAK_ROUNDS * n for n in per_round)
+    print("\n".join(f"{tag} {line}" for line in out.getvalue().splitlines()), flush=True)
+    check(summary["steps"] == 16 * SOAK_ROUNDS and math.isfinite(summary["augment_p"]),
+          f"{tag} {summary}")
+    check(launched == want, f"{tag} {SOAK_ROUNDS} rounds launched {KERNELS} {launched} times, "
+                            f"expected {want} ({per_round} a round)")
+    print(f"{tag} soak_train --rounds {SOAK_ROUNDS}: {summary['steps']} FFS-256 steps, zero "
+          f"non-finite stats, ADA p {summary['augment_p']:.4f}, {summary['frames_per_s']:.1f} "
+          f"frames/s with the build; launches {KERNELS} {launched} ({per_round} a round); "
+          f"{seconds:.1f} s on {smi}", flush=True)
+    del summary
+    torch.cuda.empty_cache()
+
+
+def gate_dynamics(dev, tmp):
+    """(e): diag_dynamics.main for DIAG_STEPS steps on phase 21's zip at its
+    defaults (64^2, channel_base 8192, 16 x 3, no augment, R1 at step 0):
+    every logged score finite; K1, K1-bwd and K2 per step as derived at 64^2
+    without augment (8 K2 a synthesis, 4 D blocks), K4 and K4-bwd none."""
+    import contextlib
+    import io
+    import math
+    import os
+    import torch
+    from stylegan_v_tpu_torch import diag_dynamics
+
+    tag = "[22 gates (e)]"
+    k2_syn, blocks = DEMO_K2_PER_SYNTHESIS, DEMO_D_BLOCKS
+    per_step = {False: (3 * blocks, 3 * blocks, 0, 0, 3 * k2_syn + 6 * blocks),
+                True: (5 * blocks, 5 * blocks, 0, 0, 3 * k2_syn + 10 * blocks)}
+    want = tuple(sum(per_step[i % 16 == 0][j] for i in range(DIAG_STEPS)) for j in range(5))
+    kernels, out = _kernels(), io.StringIO()
+    before = tuple(k.launches for k in kernels)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        hist, _ = diag_dynamics.main(["--data", os.path.join(tmp, "moving64.zip"),
+                                      "--steps", str(DIAG_STEPS), "--log-every", "1",
+                                      "--device", str(dev)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launched = tuple(k.launches - b for k, b in zip(kernels, before))
+    print("\n".join(f"{tag} {line}" for line in out.getvalue().splitlines() if line),
+          flush=True)
+    check([s for s, _ in hist] == list(range(DIAG_STEPS))
+          and all(math.isfinite(r[k]) for _, r in hist
+                  for k in ("Loss/scores/real", "Loss/scores/fake", "Loss/G/loss")),
+          f"{tag} the logged rows {hist}")
+    check(launched == want, f"{tag} launched {KERNELS} {launched} times, expected {want}")
+    print(f"{tag} diag_dynamics, {DIAG_STEPS} steps on phase 21's zip: Dreal "
+          f"{hist[0][1]['Loss/scores/real']:+.3f} -> {hist[-1][1]['Loss/scores/real']:+.3f}, "
+          f"Dfake {hist[0][1]['Loss/scores/fake']:+.3f} -> {hist[-1][1]['Loss/scores/fake']:+.3f}; "
+          f"launches {KERNELS} {launched}; {seconds:.1f} s", flush=True)
+
+
+def phase_gates(dev, smi, tmp):
+    """Phase 22: (a)-(e) in `tmp`, phase 21's directory."""
+    t_phase, parts = time.perf_counter(), {}
+    for key, fn, args in (("a", gate_detectors, (dev, smi, tmp)), ("b", gate_parity, (dev, tmp)),
+                          ("c", gate_shear, (dev, smi)), ("d", gate_soak, (dev, smi)),
+                          ("e", gate_dynamics, (dev, tmp))):
+        t0 = time.perf_counter()
+        fn(*args)
+        parts[key] = time.perf_counter() - t0
+    print(f"[22 gates] the parts took " + ", ".join(f"({k}) {v:.1f} s" for k, v in parts.items())
+          + f"; phase 22 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def package_version(name):
     """The installed version of package `name`, or "absent"."""
     import importlib.metadata
@@ -5284,10 +5597,15 @@ def main() -> int:
         lap("19")
     with tempfile.TemporaryDirectory() as tmp:
         phase_demo(dev, smi, G.to(dev), tmp)          # the loop's own TF32 default
-    lap("21")
-    after = tuple(k.launches for k in _shear_kernels())
-    check(after == shear_launched, f"phases 13-19 and 21 launched {SHEAR_KERNELS} "
-                                   f"{tuple(a - b for a, b in zip(after, shear_launched))} times")
+        lap("21")
+        after = tuple(k.launches for k in _shear_kernels())
+        check(after == shear_launched, f"phases 13-19 and 21 launched {SHEAR_KERNELS} "
+                                       f"{tuple(a - b for a, b in zip(after, shear_launched))} "
+                                       f"times")
+        del G
+        torch.cuda.empty_cache()
+        phase_gates(dev, smi, tmp)                    # each entry point's own TF32 default
+        lap("22")
     records = kernel_records(k1, k1_bwd, k4, k4_bwd, k2, launches, moco, cli, moco_ranks, shear)
     print(f"[timing] seconds a phase on the host's clock, in the order run: {', '.join(laps)}",
           flush=True)

@@ -58,16 +58,22 @@ def absolute_paths(cfg) -> None:
             cfglib.set_by_path(cfg, key, os.path.abspath(value))
 
 
+def snapshot_code(code_dir: str) -> None:
+    """The port and configs/ copied into code_dir, sources only (no _build)."""
+    os.makedirs(code_dir)
+    for item in ("stylegan_v_tpu_torch", "configs"):
+        shutil.copytree(os.path.join(REPO, item), os.path.join(code_dir, item),
+                        ignore=shutil.ignore_patterns("__pycache__", "_build"))
+
+
 def create_project_dir(cfg, run_dir: str) -> None:
-    """Code snapshot + frozen config (reference infra/utils.py:56-82)."""
+    """Code snapshot + frozen config (reference infra/utils.py:56-82); a code
+    snapshot already in the run dir is kept."""
     from .utils import config as cfglib
     os.makedirs(run_dir, exist_ok=True)
     code_dir = os.path.join(run_dir, "code")
     if not os.path.exists(code_dir):
-        os.makedirs(code_dir)
-        for item in ("stylegan_v_tpu_torch", "configs"):
-            shutil.copytree(os.path.join(REPO, item), os.path.join(code_dir, item),
-                            ignore=shutil.ignore_patterns("__pycache__", "_build"))
+        snapshot_code(code_dir)
     cfglib.save(cfg, os.path.join(run_dir, "experiment_config.yaml"))
 
 

@@ -155,7 +155,10 @@ def test_port_never_imports_jax():
         " 'stylegan_v_tpu_torch.tools.ref_pickle', 'stylegan_v_tpu_torch.models.mocogan',"
         " 'stylegan_v_tpu_torch.project', 'stylegan_v_tpu_torch.clip_edit',"
         " 'stylegan_v_tpu_torch.export_model', 'stylegan_v_tpu_torch.frames_to_video_grid',"
-        " 'stylegan_v_tpu_torch.launch', 'stylegan_v_tpu_torch.batch_launch'}\n"
+        " 'stylegan_v_tpu_torch.launch', 'stylegan_v_tpu_torch.batch_launch',"
+        " 'stylegan_v_tpu_torch.validate_detectors', 'stylegan_v_tpu_torch.fvd_parity',"
+        " 'stylegan_v_tpu_torch.validate_shear_onchip', 'stylegan_v_tpu_torch.soak_train',"
+        " 'stylegan_v_tpu_torch.diag_dynamics', 'stylegan_v_tpu_torch.tools.standin_detectors'}\n"
         "assert new <= set(names) and len(names) >= 26, names\n"
         "assert not bad, bad\n"
         "lazy = [m for m in ('yaml', 'PIL', 'cv2', 'tensorboardX', 'transformers')"
